@@ -1,0 +1,579 @@
+"""Iterative Linear Quadratic Regulator (port of
+``pddp_tpu/controllers/ilqr.py``).
+
+The functional core: rollout, local quadratic model, Riccati backward,
+batched-alpha line search and the accept/retry solve loop. JAX's
+``lax.scan``s are Python loops over the horizon, its ``lax.while_loop``s
+are Python loops with the same status machine, and ``vmap`` over the
+line-search candidates is an explicit candidate axis. Every function
+takes leading batch dims before the time axis (``Z (..., N+1, nz)``), so
+a batch of solves shares one call.
+
+``solve`` can route the backward through K1 (``riccati_mode="kernel"``,
+``ops/backward_kernel.py``) and the line search through K2
+(``fused_rollout=True``, ``ops/fused_rollout.py``); on CPU tensors those
+wrappers run the plain versions below.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from enum import IntEnum
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..encoding import StateEncoding
+from ..utils.constraint import clamp
+from ..utils.evaluation import eval_cost, eval_dynamics
+from ..utils.linalg import SMALL_EIGH_N, small_eigh
+
+__all__ = [
+    "iLQRState",
+    "ILQROptions",
+    "ILQRResult",
+    "rollout",
+    "local_model",
+    "Q",
+    "backward",
+    "control_law",
+    "trajectory_cost",
+    "solve",
+    "step_once",
+    "default_fit_alphas",
+    "default_step_alphas",
+]
+
+
+class iLQRState(IntEnum):
+    """iLQR optimization step state."""
+
+    UNDEFINED = 0
+    ACCEPTED = 1
+    REJECTED = 2
+    NOT_PD = 3
+    MAX_REG = 4
+    CONVERGED = 5
+
+    def should_retry(self):
+        return self in (iLQRState.UNDEFINED, iLQRState.NOT_PD,
+                        iLQRState.REJECTED)
+
+    def is_terminal(self):
+        return self in (iLQRState.CONVERGED, iLQRState.MAX_REG)
+
+
+def default_fit_alphas(dtype=torch.float32, device=None):
+    """Backtracking schedule used by fit: 1.025^(-i^2), i = 0..9."""
+    i = np.arange(10.0)
+    return torch.as_tensor(1.025**(-i**2), dtype=dtype, device=device)
+
+
+def default_step_alphas(dtype=torch.float32, device=None):
+    """Backtracking schedule used by bare step/MPC calls."""
+    return torch.as_tensor(10.0**np.linspace(0.0, -3.0, 11), dtype=dtype,
+                           device=device)
+
+
+@dataclass(frozen=True)
+class ILQROptions:
+    """Solver options (``pddp_tpu``'s fields and defaults).
+
+    ``riccati_mode`` is "scan" (the Python-loop ``backward``) or "kernel"
+    (K1, for action sizes up to ``SMALL_EIGH_N``; others take "scan").
+    ``fused_rollout`` runs the line search in K2 where
+    ``ops.fused_rollout.supports_fused_rollout`` admits the model.
+    Constrained solves (``u_min``/``u_max``), ``v_zz_reg`` and
+    ``riccati_mode="parallel"`` are not ported yet and raise.
+    """
+
+    n_iterations: int = 50
+    tol: float = 5e-6
+    max_reg: float = 1e10
+    mu_min: float = 1e-6
+    delta_0: float = 2.0
+    alphas: Optional[Any] = None
+    u_min: Optional[Any] = None
+    u_max: Optional[Any] = None
+    max_evals: int = 200
+    v_zz_reg: bool = False
+    approximate_hessians: bool = False
+    riccati_mode: str = "scan"
+    fused_rollout: bool = False
+    cost_in_scan: bool = False
+
+
+@dataclass
+class ILQRResult:
+    """Solution and warm-start state of one solve."""
+
+    Z: torch.Tensor          # (N+1, nz) encoded state path
+    U: torch.Tensor          # (N, nu) action path
+    K: torch.Tensor          # (N, nu, nz) feedback gains
+    J_opt: float             # cost
+    state: iLQRState
+    mu: float
+    delta: float
+    iterations: int          # accepted iterations
+    evals: int               # backward + line-search evaluations
+
+
+def _mv(A, x):
+    """Batched matrix-vector product: (..., m, n) x (..., n) -> (..., m)."""
+    return (A @ x[..., None])[..., 0]
+
+
+def _T(A):
+    return A.transpose(-1, -2)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a nest of tuples/lists/dicts (model aux)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack_tree(trees, dim):
+    """Stacks a list of equally-shaped aux nests along ``dim``."""
+    first = trees[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_tree([t[j] for t in trees], dim)
+                           for j in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _stack_tree([t[k] for t in trees], dim) for k in first}
+    return torch.stack(trees, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Forward rollout + local model
+# ---------------------------------------------------------------------------
+
+
+def rollout(model, z0, U, encoding: StateEncoding, u_min=None, u_max=None):
+    """Sequential rollout recording the per-step model aux.
+
+    Returns (Z (..., N+1, nz), AUX stacked over time at dim -2 of each
+    leaf's batch, i.e. one entry per step).
+    """
+    N = U.shape[-2]
+    z, mstate = z0, model.init_state(batch_shape=z0.shape[:-1])
+    Zs, auxs = [z0], []
+    for i in range(N):
+        u = U[..., i, :]
+        if u_min is not None and u_max is not None:
+            u = clamp(u, u_min, u_max)
+        z, mstate, aux = model.step(z, u, i, mstate, encoding)
+        Zs.append(z)
+        auxs.append(aux)
+    return torch.stack(Zs, dim=-2), _stack_tree(auxs, dim=0)
+
+
+def local_model(Z, U, AUX, model, cost,
+                encoding: StateEncoding = StateEncoding.DEFAULT,
+                model_opts=None, cost_opts=None, u_min=None, u_max=None,
+                approximate_hessians=False):
+    """Local quadratic model of an already-rolled-out trajectory.
+
+    No sequential loop: the cost's closed form (or vmapped autodiff)
+    and the vmapped dynamics Jacobians cover all N steps at once.
+
+    Returns:
+        (Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu), contiguous, with
+        L/L_z/L_zz covering N+1 entries (terminal included).
+    """
+    model_opts = model_opts or {}
+    cost_opts = cost_opts or {}
+    N = U.shape[0]
+    Z_run = Z[:-1]
+    U_eff = U
+    if u_min is not None and u_max is not None:
+        U_eff = clamp(U, u_min, u_max)
+    idx = torch.arange(N, device=Z.device)
+
+    cost_batch = None
+    deriv_fn = getattr(cost, "eval_derivatives", None)
+    if deriv_fn is not None and not approximate_hessians:
+        cost_batch = deriv_fn(Z_run, U_eff, idx, terminal=False,
+                              encoding=encoding,
+                              approximate=approximate_hessians, **cost_opts)
+    if cost_batch is None:
+        def cost_one(z, u, i):
+            return eval_cost(cost, z, u, i, terminal=False,
+                             encoding=encoding,
+                             approximate=approximate_hessians, **cost_opts)
+
+        cost_batch = torch.func.vmap(cost_one)(Z_run, U_eff, idx)
+    L_run, L_z_run, L_u, L_zz_run, L_uz, L_uu = cost_batch
+
+    def dyn_one(z, u, i, aux):
+        return eval_dynamics(model, z, u, i, encoding=encoding, aux=aux,
+                             **model_opts)
+
+    aux_dims = _tree_map(lambda _: 0, AUX)
+    _, F_z, F_u = torch.func.vmap(dyn_one, in_dims=(0, 0, 0, aux_dims))(
+        Z_run, U_eff, idx, AUX)
+
+    l_T, l_z_T, _, l_zz_T, _, _ = eval_cost(
+        cost, Z[-1], None, N, terminal=True, encoding=encoding,
+        approximate=approximate_hessians, **cost_opts)
+
+    L = torch.cat([L_run, l_T[None]])
+    L_z = torch.cat([L_z_run, l_z_T[None]])
+    L_zz = torch.cat([L_zz_run, l_zz_T[None]])
+    return tuple(t.contiguous() for t in
+                 (Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu))
+
+
+# ---------------------------------------------------------------------------
+# Backward Riccati recursion
+# ---------------------------------------------------------------------------
+
+
+def Q(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, V_z, V_zz):
+    """Q-function derivatives, symmetrized; batched over leading dims."""
+    Q_z = L_z + _mv(_T(F_z), V_z)
+    Q_u = L_u + _mv(_T(F_u), V_z)
+    V_zz_F_z = V_zz @ F_z
+    Q_zz = L_zz + _T(F_z) @ V_zz_F_z
+    Q_zz = 0.5 * (Q_zz + _T(Q_zz))
+    Q_uz = L_uz + _T(F_u) @ V_zz_F_z
+    Q_uu = L_uu + _T(F_u) @ (V_zz @ F_u)
+    Q_uu = 0.5 * (Q_uu + _T(Q_uu))
+    return Q_z, Q_u, Q_zz, Q_uz, Q_uu
+
+
+def _psd_clamp_with_reg(Q_uu, reg):
+    """(Q_uu_reg, Q_uu_inv) by eigenvalue clamping at 1e-12 plus ``reg``:
+    closed form for 1x1 action blocks, fixed-sweep Jacobi (``small_eigh``)
+    up to ``SMALL_EIGH_N``, ``torch.linalg.eigh`` past it."""
+    m = Q_uu.shape[-1]
+    floor = torch.tensor(1e-12, dtype=Q_uu.dtype, device=Q_uu.device)
+    if m == 1:
+        e = torch.where(Q_uu < 0, floor, Q_uu) + reg
+        return e, 1.0 / e
+    if m <= SMALL_EIGH_N:
+        e, E = small_eigh(Q_uu, sort=False)
+    else:
+        e, E = torch.linalg.eigh(0.5 * (Q_uu + _T(Q_uu)))
+    e = torch.where(e < 0, floor, e) + reg
+    Q_uu_reg = (E * e[..., None, :]) @ _T(E)
+    Q_uu_inv = (E / e[..., None, :]) @ _T(E)
+    return Q_uu_reg, Q_uu_inv
+
+
+def backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0,
+             v_zz_reg=False, u_min=None, u_max=None, U=None):
+    """Unconstrained, Q_uu-regularized Riccati backward as a reverse loop.
+
+    Also K1's plain version (``ops/backward_kernel.py``). Inputs carry
+    leading batch dims before the time axis.
+
+    Returns:
+        (k (..., N, nu), K (..., N, nu, nz), ok (...) bool): ok is False
+        where a gain went non-finite anywhere in the recursion.
+    """
+    if v_zz_reg:
+        raise NotImplementedError("v_zz_reg is not ported yet (ROADMAP A8)")
+    if u_min is not None or u_max is not None:
+        raise NotImplementedError(
+            "the constrained (box-QP) backward is not ported yet "
+            "(ROADMAP A8)")
+    N = L_u.shape[-2]
+    V_z = L_z[..., N, :]
+    V_zz = L_zz[..., N, :, :]
+    ks, Ks = [None] * N, [None] * N
+    for i in range(N - 1, -1, -1):
+        Q_z, Q_u, Q_zz, Q_uz, Q_uu = Q(
+            F_z[..., i, :, :], F_u[..., i, :, :], L_z[..., i, :],
+            L_u[..., i, :], L_zz[..., i, :, :], L_uz[..., i, :, :],
+            L_uu[..., i, :, :], V_z, V_zz)
+        _, Q_uu_inv = _psd_clamp_with_reg(Q_uu, reg)
+        k_i = -_mv(Q_uu_inv, Q_u)
+        K_i = -(Q_uu_inv @ Q_uz)
+        # V updates use the unregularized Q_uu/Q_uz with correction terms,
+        # since k, K came from the regularized Q_uu.
+        K_iT = _T(K_i)
+        V_z = (Q_z + _mv(K_iT, Q_u) + _mv(K_iT, _mv(Q_uu, k_i))
+               + _mv(_T(Q_uz), k_i))
+        V_zz = Q_zz + K_iT @ (Q_uu @ K_i) + K_iT @ Q_uz + _T(Q_uz) @ K_i
+        V_zz = 0.5 * (V_zz + _T(V_zz))
+        ks[i], Ks[i] = k_i, K_i
+    k = torch.stack(ks, dim=-2)
+    K = torch.stack(Ks, dim=-3)
+    ok = (torch.isfinite(k).flatten(-2).all(-1)
+          & torch.isfinite(K).flatten(-3).all(-1))
+    return k, K, ok
+
+
+# ---------------------------------------------------------------------------
+# Line search
+# ---------------------------------------------------------------------------
+
+
+def control_law(model, Z, U, k, K, alphas,
+                encoding: StateEncoding = StateEncoding.DEFAULT,
+                model_opts=None, u_min=None, u_max=None,
+                cost=None, cost_opts=None, with_aux=False,
+                cost_in_scan=False):
+    """Batched-alpha closed-loop rollout; also K2's plain version.
+
+    All A candidates roll out at once along a candidate axis. With
+    ``cost`` the candidate costs come from one batched post-pass after
+    the loop, or, with ``cost_in_scan``, accumulate step by step inside
+    it (K2's order of summation).
+
+    Args:
+        Z (..., N+1, nz), U (..., N, nu), k (..., N, nu),
+        K (..., N, nu, nz), alphas (A,).
+
+    Returns:
+        (Z_new (..., N+1, A, nz), U_new (..., N, A, nu))
+        [, J (..., A) when cost is given]
+        [, AUX (one entry per step, each (..., A, ...)) when with_aux].
+    """
+    model_opts = model_opts or {}
+    cost_opts = cost_opts or {}
+    A = alphas.shape[0]
+    N = U.shape[-2]
+    batch = Z.shape[:-2]
+    in_scan = cost is not None and cost_in_scan
+
+    z = Z[..., 0, None, :].expand(batch + (A,) + Z.shape[-1:])
+    mstate = model.init_state(batch_shape=batch + (A,))
+    a_col = alphas[:, None]
+    J = 0.0
+    Zs, Us, auxs = [z], [], []
+    for i in range(N):
+        dz = z - Z[..., i, None, :]
+        du = a_col * k[..., i, None, :] + dz @ _T(K[..., i, :, :])
+        u = U[..., i, None, :] + du
+        if u_min is not None and u_max is not None:
+            u = clamp(u, u_min, u_max)
+        if in_scan:
+            J = J + cost(z, u, i, terminal=False, encoding=encoding,
+                         **cost_opts)
+        z, mstate, aux = model.step(z, u, i, mstate, encoding, **model_opts)
+        Zs.append(z)
+        Us.append(u)
+        auxs.append(aux)
+
+    Z_new = torch.stack(Zs, dim=-3)
+    U_new = torch.stack(Us, dim=-3)
+    result = (Z_new, U_new)
+    if cost is not None:
+        if in_scan:
+            J = J + cost(z, None, N, terminal=True, encoding=encoding,
+                         **cost_opts)
+        else:
+            J = trajectory_cost(cost, Z_new, U_new, encoding, cost_opts)
+        result = result + (J,)
+    if with_aux:
+        result = result + (_stack_tree(auxs, dim=0),)
+    return result
+
+
+def trajectory_cost(cost, Z, U, encoding: StateEncoding = StateEncoding.DEFAULT,
+                    cost_opts=None):
+    """Total trajectory cost, batched over the dims after time.
+
+    Z: (N+1, ..., nz), U: (N, ..., nu), or with leading solve dims as
+    ``control_law`` returns them: the time axis is dim -3 of Z when Z has
+    more than two dims. Returns the summed cost over time.
+    """
+    cost_opts = cost_opts or {}
+    t_dim = 0 if Z.dim() <= 2 else Z.dim() - 3
+    N = U.shape[t_dim]
+    Zm = Z.movedim(t_dim, 0)
+    Um = U.movedim(t_dim, 0)
+    idx = torch.arange(N, device=Z.device).reshape(
+        (N,) + (1,) * (Um.dim() - 2))
+    L = cost(Zm[:-1], Um, idx, terminal=False, encoding=encoding,
+             **cost_opts)
+    l_T = cost(Zm[-1], None, N, terminal=True, encoding=encoding, **cost_opts)
+    return L.sum(dim=0) + l_T
+
+
+# ---------------------------------------------------------------------------
+# The solve loop
+# ---------------------------------------------------------------------------
+
+
+def _increase_reg(mu, delta, mu_min, delta_0):
+    """Tassa schedule increase."""
+    delta = np.maximum(1.0, delta) * delta_0
+    mu = np.maximum(mu_min, mu * delta)
+    return mu, delta
+
+
+def _decrease_reg(mu, delta, mu_min, delta_0):
+    """Tassa schedule decrease."""
+    delta = np.minimum(1.0, delta) / delta_0
+    mu = mu * delta
+    mu = type(mu)(0.0) if mu <= mu_min else mu
+    return mu, delta
+
+
+def _check_options(opts: ILQROptions):
+    if opts.u_min is not None or opts.u_max is not None:
+        raise NotImplementedError(
+            "constrained solves (u_min/u_max, the box-QP backward) are not "
+            "ported yet (ROADMAP A8)")
+    if opts.v_zz_reg:
+        raise NotImplementedError("v_zz_reg is not ported yet (ROADMAP A8)")
+    if opts.riccati_mode == "parallel":
+        raise NotImplementedError(
+            "riccati_mode='parallel' is not ported yet (ROADMAP A13)")
+    if opts.riccati_mode not in ("scan", "kernel"):
+        raise ValueError("unknown riccati_mode {!r}".format(
+            opts.riccati_mode))
+
+
+def _param_dtypes(obj):
+    return [v.dtype for v in vars(obj).values()
+            if isinstance(v, torch.Tensor) and v.is_floating_point()]
+
+
+def _solve_dtype(z0, U0, model, cost):
+    """The promoted floating dtype of the inputs and every parameter
+    tensor of the model and cost (what JAX's solve probes abstractly)."""
+    dtype = torch.promote_types(z0.dtype, U0.dtype)
+    for d in _param_dtypes(model) + _param_dtypes(cost):
+        dtype = torch.promote_types(dtype, d)
+    return dtype
+
+
+def solve(model, cost, z0, U0, opts: ILQROptions,
+          encoding: StateEncoding = StateEncoding.DEFAULT,
+          model_opts=None, cost_opts=None, mu0=0.0, delta0=None,
+          n_iterations=None, on_iteration=None) -> ILQRResult:
+    """Full iLQR solve with the reference's fit/step structure.
+
+    The outer loop refreshes the local quadratic model once per accepted
+    step; the inner loop retries backward + line search with escalating
+    regularization until a step is accepted, the regularization exceeds
+    ``max_reg`` or ``max_evals`` evaluations are spent. The solve runs on
+    the device of ``z0``/``U0``; the scalars of the status machine (J,
+    mu, delta) stay on the host in the solve's dtype, one transfer per
+    evaluation.
+
+    Args:
+        on_iteration: optional callback (iteration, state, Z, U, J),
+            called once per outer iteration.
+    """
+    _check_options(opts)
+    N, nu = U0.shape
+    nz = z0.shape[-1]
+    dtype = _solve_dtype(z0, U0, model, cost)
+    device = U0.device
+    z0 = z0.to(dtype)
+    U0 = U0.to(dtype)
+    sc = np.dtype(str(dtype).replace("torch.", "")).type
+
+    alphas = (default_fit_alphas(dtype, device) if opts.alphas is None
+              else torch.as_tensor(opts.alphas, dtype=dtype, device=device))
+    n_iter = opts.n_iterations if n_iterations is None else n_iterations
+    tol, max_reg = sc(opts.tol), sc(opts.max_reg)
+    mu_min, delta_0 = sc(opts.mu_min), sc(opts.delta_0)
+
+    def local_fn(Z, U, AUX):
+        return local_model(Z, U, AUX, model, cost, encoding, model_opts,
+                           cost_opts,
+                           approximate_hessians=opts.approximate_hessians)
+
+    def backward_fn(derivs, mu):
+        mode = opts.riccati_mode
+        if mode == "kernel":
+            from ..ops.backward_kernel import (kernel_backward,
+                                               supports_kernel_backward)
+            if supports_kernel_backward(derivs[5], derivs[1]):
+                return kernel_backward(*derivs, reg=float(mu))
+        return backward(*derivs, reg=float(mu))
+
+    def line_search_fn(Z, U, k, K_new):
+        if opts.fused_rollout and not model_opts:
+            from ..ops.fused_rollout import (fused_control_law,
+                                             supports_fused_rollout)
+            if supports_fused_rollout(model, cost, encoding):
+                return fused_control_law(
+                    model, Z, U, k, K_new, alphas, encoding, cost=cost,
+                    cost_opts=cost_opts, with_aux=True)
+        return control_law(model, Z, U, k, K_new, alphas, encoding,
+                           model_opts, cost=cost, cost_opts=cost_opts,
+                           with_aux=True, cost_in_scan=opts.cost_in_scan)
+
+    # One rollout up front; afterwards the accepted trajectory always
+    # comes out of the line search, with its aux recorded.
+    Z, AUX = rollout(model, z0, U0, encoding)
+    U = U0
+    derivs = local_fn(Z, U, AUX)
+    J_opt = sc(derivs[3].sum().item())
+    K = torch.zeros((N, nu, nz), dtype=dtype, device=device)
+    mu = sc(mu0)
+    delta = sc(opts.delta_0 if delta0 is None else delta0)
+    state = iLQRState.UNDEFINED
+    accepted = evals = 0
+
+    while (not state.is_terminal() and accepted < n_iter
+           and evals < opts.max_evals):
+        state = iLQRState.UNDEFINED
+        accept = False
+        retry = True
+        while retry and evals < opts.max_evals:
+            k, K_new, ok = backward_fn(derivs, mu)
+            Z_b, U_b, J_b, AUX_b = line_search_fn(derivs[0], U, k, K_new)
+            # A diverged candidate gives NaN, which argmin would pick:
+            # non-finite candidates count as +inf instead.
+            amin = torch.argmin(torch.where(torch.isfinite(J_b), J_b,
+                                            torch.inf))
+            # The one transfer of the evaluation: ok, J and the winner.
+            ok_h, J_new, amin = torch.stack(
+                [ok.to(dtype), J_b[amin], amin.to(dtype)]).tolist()
+            J_new, amin = sc(J_new), int(amin)
+
+            accept = bool(ok_h) and bool(np.isfinite(J_new)) and J_new < J_opt
+            converged = accept and abs(J_opt - J_new) / J_opt < tol
+            mu_inc, delta_inc = _increase_reg(mu, delta, mu_min, delta_0)
+            mu_dec, delta_dec = _decrease_reg(mu, delta, mu_min, delta_0)
+            reg_exceeded = mu_inc >= max_reg
+            if accept:
+                state = (iLQRState.CONVERGED if converged
+                         else iLQRState.ACCEPTED)
+                Z = Z_b[:, amin].contiguous()
+                U = U_b[:, amin].contiguous()
+                K, J_opt = K_new, J_new
+                AUX = _tree_map(lambda a: a[:, amin], AUX_b)
+                mu, delta = mu_dec, delta_dec
+            else:
+                state = (iLQRState.MAX_REG if reg_exceeded else
+                         iLQRState.REJECTED if ok_h else iLQRState.NOT_PD)
+                mu, delta = mu_inc, delta_inc
+            evals += 1
+            retry = not accept and not reg_exceeded
+
+        if accept:
+            derivs = local_fn(Z, U, AUX)
+            accepted += 1
+        if on_iteration is not None:
+            on_iteration(accepted - 1, state, Z, U, float(J_opt))
+
+    return ILQRResult(Z=Z, U=U, K=K, J_opt=float(J_opt), state=state,
+                      mu=float(mu), delta=float(delta), iterations=accepted,
+                      evals=evals)
+
+
+def step_once(model, cost, z0, U0, opts: ILQROptions,
+              encoding: StateEncoding = StateEncoding.DEFAULT,
+              model_opts=None, cost_opts=None, mu0=0.0,
+              delta0=None) -> ILQRResult:
+    """A single iLQR step with retry semantics (the MPC path)."""
+    if opts.alphas is None:
+        opts = dataclasses.replace(
+            opts, alphas=default_step_alphas(U0.dtype, U0.device))
+    return solve(model, cost, z0, U0, opts, encoding=encoding,
+                 model_opts=model_opts, cost_opts=cost_opts, mu0=mu0,
+                 delta0=delta0, n_iterations=1)
