@@ -8,10 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``pddp_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, solves the golden cartpole
 problem through them in float64 and float32 against
-``tests/golden/solver_trajectories.npz``, and times the main path (the
-known-dynamics cartpole iLQR solve, horizon 200, ten step sizes) through
-the kernels and through the plain versions. Each phase prints one JSON
-line; any failure raises and exits non-zero. The last line is
+``tests/golden/solver_trajectories.npz``, and times the two paths through
+the kernels and through the plain versions: the known-dynamics cartpole
+iLQR solve (horizon 200, ten step sizes; phases 1-5) and the belief-state
+BNN iteration and solve (100 particles, net 6-200-200-8, Cholesky belief,
+horizon 25; phases 7-9). Each phase prints one JSON line; any failure
+raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result. It imports neither JAX nor ``pddp_tpu``.
 """
@@ -573,7 +575,404 @@ def phase5_main_path(card):
     return res, derivs
 
 
-def phase6_kernels(res, derivs):
+# ---------------------------------------------------------------------------
+# The belief-state BNN path: K2 stage (d) and its fragment entries
+# ---------------------------------------------------------------------------
+
+TRAINED = os.path.join(ROOT, "tests", "golden", "trained_bnn_cartpole.npz")
+BNN_JITTER = (1e-12, 1e-6)
+# K2(d) and F1-F3 against their plain versions, relative to the largest
+# value of each output. float64: the same arithmetic in another order of
+# sums. float32: over one or two steps; at N=25 the candidates' J within
+# 1e-3 (the trajectories amplify the f32 rounding, and the best J values
+# sit within 2e-4 of each other).
+BNN_TOL = {"float64": 1e-10, "float32": 1e-4, "float32_J_N25": 1e-3,
+           "F_float32": 1e-5}
+
+
+def bnn_model(torch, dtype, N, trained):
+    """The bench.py:280 configuration: 4 states, 1 action, net 6-200-200-8,
+    100 particles, horizon N + 1, the 2-rung ladder; the trained cartpole
+    weights or an untrained net from seed 0."""
+    from pddp_tpu_torch.models.bnn import (bnn_dynamics_model_factory,
+                                           load_bnn_npz)
+    cls = bnn_dynamics_model_factory(4, 1, [200, 200], angular_indices=(2,),
+                                     non_angular_indices=(0, 1, 3))
+    model = cls.init(seed=0, n_particles=100, horizon=N + 1, dtype=dtype,
+                     device="cuda", chol_jitter=BNN_JITTER)
+    return load_bnn_npz(model, TRAINED) if trained else model
+
+
+def bnn_start(torch, dtype, N):
+    from pddp_tpu_torch.encoding import StateEncoding, encode
+    z0 = encode(torch.zeros(4, dtype=dtype, device="cuda"),
+                V=1e-2 * torch.ones(4, dtype=dtype, device="cuda"),
+                encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
+    return z0, torch.full((N, 1), 0.1, dtype=dtype, device="cuda")
+
+
+def bnn_inputs(torch, dtype, N, trained, B, rng):
+    """Model, cost and (Z, U, k, K) of one reg=1 backward pass around the
+    rollout of U = 0.1; for B > 1 the gains are perturbed per solve."""
+    from pddp_tpu_torch.controllers.ilqr import backward, local_model, rollout
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    model = bnn_model(torch, dtype, N, trained)
+    cost = CartpoleCost(device="cuda", dtype=dtype)
+    z0, U = bnn_start(torch, dtype, N)
+    Z, AUX = rollout(model, z0, U, ch)
+    k, K, ok = backward(*local_model(Z, U, AUX, model, cost, ch), reg=1.0)
+    check(bool(ok), "non-finite gains at the BNN inputs")
+    if B == 1:
+        return model, cost, (Z, U, k, K)
+
+    def noise(t):
+        return t * torch.as_tensor(
+            1.0 + 0.01 * rng.standard_normal((B,) + tuple(t.shape)),
+            dtype=dtype, device="cuda")
+    return model, cost, (Z.expand((B,) + Z.shape).contiguous(),
+                         U.expand((B,) + U.shape).contiguous(),
+                         noise(k).contiguous(), noise(K).contiguous())
+
+
+def fragment_inputs(torch, model, dtype, G, rng, singular=False):
+    """F1-F3 inputs at the main path's shapes: G groups of P particles."""
+    n, P = 4, model.n_particles
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    Uc = t(np.triu(0.3 * rng.standard_normal((G, n, n)))
+           + 0.5 * np.eye(n))
+    if singular:
+        Uc[G // 2, 2, 2] = 0.0
+    D = t(rng.standard_normal((G, P, n)))
+    eps0 = model.eps_in[1].contiguous()
+    particles = t(0.1 * rng.standard_normal((G, P, n)))
+    x = t(rng.standard_normal((G, P, 6)))
+    return Uc, D, eps0, particles, x
+
+
+def fragment_errors(torch, model, ins, first):
+    """Max abs and relative errors of F1, F2, F3 against their plain
+    versions on the same inputs."""
+    from pddp_tpu_torch.models.bnn import infer_eps
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    Uc, D, eps0, particles, x = ins
+    F1 = rel_err(fb.infer_eps(Uc, D, eps0, first),
+                 infer_eps(Uc, D, eps0, first))
+    z_k, U_k = fb.moment_match(particles, BNN_JITTER)
+    z_p, U_p = fb.moment_match(particles.cpu(), BNN_JITTER)
+    F2 = max(rel_err(z_k.cpu(), z_p), rel_err(U_k.cpu(), U_p))
+    F3 = rel_err(fb.mlp(model.net, x), model.net(x))
+    torch.cuda.synchronize()
+    return {"F1": F1, "F2": F2, "F3": F3}
+
+
+def phase7_bnn_kernels():
+    """K2(d), F1, F2 and F3 against their plain versions on the card."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (control_law,
+                                                 default_fit_alphas,
+                                                 trajectory_cost)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    rows, frags = [], []
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        alphas = default_fit_alphas(dtype, "cuda")
+        for N, trained in ((1, False), (2, False), (25, True)):
+            for B in (1, 64):
+                rng = np.random.default_rng(7 * N + B)
+                model, cost, ins = bnn_inputs(torch, dtype, N, trained, B,
+                                              rng)
+                kern = fb.fused_bnn_control_law(model, *ins, alphas, ch)
+                plain = control_law(model, *ins, alphas, ch, with_aux=True)
+                J_k = trajectory_cost(cost, kern[0], kern[1], ch)
+                J_p = trajectory_cost(cost, plain[0], plain[1], ch)
+                torch.cuda.synchronize()
+                row = {"dtype": dname, "N": N, "B": B, "trained": trained,
+                       "finite": all(bool(torch.isfinite(p).all())
+                                     for p in plain)}
+                for name, a, p in zip(("Z", "U", "AUX"), kern, plain):
+                    row[name + "_abs"], row[name + "_rel"] = rel_err(a, p)
+                J_rel = ((J_k - J_p).abs() / J_p.abs()).max()
+                row["J_rel_max_over_candidates"] = float(J_rel)
+                row["tol"] = (BNN_TOL["float32_J_N25"]
+                              if dname == "float32" and N > 2
+                              else BNN_TOL[dname])
+                rows.append(row)
+        model = bnn_model(torch, dtype, 2, False)
+        for G, singular, first in ((10, False, False), (10, True, False),
+                                   (10, False, True), (640, False, False)):
+            ins = fragment_inputs(torch, model, dtype, G,
+                                  np.random.default_rng(G), singular)
+            err = fragment_errors(torch, model, ins, first)
+            frags.append({"dtype": dname, "G": G, "P": model.n_particles,
+                          "F1_fallback_group": singular, "first": first,
+                          **{k: {"abs": v[0], "rel": v[1]}
+                             for k, v in err.items()},
+                          "tol": BNN_TOL[dname if dname == "float64"
+                                         else "F_float32"]})
+    emit({"phase": 7, "kernel": "K2(d) F1 F2 F3", "K2d_cases": rows,
+          "fragment_cases": frags})
+    for row in rows:
+        check(row["finite"], "plain BNN rollout went non-finite: {}".format(
+            row))
+        if row["dtype"] == "float32" and row["N"] > 2:
+            check(row["J_rel_max_over_candidates"] <= row["tol"],
+                  "K2(d) f32 J off its plain version: {}".format(row))
+        else:
+            check(all(row[n + "_rel"] <= row["tol"]
+                      for n in ("Z", "U", "AUX")),
+                  "K2(d) disagrees with its plain version: {}".format(row))
+    for f in frags:
+        check(all(f[k]["rel"] <= f["tol"] for k in ("F1", "F2", "F3")),
+              "a fragment disagrees with its plain version: {}".format(f))
+    return rows, frags
+
+
+def raw_bnn(torch, entry, model, dtype, args):
+    """A closure launching one BNN entry alone on preallocated outputs."""
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    fn = fb._function(entry, dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    if entry == "rollout":
+        Z, U, k, K, alphas = args
+        params, cfg = fb._params(model, dtype, "cuda")
+        B, N, A, nz = U.shape[0], U.shape[1], alphas.shape[0], Z.shape[-1]
+        outs = [torch.empty(s, dtype=dtype, device="cuda") for s in
+                ((B, N + 1, A, nz), (B, N, A, 1), (B, N, A, 100, 4))]
+        eps_in = model.eps_in.contiguous()
+        ptrs = ([t.data_ptr() for t in (Z, U, k, K, alphas, params, eps_in)]
+                + [None, None] + [o.data_ptr() for o in outs]
+                + [B, N, A, cfg, stream])
+    elif entry == "infer_eps":
+        Uc, D, eps0 = args
+        out = torch.empty_like(D)
+        ptrs = [Uc.data_ptr(), D.data_ptr(), eps0.data_ptr(), 0,
+                out.data_ptr(), D.shape[0],
+                fb._config_ints({"n": 4, "P": D.shape[1]}), stream]
+    elif entry == "moment_match":
+        (particles,) = args
+        pk = fb._Packer(dtype, "cuda")
+        pk.jitter(BNN_JITTER)
+        pk.cfg.update(n=4, P=particles.shape[1])
+        params, cfg = pk.done()
+        G = particles.shape[0]
+        outs = [torch.empty(s, dtype=dtype, device="cuda")
+                for s in ((G, 14), (G, 4, 4))]
+        ptrs = [particles.data_ptr(), params.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), G, cfg, stream]
+    else:
+        (x,) = args
+        pk = fb._Packer(dtype, "cuda")
+        pk.net(model.net, x.shape[1], 4)
+        params, cfg = pk.done()
+        y = torch.empty(x.shape[:2] + (8,), dtype=dtype, device="cuda")
+        ptrs = [x.data_ptr(), params.data_ptr(), y.data_ptr(), x.shape[0],
+                cfg, stream]
+
+    def launch():
+        check(fn(*ptrs) == 0, "{} launch".format(entry))
+    return launch
+
+
+def bnn_work(model, B, N, A, G, itemsize):
+    """(bytes, operations) of K2(d), F1, F2 and F3 at these shapes, each
+    input read once and each output written once; a multiply-add counts
+    2, a sine, exponential, square root or division 1."""
+    n, nu, P = 4, 1, model.n_particles
+    nz = n + n * (n + 1) // 2
+    widths = [6, 200, 200, 8]
+    weights = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    masks = P * sum(widths[1:-1])
+    mlp = P * (2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+               + sum(widths[1:]) + 2 * sum(widths[1:-1]))
+    infer = P * (n + n * (n - 1) + n)
+    moments = P * n * 2 + P * n * (n + 1) // 2 * 3 + 2 * (n**3 // 3 + 2 * n)
+    step = (2 * nz + 3 + infer + 2 * P * n * n + P * 6 * 2 + mlp
+            + P * n * 3 + moments)
+    k2_bytes = (B * ((N + 1) * nz + 3 * N + N * nz) + A + weights + masks
+                + 20 + N * P * n + B * ((N + 1) * A * nz + N * A
+                                        + N * A * P * n)) * itemsize
+    return {
+        "K2(d)": (k2_bytes, B * A * N * step),
+        "F1": ((G * n * n + 2 * G * P * n + P * n) * itemsize, G * infer),
+        "F2": ((G * P * n + G * nz + G * n * n) * itemsize, G * moments),
+        "F3": ((G * P * 6 + weights + masks + G * P * 8) * itemsize,
+               G * mlp),
+    }
+
+
+def phase8_bnn_iteration(card):
+    """Iteration (i) at full width in float32: local model, K1 at nz=14,
+    K2(d), the batched cost post-pass and the masked argmin, through the
+    kernels and through the plain versions in alternating turns."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (backward, control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout,
+                                                 trajectory_cost)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    dtype, N, A, reg = torch.float32, 25, 10, 1.0
+    model = bnn_model(torch, dtype, N, True)
+    cost = CartpoleCost(device="cuda", dtype=dtype)
+    z0, U0 = bnn_start(torch, dtype, N)
+    alphas = default_fit_alphas(dtype, "cuda")
+    Z0, AUX0 = rollout(model, z0, U0, ch)
+
+    def line_search(kernels, derivs):
+        if kernels:
+            k, K, ok = bk.kernel_backward(*derivs, reg=reg)
+            Z_b, U_b, AUX_b = fr.fused_control_law(
+                model, derivs[0], U0, k, K, alphas, ch, with_aux=True)
+        else:
+            k, K, ok = backward(*derivs, reg=reg)
+            Z_b, U_b, AUX_b = control_law(model, derivs[0], U0, k, K,
+                                          alphas, ch, with_aux=True)
+        return Z_b, U_b, AUX_b, trajectory_cost(cost, Z_b, U_b, ch)
+
+    def iteration(kernels):
+        derivs = local_model(Z0, U0, AUX0, model, cost, ch)
+        Z_b, U_b, AUX_b, J_b = line_search(kernels, derivs)
+        amin = torch.argmin(torch.where(torch.isfinite(J_b), J_b,
+                                        torch.inf)).reshape(1)
+        return (Z_b.index_select(1, amin)[:, 0],
+                U_b.index_select(1, amin)[:, 0],
+                AUX_b.index_select(1, amin)[:, 0], J_b[amin])
+
+    # The path, once, with every count from zero.
+    bk.launches = fr.launches = 0
+    for key in fb.launches:
+        fb.launches[key] = 0
+    Z_w, U_w, AUX_w, J_w = iteration(True)
+    torch.cuda.synchronize()
+    counts = {"K1": bk.launches, "K2(a)": fr.launches,
+              **{"K2(d)" if k == "rollout" else
+                 {"infer_eps": "F1", "moment_match": "F2", "mlp": "F3"}[k]:
+                 v for k, v in fb.launches.items()}}
+    check(counts["K1"] == 1 and counts["K2(d)"] == 1,
+          "the BNN iteration did not launch K1 and K2(d) once: {}".format(
+              counts))
+    check(tuple(Z_w.shape) == (N + 1, 14) and tuple(AUX_w.shape)
+          == (N, 100, 4) and bool(torch.isfinite(Z_w).all())
+          and bool(torch.isfinite(J_w).all()), "BNN iteration output")
+
+    # Both line searches on the same local model and gains: J per
+    # candidate and the trajectories' deviation.
+    derivs = local_model(Z0, U0, AUX0, model, cost, ch)
+    out_k = line_search(True, derivs)
+    out_p = line_search(False, derivs)
+    torch.cuda.synchronize()
+    J_rel = ((out_k[3] - out_p[3]).abs() / out_p[3].abs())
+    k2_abs = max(rel_err(a, b)[0] for a, b in zip(out_k[:3], out_p[:3]))
+    check(float(J_rel.max()) <= BNN_TOL["float32_J_N25"],
+          "K2(d) J off the plain line search: {}".format(J_rel.tolist()))
+
+    # Kernel times at the path's shapes: each entry alone, K2(d)'s
+    # wrapper, the plain versions and, for F1, the library's solve.
+    k, K, _ = bk.kernel_backward(*derivs, reg=reg)
+    rng = np.random.default_rng(8)
+    Uc, D, eps0, particles, x = fragment_inputs(torch, model, dtype, A, rng)
+    frag_err = fragment_errors(torch, model, (Uc, D, eps0, particles, x),
+                               False)
+    from pddp_tpu_torch.models.bnn import infer_eps
+    from pddp_tpu_torch.models.bnn.model import moment_match
+    rollout_args = tuple(t.unsqueeze(0).contiguous()
+                         for t in (derivs[0], U0, k, K)) + (alphas,)
+    t = {
+        "K2(d)_ms": events_ms(raw_bnn(torch, "rollout", model, dtype,
+                                      rollout_args), 20),
+        "K2(d)_wrapper_ms": events_ms(lambda: fb.fused_bnn_control_law(
+            model, derivs[0], U0, k, K, alphas, ch), 20),
+        "K2(d)_plain_ms": events_ms(lambda: control_law(
+            model, derivs[0], U0, k, K, alphas, ch, with_aux=True), 5),
+        "F1_ms": events_ms(raw_bnn(torch, "infer_eps", model, dtype,
+                                   (Uc, D, eps0)), 200),
+        "F1_plain_ms": events_ms(lambda: infer_eps(Uc, D, eps0, False), 50),
+        "F1_library_ms": events_ms(lambda: torch.linalg.solve_triangular(
+            Uc, D, upper=True, left=False), 200),
+        "F2_ms": events_ms(raw_bnn(torch, "moment_match", model, dtype,
+                                   (particles,)), 200),
+        "F2_plain_ms": events_ms(lambda: moment_match(
+            particles, ch, BNN_JITTER), 50),
+        "F3_ms": events_ms(raw_bnn(torch, "mlp", model, dtype, (x,)), 200),
+        "F3_plain_ms": events_ms(lambda: model.net(x), 50),
+    }
+
+    turns = {"kernels": [], "plain": []}
+    for kernels in (True, False, False, True):
+        turns["kernels" if kernels else "plain"].append(
+            events_ms(lambda: iteration(kernels), 5, warmup=1))
+    profile = device_profile(lambda: iteration(True))
+    res = {"phase": 8, "card": card, "dtype": "float32", "N": N, "A": A,
+           "P": 100, "reg": reg, "path_launches": counts,
+           "pddp_bnn_iteration_ms_h25_p100_kernels": min(turns["kernels"]),
+           "pddp_bnn_iteration_ms_h25_p100_plain": min(turns["plain"]),
+           "turns": turns, "profile": profile,
+           "J_kernel": out_k[3].tolist(), "J_plain": out_p[3].tolist(),
+           "J_rel_per_candidate": J_rel.tolist(),
+           "Z_abs_max": rel_err(out_k[0], out_p[0])[0],
+           "winner_J": float(J_w), "max_abs_err": {"K2(d)": k2_abs,
+                                                   **{k: v[0] for k, v in
+                                                      frag_err.items()}}}
+    res.update(t)
+    emit(res)
+    return res, model
+
+
+def phase9_bnn_solve(card):
+    """Solve (ii): 5 iterations, 15 evaluations at most, K1 at nz=14 and
+    the scan line search (pddp_tpu's gate keeps the stateful model out of
+    K2), float32, full width."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    dtype, N = torch.float32, 25
+    model = bnn_model(torch, dtype, N, True)
+    cost = CartpoleCost(device="cuda", dtype=dtype)
+    z0, U0 = bnn_start(torch, dtype, N)
+    opts = ILQROptions(n_iterations=5, max_evals=15, riccati_mode="kernel")
+    runs = []
+    for _ in range(2):
+        bk.launches = 0
+        k2d = fb.launches["rollout"]
+        t0 = time.perf_counter()
+        r = solve(model, cost, z0, U0, opts,
+                  encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
+        torch.cuda.synchronize()
+        runs.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                     "state": r.state.name, "iterations": r.iterations,
+                     "evals": r.evals, "J": r.J_opt, "mu": r.mu,
+                     "K1_launches": bk.launches,
+                     "K2(d)_launches": fb.launches["rollout"] - k2d})
+        check(r.evals >= 1 and bk.launches == r.evals
+              and runs[-1]["K2(d)_launches"] == 0
+              and bool(torch.isfinite(r.Z).all())
+              and np.isfinite(r.J_opt), "BNN solve: {}".format(runs[-1]))
+    emit({"phase": 9, "card": card, "dtype": "float32", "N": N,
+          "runs": runs})
+    return runs
+
+
+
+def phase6_kernels(res, derivs, bnn, bnn_model_):
+    """The kernels line: every kernel with its path's launches, its error
+    against its plain version, its times and its bound. K1 and K2(a) are
+    read on the slice-1 path (phase 5), K2(d) and its fragment entries on
+    the BNN iteration (phase 8), where K2(d) runs F1-F3's device functions
+    inline and the entries themselves launch no time."""
     B, N1, nz = 1, derivs[4].shape[0], derivs[4].shape[1]
     N, nu = N1 - 1, derivs[5].shape[-1]
     b1, f1 = k1_work(B, N, nz, nu, 4, sweeps=5)
@@ -589,7 +988,7 @@ def phase6_kernels(res, derivs):
          "wrapper_ms": res["K1_wrapper_ms"],
          "plain_ms": res["K1_plain_ms"], "bound_ms": bound1,
          "bound_by": by1, "library_ms": None},
-        {"name": "K2 fused_rollout_cartpole", "route": "cuda",
+        {"name": "K2(a) fused_rollout_cartpole", "route": "cuda",
          "source": "pddp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "pddp_tpu/ops/fused_rollout.py:114",
          "launches": res["main_path_launches"]["K2"],
@@ -598,6 +997,30 @@ def phase6_kernels(res, derivs):
          "plain_ms": res["K2_plain_ms"], "bound_ms": bound2,
          "bound_by": by2, "library_ms": None},
     ]
+    src = "pddp_tpu_torch/csrc/fused_bnn_rollout.cu"
+    work = bnn_work(bnn_model_, 1, bnn["N"], bnn["A"], bnn["A"], 4)
+    rows = [
+        ("K2(d)", "K2(d) fused_bnn_rollout",
+         "pddp_tpu/ops/fused_rollout.py:114", None),
+        ("F1", "F1 bnn_infer_eps",
+         "scripts/probe_micro.py:57 (also probe_micro2.py:46, "
+         "probe_micro3.py:47)", bnn["F1_library_ms"]),
+        ("F2", "F2 bnn_moment_match",
+         "scripts/probe_micro4.py:83 (also probe_micro5.py:90)", None),
+        ("F3", "F3 bnn_mlp", "scripts/probe_kernel_mlp_batch.py:86", None),
+    ]
+    for key, name, replaces, library in rows:
+        bound, by = bound_ms(*work[key], "float32")
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": bnn["path_launches"][key],
+               "max_abs_err": bnn["max_abs_err"][key],
+               "ms": bnn[key + "_ms"], "plain_ms": bnn[key + "_plain_ms"],
+               "bound_ms": bound, "bound_by": by, "library_ms": library}
+        if key == "K2(d)":
+            row["wrapper_ms"] = bnn["K2(d)_wrapper_ms"]
+            row["also_replaces"] = "scripts/probe_fused_stateful.py:66"
+        kernels.append(row)
     return {"kernels": kernels}
 
 
@@ -619,7 +1042,10 @@ def main():
     phase3_golden_f64()
     phase4_golden_f32()
     res, derivs = phase5_main_path(card)
-    kernels = phase6_kernels(res, derivs)
+    phase7_bnn_kernels()
+    bnn, bnn_model_ = phase8_bnn_iteration(card)
+    phase9_bnn_solve(card)
+    kernels = phase6_kernels(res, derivs, bnn, bnn_model_)
     print(card_line(), flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,10 +2,12 @@
 
 Same module layout and names as the JAX package, in PyTorch's idiom:
 plain functions on tensors, small classes holding parameter tensors,
-Python loops where JAX had ``lax.while_loop``. The two TPU kernels of the
-known-dynamics iLQR path are hand-written CUDA kernels
-(``ops/backward_kernel.py``, ``ops/fused_rollout.py``, sources in
-``csrc/``), each beside a plain PyTorch version that runs on the CPU.
+Python loops where JAX had ``lax.while_loop``. The TPU kernels are
+hand-written CUDA kernels (sources in ``csrc/``): the Riccati backward
+(``ops/backward_kernel.py``) and the line-search rollout
+(``ops/fused_rollout.py``) for the known-dynamics cartpole and, stage (d),
+for the belief-state BNN (``ops/fused_bnn_rollout.py``), each beside a
+plain PyTorch version that runs on the CPU.
 
 Entry points build their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card they raise (see ``device.py``).

@@ -498,10 +498,18 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
         if opts.fused_rollout and not model_opts:
             from ..ops.fused_rollout import (fused_control_law,
                                              supports_fused_rollout)
+            # pddp_tpu's gate: stateful models take the scan.
             if supports_fused_rollout(model, cost, encoding):
-                return fused_control_law(
-                    model, Z, U, k, K_new, alphas, encoding, cost=cost,
-                    cost_opts=cost_opts, with_aux=True)
+                if encoding == StateEncoding.IGNORE_UNCERTAINTY:
+                    return fused_control_law(
+                        model, Z, U, k, K_new, alphas, encoding, cost=cost,
+                        cost_opts=cost_opts, with_aux=True)
+                # Belief states: trajectories from the kernel, the cost
+                # as one batched post-pass.
+                Z_b, U_b, AUX_b = fused_control_law(
+                    model, Z, U, k, K_new, alphas, encoding, with_aux=True)
+                J_b = trajectory_cost(cost, Z_b, U_b, encoding, cost_opts)
+                return Z_b, U_b, J_b, AUX_b
         return control_law(model, Z, U, k, K_new, alphas, encoding,
                            model_opts, cost=cost, cost_opts=cost_opts,
                            with_aux=True, cost_in_scan=opts.cost_in_scan)

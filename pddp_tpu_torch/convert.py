@@ -15,15 +15,26 @@ import torch
 
 from .examples.cartpole.cost import CartpoleCost
 from .examples.cartpole.model import PARAM_NAMES, CartpoleDynamicsModel
+from .models.bnn import bnn_dynamics_model_factory
 
-__all__ = ["CARTPOLE_COST_FIELDS", "CARTPOLE_MODEL_FIELDS", "cartpole",
-           "golden_cartpole_U0"]
+__all__ = ["BNN_BUFFERS", "CARTPOLE_COST_FIELDS", "CARTPOLE_MODEL_FIELDS",
+           "bnn", "cartpole", "golden_cartpole_U0"]
 
 #: model fields carried across, in the order of the model's constructor.
 CARTPOLE_MODEL_FIELDS = PARAM_NAMES
 
 #: cost fields carried across.
 CARTPOLE_COST_FIELDS = ("Q", "R", "Q_term", "x_goal", "u_goal")
+
+#: BNN model arrays carried across beside the net's leaves.
+BNN_BUFFERS = ("X_mean", "X_std", "dX_mean", "dX_std", "eps_in", "eps_out")
+
+
+def _check_numpy(items):
+    for name, v in items:
+        if not isinstance(v, (np.ndarray, np.generic, float, int)):
+            raise TypeError("parameter {} is a {}, expected a numpy array"
+                            .format(name, type(v).__name__))
 
 
 def cartpole(model_params, cost_params, *, device=None,
@@ -35,10 +46,7 @@ def cartpole(model_params, cost_params, *, device=None,
         cost_params: mapping with the keys of ``CARTPOLE_COST_FIELDS``.
         device: defaults to ``cuda`` (see ``device.resolve_device``).
     """
-    for name, v in list(model_params.items()) + list(cost_params.items()):
-        if not isinstance(v, (np.ndarray, np.generic, float, int)):
-            raise TypeError("parameter {} is a {}, expected a numpy array"
-                            .format(name, type(v).__name__))
+    _check_numpy(list(model_params.items()) + list(cost_params.items()))
     model = CartpoleDynamicsModel(
         *(np.array(model_params[n]) for n in CARTPOLE_MODEL_FIELDS),
         device=device, dtype=dtype)
@@ -46,6 +54,52 @@ def cartpole(model_params, cost_params, *, device=None,
         **{n: np.array(cost_params[n]) for n in CARTPOLE_COST_FIELDS},
         device=device, dtype=dtype)
     return model, cost
+
+
+def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
+        angular_indices=None, non_angular_indices=None, constrain_min=None,
+        constrain_max=None, device=None, dtype=torch.float32,
+        **init_kwargs):
+    """A ``BNNDynamicsModel`` from numpy arrays.
+
+    Args:
+        net_leaves: the net's arrays in the JAX package's flatten order
+            (``jax.tree_util.tree_leaves(jax_model.net)``: each layer's W
+            and b, then each dropout's fields, its noise last).
+        buffers: mapping with the keys of ``BNN_BUFFERS``.
+        state_size, action_size, hidden_features, angular_indices,
+        non_angular_indices, constrain_min, constrain_max: the factory's
+            configuration (``bnn_dynamics_model_factory``).
+        init_kwargs: ``n_particles``, ``horizon``, ``use_predicted_std``
+            and the other options of the factory's ``init``.
+        device: defaults to ``cuda`` (see ``device.resolve_device``).
+    """
+    _check_numpy([("net_{}".format(i), v) for i, v in enumerate(net_leaves)]
+                 + list(buffers.items()))
+    cls = bnn_dynamics_model_factory(
+        state_size, action_size, hidden_features,
+        angular_indices=angular_indices,
+        non_angular_indices=non_angular_indices,
+        constrain_min=constrain_min, constrain_max=constrain_max)
+    model = cls.init(dtype=dtype, device=device, **init_kwargs)
+    old = model.net.leaves()
+    if len(net_leaves) != len(old):
+        raise ValueError("expected {} net leaves, got {}".format(
+            len(old), len(net_leaves)))
+    leaves = []
+    for i, (a, ref) in enumerate(zip(net_leaves, old)):
+        if tuple(np.shape(a)) != tuple(ref.shape):
+            raise ValueError("net leaf {} has shape {}, expected {}".format(
+                i, np.shape(a), tuple(ref.shape)))
+        leaves.append(torch.as_tensor(np.array(a), dtype=dtype,
+                                      device=ref.device))
+    fields = {k: torch.as_tensor(np.array(buffers[k]), dtype=dtype,
+                                 device=ref.device) for k in BNN_BUFFERS}
+    for k, v in fields.items():
+        if tuple(v.shape) != tuple(getattr(model, k).shape):
+            raise ValueError("{} has shape {}, expected {}".format(
+                k, tuple(v.shape), tuple(getattr(model, k).shape)))
+    return model.replace(net=model.net.with_leaves(leaves), **fields)
 
 
 def golden_cartpole_U0():

@@ -85,15 +85,20 @@ def _flatten_triu(U):
     """Row-major upper triangle of (..., n, n) as (..., n(n+1)/2)."""
     n = U.shape[-1]
     r, c = torch.triu_indices(n, n, device=U.device)
-    return U[..., r, c]
+    return U.flatten(-2)[..., r * n + c]
 
 
 def _unflatten_triu(X, n: int):
-    """Inverse of ``_flatten_triu``: upper-triangular (..., n, n)."""
+    """Inverse of ``_flatten_triu``: upper-triangular (..., n, n).
+
+    A gather from the triangle padded with one zero, not a write into a
+    fresh matrix, so that it runs under ``torch.func`` transforms."""
+    m = n * (n + 1) // 2
     r, c = torch.triu_indices(n, n, device=X.device)
-    U = X.new_zeros(X.shape[:-1] + (n, n))
-    U[..., r, c] = X
-    return U
+    idx = torch.full((n * n,), m, dtype=torch.long, device=X.device)
+    idx[r * n + c] = torch.arange(m, device=X.device)
+    Xp = torch.cat([X, X.new_zeros(X.shape[:-1] + (1,))], dim=-1)
+    return Xp[..., idx].reshape(X.shape[:-1] + (n, n))
 
 
 def _diag_embed(v):

@@ -30,6 +30,7 @@ _BUILD = _PACKAGE / "build"
 SOURCES = {
     "backward_kernel": "backward_kernel.cu",
     "fused_rollout": "fused_rollout.cu",
+    "fused_bnn_rollout": "fused_bnn_rollout.cu",
 }
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

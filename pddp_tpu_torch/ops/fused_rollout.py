@@ -1,17 +1,23 @@
-"""K2: the line-search rollout as one CUDA kernel (``csrc/fused_rollout.cu``).
+"""K2: the line-search rollout as one CUDA kernel.
 
-Port of ``pddp_tpu/ops/fused_rollout.py:fused_control_law``, stage (a):
-the closed-loop rollout of all A step sizes over the N steps, with the
-stage and terminal costs accumulated inside the kernel, for the cartpole
-model and ``CartpoleCost`` under IGNORE_UNCERTAINTY. Pallas traced any
-model's jnp code into its kernel; a CUDA kernel carries its own copy of
-the model and cost, so ``supports_fused_rollout`` admits exactly that
-triple, and ``solve`` takes the plain line search for anything else.
+Port of ``pddp_tpu/ops/fused_rollout.py:fused_control_law``. Pallas traced
+any model's jnp code into its kernel; a CUDA kernel carries its own copy
+of the model and cost, so ``supports_fused_rollout`` admits what the
+port's kernels cover, and ``solve`` takes the plain line search for
+anything else:
 
-The plain version is ``controllers.ilqr.control_law`` with the cost
-accumulated in the loop (the kernel's order of summation). On CPU
-tensors the wrapper runs it; on CUDA tensors it launches the kernel or
-raises.
+ * stage (a), ``csrc/fused_rollout.cu``: the cartpole model with
+   ``CartpoleCost`` under IGNORE_UNCERTAINTY, the stage and terminal costs
+   accumulated inside the kernel;
+ * stage (d), ``csrc/fused_bnn_rollout.cu`` (``ops/fused_bnn_rollout.py``):
+   the stateful belief-state BNN under the Cholesky codec, admitted only
+   with ``allow_stateful=True`` as in ``pddp_tpu``; the cost, if given, is
+   a batched post-pass.
+
+The plain version is ``controllers.ilqr.control_law`` (stage (a): with
+the cost accumulated in the loop, the kernel's order of summation). On
+CPU tensors the wrapper runs it; on CUDA tensors it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -20,10 +26,11 @@ import ctypes
 
 import torch
 
-from ..controllers.ilqr import control_law
+from ..controllers.ilqr import control_law, trajectory_cost
 from ..encoding import StateEncoding
 from ..examples.cartpole.cost import CartpoleCost
 from ..examples.cartpole.model import PARAM_NAMES, CartpoleDynamicsModel
+from . import fused_bnn_rollout
 from ._build import load_library
 
 __all__ = ["fused_control_law", "supports_fused_rollout", "param_buffer",
@@ -39,13 +46,22 @@ _SYMBOLS = {torch.float32: "pddp_fused_rollout_cartpole_f32",
             torch.float64: "pddp_fused_rollout_cartpole_f64"}
 
 
-def supports_fused_rollout(model, cost, encoding=None):
-    """Whether (model, cost, encoding) runs in the kernel: the cartpole
-    model with ``CartpoleCost`` under IGNORE_UNCERTAINTY, exact types
-    (a subclass may change the arithmetic the kernel carries)."""
+def _stage_a(model, cost, encoding):
     return (type(model) is CartpoleDynamicsModel
             and type(cost) is CartpoleCost
             and encoding == StateEncoding.IGNORE_UNCERTAINTY)
+
+
+def supports_fused_rollout(model, cost, encoding=None, allow_stateful=False):
+    """Whether (model, cost, encoding) runs in a kernel: stage (a), the
+    cartpole model with ``CartpoleCost`` under IGNORE_UNCERTAINTY, or,
+    only with ``allow_stateful``, stage (d), a stateful
+    ``BNNDynamicsModel`` under the Cholesky codec (any cost: it runs as a
+    post-pass). Exact types: a subclass may change the arithmetic the
+    kernels carry."""
+    if _stage_a(model, cost, encoding):
+        return True
+    return allow_stateful and fused_bnn_rollout.supports(model, encoding)
 
 
 def param_buffer(model, cost, dtype, device):
@@ -70,21 +86,31 @@ def fused_control_law(model, Z, U, k, K, alphas,
                       encoding: StateEncoding = StateEncoding.DEFAULT,
                       cost=None, cost_opts=None, u_min=None, u_max=None,
                       with_aux=False):
-    """Batched-alpha closed-loop rollout with cost, in one kernel.
+    """Batched-alpha closed-loop rollout in one kernel.
 
     Args mirror ``controllers.ilqr.control_law``; requires
-    ``supports_fused_rollout(model, cost, encoding)``. Inputs may carry
-    one leading batch dim B of solves (the kernel's grid); ``alphas`` and
-    the bounds are shared by the batch. ``cost_opts`` reach the plain
-    version only: ``CartpoleCost`` takes no options.
+    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``.
+    Inputs may carry one leading batch dim B of solves (the kernel's
+    grid); ``alphas`` and the bounds are shared by the batch. For stage
+    (a) ``cost_opts`` reach the plain version only: ``CartpoleCost`` takes
+    no options.
 
     Returns:
-        (Z_new (..., N+1, A, nz), U_new (..., N, A, nu), J (..., A))
-        [, AUX when with_aux: the cartpole records none, so ()].
+        (Z_new (..., N+1, A, nz), U_new (..., N, A, nu))
+        [, J (..., A) when cost is given]
+        [, AUX when with_aux: for the cartpole (); for the BNN the step
+        noise (N, ..., A, P, n)].
     """
-    if not supports_fused_rollout(model, cost, encoding):
-        raise ValueError("the fused rollout kernel covers the cartpole model "
-                         "with CartpoleCost under IGNORE_UNCERTAINTY only")
+    if not _stage_a(model, cost, encoding):
+        if not fused_bnn_rollout.supports(model, encoding):
+            raise ValueError("no fused rollout kernel covers this model, "
+                             "cost and encoding (see supports_fused_rollout)")
+        Z_b, U_b, AUX_b = fused_bnn_rollout.fused_bnn_control_law(
+            model, Z, U, k, K, alphas, encoding, u_min=u_min, u_max=u_max)
+        result = (Z_b, U_b)
+        if cost is not None:
+            result += (trajectory_cost(cost, Z_b, U_b, encoding, cost_opts),)
+        return result + (AUX_b,) if with_aux else result
     if Z.device.type == "cpu":
         return control_law(model, Z, U, k, K, alphas, encoding,
                            u_min=u_min, u_max=u_max, cost=cost,

@@ -1,23 +1,26 @@
 """Small-matrix linear algebra (port of ``pddp_tpu/utils/linalg.py``).
 
-Only what the known-dynamics path and the encodings need: ``mm``, the
+What the solver, the encodings and the belief-state BNN need: ``mm``, the
 fixed-sweep Jacobi ``small_eigh`` that K1's plain version uses for
-nu > 1, and ``safe_cholesky`` with its jitter ladder. The TPU package's
-unrolled ``small_mm`` and in-kernel masked-sum forms are compiler
-workarounds and are not carried over.
+nu > 1, the unrolled ``small_cholesky`` behind ``safe_cholesky`` and its
+jitter ladder, the triangular solves ``tria_solve``/``tria_solve_right``
+and ``psd_clamp``. The TPU package's unrolled ``small_mm`` and in-kernel
+masked-sum forms are compiler workarounds and are not carried over.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mm", "small_eigh", "safe_cholesky", "JITTER_LEVELS",
+__all__ = ["mm", "small_eigh", "small_cholesky", "safe_cholesky",
+           "psd_clamp", "tria_solve", "tria_solve_right", "JITTER_LEVELS",
            "SMALL_EIGH_N", "SMALL_N"]
 
 #: largest action size for which the Jacobi eigen-clamp (and so K1) is used.
 SMALL_EIGH_N = 4
 
-#: largest size ``small_eigh`` handles by Jacobi sweeps; past it, eigh.
+#: largest size the unrolled forms (Jacobi ``small_eigh``, ``small_cholesky``,
+#: the triangular solves) handle; past it, ``torch.linalg``.
 SMALL_N = 8
 
 #: Cholesky jitter ladder, smallest rung first (reference x10 ladder).
@@ -92,12 +95,40 @@ def small_eigh(A, sweeps=None, sort=True):
     return evals, evecs
 
 
+def small_cholesky(C):
+    """Unrolled Cholesky-Crout for n <= SMALL_N: the upper factor U with
+    C = U^T U, NaN where C is not positive definite (a negative pivot's
+    square root). A zero last pivot gives a finite factor, as in
+    ``pddp_tpu``; LAPACK's ``cholesky_ex`` would report it as a failure."""
+    n = C.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = C[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
+    zero = torch.zeros_like(C[..., 0, 0])
+    rows = [torch.stack([L[i][j] if j <= i else zero for j in range(n)],
+                        dim=-1) for i in range(n)]
+    return torch.stack(rows, dim=-2).transpose(-1, -2)
+
+
+def _cholesky_upper(C):
+    if C.shape[-1] <= SMALL_N:
+        return small_cholesky(C)
+    L, info = torch.linalg.cholesky_ex(C)
+    L = torch.where((info == 0)[..., None, None], L, torch.nan)
+    return L.transpose(-1, -2)
+
+
 def safe_cholesky(C, jitter_levels=JITTER_LEVELS):
     """Upper Cholesky factor U with C = U^T U, with the jitter ladder.
 
-    The smallest jitter whose factorization succeeds wins; where every
-    rung fails, the diagonal square root of the clamped variances is
-    returned, so the result is never NaN.
+    Every rung is factorized and the smallest jitter whose factor is
+    finite wins; where every rung fails, the diagonal square root of the
+    variances clamped at 1e-12 is returned, so the result is never NaN
+    unless C holds a NaN. Differentiable under ``torch.func``.
     """
     C = _sym(C)
     n = C.shape[-1]
@@ -105,8 +136,64 @@ def safe_cholesky(C, jitter_levels=JITTER_LEVELS):
     diag = torch.diagonal(C, dim1=-2, dim2=-1).clamp(min=1e-12)
     result = torch.sqrt(diag)[..., :, None] * eye
     for j in reversed(jitter_levels):
-        L, info = torch.linalg.cholesky_ex(C + j * eye)
-        U = L.transpose(-1, -2)
-        ok = (info == 0) & torch.isfinite(U).all(dim=(-2, -1))
+        U = _cholesky_upper(C + j * eye)
+        ok = torch.isfinite(U).all(dim=-1).all(dim=-1)
         result = torch.where(ok[..., None, None], U, result)
     return result
+
+
+def psd_clamp(Q, floor=1e-12, extra=0.0):
+    """Eigenvalue-clamped PSD projection: eigenvalues below 0 become
+    ``floor``, then ``extra`` is added.
+
+    Returns:
+        (Q_clamped, eigenvalues_clamped, eigenvectors).
+    """
+    e, E = torch.linalg.eigh(_sym(Q))
+    e = torch.where(e < 0, torch.as_tensor(floor, dtype=e.dtype,
+                                           device=e.device), e) + extra
+    Qc = (E * e[..., None, :]) @ E.transpose(-1, -2)
+    return _sym(Qc), e, E
+
+
+def tria_solve(U, B, trans=False):
+    """Solve with an upper-triangular factor U (C = U^T U): U x = b, or
+    U^T x = b when ``trans``. B is (..., n) or (..., n, m). Unrolled
+    substitution for n <= SMALL_N."""
+    n = U.shape[-1]
+    was_vec = B.dim() == U.dim() - 1
+    Bm = B[..., :, None] if was_vec else B
+    if n > SMALL_N:
+        X = torch.linalg.solve_triangular(
+            U.transpose(-1, -2) if trans else U, Bm, upper=not trans)
+        return X[..., 0] if was_vec else X
+    xs = [None] * n
+    order = range(n) if trans else range(n - 1, -1, -1)
+    for i in order:
+        s = Bm[..., i, :]
+        others = range(i) if trans else range(i + 1, n)
+        for k in others:
+            u = U[..., k, i, None] if trans else U[..., i, k, None]
+            s = s - u * xs[k]
+        xs[i] = s / U[..., i, i, None]
+    X = torch.stack(xs, dim=-2)
+    return X[..., 0] if was_vec else X
+
+
+def tria_solve_right(U, D):
+    """Solve X U = D for upper-triangular U; D is (..., m, n).
+
+    The column sweep X[:, j] = (D[:, j] - sum_{k<j} X[:, k] U[k, j]) /
+    U[j, j], in this order of operations (K2(d)'s noise inference does
+    the same per particle).
+    """
+    n = U.shape[-1]
+    if n > SMALL_N:
+        return torch.linalg.solve_triangular(U, D, upper=True, left=False)
+    xs = [None] * n
+    for j in range(n):
+        s = D[..., :, j]
+        for k in range(j):
+            s = s - xs[k] * U[..., k, j, None]
+        xs[j] = s / U[..., j, j, None]
+    return torch.stack(xs, dim=-1)

@@ -112,3 +112,87 @@ def test_k2_kernel_matches_plain_on_card(cuda, dtype, tol, bounds):
     for a, w in zip(got, want):
         assert bool(torch.isfinite(w).all())
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+def _bnn(cuda, dtype, N, P=16, hidden=(32, 32)):
+    """A seeded untrained BNN, its start belief, and finite gains of one
+    reg=1 backward pass around U = 0.1 (computed on the CPU)."""
+    from pddp_tpu_torch.encoding import encode
+    from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory
+    cls = bnn_dynamics_model_factory(4, 1, list(hidden), angular_indices=(2,),
+                                     non_angular_indices=(0, 1, 3))
+    m = cls.init(seed=3, n_particles=P, horizon=N + 1, dtype=torch.float64,
+                 device="cpu", chol_jitter=(1e-12, 1e-6))
+    z0 = encode(torch.zeros(4, dtype=torch.float64),
+                V=1e-2 * torch.ones(4, dtype=torch.float64), encoding=CH)
+    U = torch.full((N, 1), 0.1, dtype=torch.float64)
+    Z, AUX = rollout(m, z0, U, CH)
+    cost = CartpoleCost(device="cpu", dtype=torch.float64)
+    k, K, ok = backward(*local_model(Z, U, AUX, m, cost, CH), reg=1.0)
+    assert bool(ok)
+    m_dev = cls.init(seed=3, n_particles=P, horizon=N + 1, dtype=dtype,
+                     device=cuda, chol_jitter=(1e-12, 1e-6))
+    return m_dev, [t.to(device=cuda, dtype=dtype) for t in (Z, U, k, K)]
+
+
+CH = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B", [1, 3])
+def test_k2d_bnn_kernel_matches_plain_on_card(cuda, dtype, tol, B):
+    """K2(d) against control_law with the same model, two steps, relative
+    to each output's largest value."""
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    model, (Z, U, k, K) = _bnn(cuda, dtype, 2)
+    if B > 1:
+        Z, U, k, K = (t.expand((B,) + t.shape).contiguous()
+                      for t in (Z, U, k, K))
+    alphas = default_fit_alphas(dtype, cuda)
+    n = fb.launches["rollout"]
+    got = fb.fused_bnn_control_law(model, Z, U, k, K, alphas, CH)
+    want = control_law(model, Z, U, k, K, alphas, CH, with_aux=True)
+    torch.cuda.synchronize()
+    assert fb.launches["rollout"] == n + 1
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(w).all())
+        assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+def test_bnn_fragments_match_plain_on_card(cuda, dtype, tol):
+    """F1 (with and without the fallback), F2 and F3 against their plain
+    versions, relative to each output's largest value."""
+    from pddp_tpu_torch.models.bnn import infer_eps
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    model, _ = _bnn(cuda, dtype, 2)
+    rng = np.random.default_rng(5)
+    G, P, n = 4, model.n_particles, 4
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    Uc = t(np.triu(rng.standard_normal((G, n, n))) + 2.0 * np.eye(n))
+    Uc[1, 2, 2] = 0.0                  # group 1 falls back to eps0
+    D = t(rng.standard_normal((G, P, n)))
+    eps0 = model.eps_in[1].contiguous()
+    before = dict(fb.launches)
+    pairs = [(fb.infer_eps(Uc, D, eps0, first),
+              infer_eps(Uc, D, eps0, first)) for first in (False, True)]
+    assert bool((pairs[0][0][1] == eps0).all())
+    particles = t(rng.standard_normal((G, P, n)))
+    pairs += list(zip(fb.moment_match(particles, (1e-12, 1e-6)),
+                      fb.moment_match(particles.cpu(), (1e-12, 1e-6))))
+    x = t(rng.standard_normal((G, P, 6)))
+    pairs.append((fb.mlp(model.net, x), model.net(x)))
+    torch.cuda.synchronize()
+    assert fb.launches["infer_eps"] == before["infer_eps"] + 2
+    assert fb.launches["moment_match"] == before["moment_match"] + 1
+    assert fb.launches["mlp"] == before["mlp"] + 1
+    for a, w in pairs:
+        a, w = a.cpu(), w.cpu()
+        assert float((a - w).abs().max()) <= tol * float(w.abs().max())

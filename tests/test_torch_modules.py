@@ -60,9 +60,16 @@ def test_augment_state_matches_jax():
 
 
 def test_belief_augmentation_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tang.augment_encoded_state(torch.zeros(8), (2,), (0, 1, 3),
-                                   StateEncoding.VARIANCE_ONLY, 4)
+    """Ported since: the variance codec's moment-matched augmentation
+    matches pddp_tpu (the Cholesky codec is held in test_torch_bnn.py)."""
+    rng = np.random.default_rng(4)
+    z = np.concatenate([rng.standard_normal((3, 4)),
+                        0.1 + rng.random((3, 4))], axis=-1)
+    got = tang.augment_encoded_state(_t(z), (2,), (0, 1, 3),
+                                     StateEncoding.VARIANCE_ONLY, 4)
+    want = jang.augment_encoded_state(jnp.asarray(z), (2,), (0, 1, 3),
+                                      JEnc.VARIANCE_ONLY, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("terminal", [False, True])
