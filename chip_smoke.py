@@ -10,9 +10,13 @@ against its plain PyTorch version on the card, solves the golden cartpole
 problem through them in float64 and float32 against
 ``tests/golden/solver_trajectories.npz``, and times the two paths through
 the kernels and through the plain versions: the known-dynamics cartpole
-iLQR solve (horizon 200, ten step sizes; phases 1-5) and the belief-state
+iLQR solve (horizon 200, ten step sizes; phases 1-5), the belief-state
 BNN iteration and solve (100 particles, net 6-200-200-8, Cholesky belief,
-horizon 25; phases 7-9). Each phase prints one JSON line; any failure
+horizon 25; phases 7-9), and the other known-dynamics examples: K2 stages
+(b) and (c) against their plain version (phase 10), the eight golden
+solves of tests/golden/cases.py in float64 (phase 11), and the pendulum,
+double cartpole, rendezvous and belief-state pendulum paths at horizon 200
+(phase 12). Each phase prints one JSON line; any failure
 raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result. It imports neither JAX nor ``pddp_tpu``.
@@ -58,6 +62,12 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def reset_counts(counts):
+    """Sets every launch count of a wrapper's dict to 0."""
+    for key in counts:
+        counts[key] = 0
 
 
 def rel_err(a, b):
@@ -130,20 +140,29 @@ def raw_k1(derivs, reg):
     return launch
 
 
-def raw_k2(model, cost, Z, U, k, K, alphas):
-    """A closure launching K2 alone on preallocated outputs."""
+def raw_k2(model, cost, Z, U, k, K, alphas, enc=None):
+    """A closure launching K2 (stages a-c) alone on preallocated outputs,
+    for one solve (Z (N+1, nz), U (N, nu), ...); under a belief codec
+    without the cost, as the solve calls it."""
     import torch
+    from pddp_tpu_torch.encoding import StateEncoding
     from pddp_tpu_torch.ops import fused_rollout as fr
+    enc = StateEncoding.IGNORE_UNCERTAINTY if enc is None else enc
     N, A = U.shape[0], alphas.shape[0]
-    params = fr.param_buffer(model, cost, Z.dtype, Z.device)
+    nz, nu = Z.shape[-1], U.shape[-1]
+    kind = fr._cost_kind(model, cost, enc)
+    params = fr.param_buffer(model, cost if kind else None, Z.dtype,
+                             Z.device)
     outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
-            for s in ((1, N + 1, A, 4), (1, N, A, 1), (1, A))]
+            for s in ((1, N + 1, A, nz), (1, N, A, nu), (1, A))]
     fn = fr._function(Z.dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, params)),
-                 None, *(o.data_ptr() for o in outs), 1, N, A, stream) == 0,
+                 None, outs[0].data_ptr(), outs[1].data_ptr(),
+                 outs[2].data_ptr() if kind else None, 1, N, A,
+                 fr._MODELS[type(model)], int(enc), kind, stream) == 0,
               "K2 launch")
     return launch
 
@@ -174,17 +193,43 @@ def k1_work(B, N, nz, nu, itemsize, sweeps):
     return B * (n_in + n_out) * itemsize, B * N * step
 
 
-def k2_work(B, N, A, itemsize, bounded):
-    """(bytes, operations) of one K2 call at nz=4, nu=1."""
-    nz = 4
-    n_in = B * ((N + 1) * nz + N + N + N * nz) + A + 63 + (2 if bounded
-                                                          else 0)
-    n_out = B * ((N + 1) * A * nz + N * A + A)
-    stage_cost = 2 + 5 + 60 + 2          # sin/cos, d, d^T Q d, add
-    step = ((3 * nz + 3) + (2 if bounded else 0) + stage_cost + 3
-            + 40)                        # feedback, clamp, cost, R, model
+# Operations of one mean step of each example's model (multiply-adds count
+# 2; a sine, cosine, division or square root 1), and of its angular
+# augmentation (the sines and cosines), as csrc/fused_rollout.cu does them.
+MODEL_OPS = {"cartpole": 41, "pendulum": 15, "double_cartpole": 117,
+             "rendezvous": 44}
+SIZES = {"cartpole": (4, 1, 5), "pendulum": (2, 1, 3),
+         "double_cartpole": (6, 1, 8), "rendezvous": (8, 4, 8)}
+
+
+def k2_work(B, N, A, itemsize, bounded, name="cartpole", codec=4,
+            with_cost=True):
+    """(bytes, operations) of one K2 call (stages a-c) of example ``name``
+    under codec ``codec`` (StateEncoding's value): each input read once,
+    each output written once. The operations per candidate and step: the
+    feedback law, the clamp, the in-kernel cost (IGNORE_UNCERTAINTY), the
+    model's mean step and the belief part's decode and re-encode (under
+    the Cholesky codec for rendezvous, U^T U and the ladder's first rung,
+    the one that factorizes these inputs)."""
+    n, nu, n_aug = SIZES[name]
+    nz = {0: n + n * n, 1: n + n * (n + 1) // 2, 2: 2 * n, 3: 2 * n,
+          4: n}[codec]
+    ny = n_aug if name != "rendezvous" else n
+    cost = with_cost and codec == 4
+    n_params = 8 + ((2 * ny * ny + nu * nu + ny + nu) if cost else 0)
+    n_in = B * ((N + 1) * nz + 2 * N * nu + N * nu * nz) + A + n_params + (
+        2 * nu if bounded else 0)
+    n_out = B * ((N + 1) * A * nz + N * A * nu + (A if cost else 0))
+    state_cost = 2 * ny * ny + 3 * ny + (n_aug - n)
+    belief = {0: 0, 2: 0, 3: 2 * n, 4: 0, 1: n * (n + 1) + n}[codec]
+    if name == "rendezvous" and codec == 1:
+        belief = (n * (n + 1) * (2 * n + 1) // 3 + n**3 // 3
+                  + n * (n + 1) // 2)
+    step = (nu * (2 * nz + 3) + (2 * nu if bounded else 0)
+            + (state_cost + 2 * nu * nu + 3 * nu + 1 if cost else 0)
+            + MODEL_OPS[name] + belief)
     return ((n_in + n_out) * itemsize,
-            B * A * (N * step + stage_cost))
+            B * A * (N * step + (state_cost if cost else 0)))
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -279,13 +324,19 @@ def phase0_build(card):
         for line in r["ptxas"].splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                entry = m.group(1)
+                entry, frame = m.group(1), [0, 0, 0]
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and entry is not None:
+                frame = [int(g) for g in m.groups()]
             m = re.search(r"Used (\d+) registers", line)
             if m and entry is not None:
                 smem = re.search(r"(\d+) bytes smem", line)
                 rows.append({"entry": entry, "registers": int(m.group(1)),
                              "smem_bytes": int(smem.group(1)) if smem
-                             else 0})
+                             else 0, "stack_bytes": frame[0],
+                             "spill_store_bytes": frame[1],
+                             "spill_load_bytes": frame[2]})
                 entry = None
         kernels[name] = rows
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
@@ -388,13 +439,13 @@ def golden_solve(dtype):
     U0 = torch.as_tensor(golden_cartpole_U0(), dtype=dtype, device="cuda")
     opts = ILQROptions(n_iterations=40, riccati_mode="kernel",
                        fused_rollout=True)
-    n1, n2 = bk.launches, fr.launches
+    n1, n2 = bk.launches, fr.launches["a"]
     t0 = time.perf_counter()
     r = solve(model, cost, z0, U0, opts,
               encoding=StateEncoding.IGNORE_UNCERTAINTY)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return r, bk.launches - n1, fr.launches - n2, seconds
+    return r, bk.launches - n1, fr.launches["a"] - n2, seconds
 
 
 def phase3_golden_f64():
@@ -483,9 +534,10 @@ def phase5_main_path(card):
         return 1e3 * (time.perf_counter() - t0), r
 
     # The main path, once, with the launch counters from zero.
-    bk.launches = fr.launches = 0
+    bk.launches = 0
+    reset_counts(fr.launches)
     ms_first, r_main = full_solve(True)
-    counts = {"K1": bk.launches, "K2": fr.launches}
+    counts = {"K1": bk.launches, "K2": fr.launches["a"]}
     check(counts["K1"] >= 1 and counts["K2"] >= 1,
           "the main path did not launch every kernel: {}".format(counts))
     check(counts["K1"] == r_main.evals and counts["K2"] == r_main.evals,
@@ -850,12 +902,12 @@ def phase8_bnn_iteration(card):
                 AUX_b.index_select(1, amin)[:, 0], J_b[amin])
 
     # The path, once, with every count from zero.
-    bk.launches = fr.launches = 0
-    for key in fb.launches:
-        fb.launches[key] = 0
+    bk.launches = 0
+    reset_counts(fr.launches)
+    reset_counts(fb.launches)
     Z_w, U_w, AUX_w, J_w = iteration(True)
     torch.cuda.synchronize()
-    counts = {"K1": bk.launches, "K2(a)": fr.launches,
+    counts = {"K1": bk.launches, "K2(a)": fr.launches["a"],
               **{"K2(d)" if k == "rollout" else
                  {"infer_eps": "F1", "moment_match": "F2", "mlp": "F3"}[k]:
                  v for k, v in fb.launches.items()}}
@@ -967,12 +1019,436 @@ def phase9_bnn_solve(card):
 
 
 
-def phase6_kernels(res, derivs, bnn, bnn_model_):
+# ---------------------------------------------------------------------------
+# The known-dynamics examples: K2 stages (b) and (c), the golden cases and
+# the H=200 paths of pendulum, double cartpole and rendezvous
+# ---------------------------------------------------------------------------
+
+# name -> (module, model class, cost class, x0, dt, golden horizon), the
+# configurations of tests/golden/cases.py.
+EXAMPLES = {
+    "cartpole": ("cartpole", "CartpoleDynamicsModel", "CartpoleCost",
+                 [0.0, 0.0, 0.1, 0.0], 0.05, 60),
+    "pendulum": ("pendulum", "PendulumDynamicsModel", "PendulumCost",
+                 [0.0, 0.0], 0.1, 50),
+    "double_cartpole": ("double_cartpole", "DoubleCartpoleDynamicsModel",
+                        "DoubleCartpoleCost",
+                        [0.0, 0.0, 0.05, 0.0, -0.05, 0.0], 0.05, 40),
+    "rendezvous": ("rendezvous", "RendezvousDynamicsModel", "RendezvousCost",
+                   [-10.0, -10.0, 10.0, 10.0, 0.0, -5.0, 5.0, 0.0], 0.1, 40),
+}
+# K2(b)/(c) against control_law: f64 the same arithmetic apart from the
+# order of sums and fused multiply-adds; f32 over up to 60 steps.
+K2BC_TOL = {"float64": 1e-12, "float32": 1e-4}
+
+
+def example(name, dtype):
+    """(model, cost, x0) of example ``name`` on the card."""
+    import importlib
+
+    import torch
+    mod, model_cls, cost_cls, x0, dt, _ = EXAMPLES[name]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    return (getattr(m, model_cls)(dt=dt, device="cuda", dtype=dtype),
+            getattr(m, cost_cls)(device="cuda", dtype=dtype),
+            torch.tensor(x0, dtype=dtype, device="cuda"))
+
+
+def start_state(x0, enc):
+    """x0 itself, or under a belief codec encode(x0, C=1e-2 I)."""
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding, encode
+    if enc == StateEncoding.IGNORE_UNCERTAINTY:
+        return x0
+    n = x0.shape[-1]
+    return encode(x0, C=1e-2 * torch.eye(n, dtype=x0.dtype,
+                                         device=x0.device), encoding=enc)
+
+
+def k2bc_inputs(rng, name, enc, B, N, dtype):
+    """As k2_inputs, for example ``name`` under codec ``enc``, in float64
+    then cast: the gains of one backward around the rollout of U = 0.1
+    under IGNORE_UNCERTAINTY (their belief columns small seeded values),
+    perturbed per solve, and B nominal rollouts of perturbed actions
+    under ``enc``. The starts are not perturbed: the gains hold the
+    candidates near the trajectory they were made for, where the double
+    cartpole stays out of its chaotic regime (from starts 0.02 away, its
+    closed loop amplifies a rounding difference of 1e-15 to 6e-13 over
+    40 steps, in float64 on the CPU)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (backward, local_model,
+                                                 rollout)
+    from pddp_tpu_torch.encoding import (StateEncoding,
+                                         infer_encoded_state_size)
+    ign = StateEncoding.IGNORE_UNCERTAINTY
+    f64 = torch.float64
+    model, cost, x0 = example(name, f64)
+    n, nu = model.state_size, model.action_size
+    nz = infer_encoded_state_size(n, enc)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f64, device="cuda")
+
+    U1 = torch.full((N, nu), 0.1, dtype=f64, device="cuda")
+    Z1, AUX = rollout(model, x0, U1, ign)
+    derivs = local_model(Z1, U1, AUX, model, cost, ign)
+    # Finite, moderate gains: at this first iterate Q_uu is indefinite,
+    # and the regularization goes up tenfold from 10 until they are.
+    for reg in 10.0**np.arange(1, 7):
+        k1, K1, ok = backward(*derivs, reg=float(reg))
+        if bool(ok) and float(K1.abs().max()) <= 50.0:
+            break
+    check(bool(ok), "non-finite gains at the {} inputs".format(name))
+    K1 = torch.cat([K1, t(0.01 * rng.standard_normal((N, nu, nz - n)))], -1)
+    Z, _ = rollout(model, start_state(x0.expand(B, n), enc),
+                   U1 + t(0.05 * rng.standard_normal((B, N, nu))), enc)
+    U = U1 + t(0.05 * rng.standard_normal((B, N, nu)))
+    k = k1 * t(1.0 + 0.01 * rng.standard_normal((B, N, nu)))
+    K = K1 * t(1.0 + 0.01 * rng.standard_normal((B, N, nu, nz)))
+    model, cost, _ = example(name, dtype)
+    return model, cost, tuple(a.to(dtype).contiguous() for a in (Z, U, k, K))
+
+
+def phase10_k2bc():
+    """K2 stages (b) and (c) against control_law on the card: every
+    example under IGNORE_UNCERTAINTY (stage b; the cartpole's stage (a) is
+    phase 2) and under VARIANCE_ONLY, the Cholesky codec and the full
+    covariance (stage c), with and without bounds, B = 1 and 64, N = 12
+    and the golden horizon, f64 and f32."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import control_law, default_fit_alphas
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    t0 = time.perf_counter()
+    codecs = (StateEncoding.IGNORE_UNCERTAINTY, StateEncoding.VARIANCE_ONLY,
+              StateEncoding.UPPER_TRIANGULAR_CHOLESKY,
+              StateEncoding.FULL_COVARIANCE_MATRIX)
+    rows = []
+    for name in ("pendulum", "double_cartpole", "rendezvous", "cartpole"):
+        for enc in codecs:
+            if name == "cartpole" and enc == codecs[0]:
+                continue
+            for dtype in (torch.float64, torch.float32):
+                dname = str(dtype).replace("torch.", "")
+                alphas = default_fit_alphas(dtype, "cuda")
+                for B, N, bounded in ((1, 12, True),
+                                      (64, EXAMPLES[name][5], False)):
+                    rng = np.random.default_rng(len(rows))
+                    model, cost, ins = k2bc_inputs(rng, name, enc, B, N,
+                                                   dtype)
+                    nu = model.action_size
+                    b = ((torch.full((nu,), -0.12, dtype=dtype,
+                                     device="cuda"),
+                          torch.full((nu,), 0.12, dtype=dtype,
+                                     device="cuda"))
+                         if bounded else (None, None))
+                    st = fr.stage(model, cost, enc)
+                    before = fr.launches[st]
+                    kern = fr.fused_control_law(model, *ins, alphas, enc,
+                                                cost=cost, u_min=b[0],
+                                                u_max=b[1])
+                    plain = control_law(model, *ins, alphas, enc,
+                                        u_min=b[0], u_max=b[1], cost=cost,
+                                        cost_in_scan=enc == codecs[0])
+                    torch.cuda.synchronize()
+                    row = {"model": name, "codec": enc.name, "stage": st,
+                           "dtype": dname, "B": B, "N": N,
+                           "bounds": bounded,
+                           "launched": fr.launches[st] - before,
+                           "tol": K2BC_TOL[dname],
+                           "finite": all(bool(torch.isfinite(p).all())
+                                         for p in plain)}
+                    if bounded:
+                        row["at_bound_share"] = float(
+                            (plain[1].abs() == 0.12).to(torch.float64)
+                            .mean())
+                    for key, a, p in zip("ZUJ", kern, plain):
+                        row[key + "_abs"], row[key + "_rel"] = rel_err(a, p)
+                    rows.append(row)
+    emit({"phase": 10, "kernel": "K2(b) K2(c)", "cases": rows,
+          "seconds": time.perf_counter() - t0})
+    for row in rows:
+        check(row["finite"] and row["launched"] == 1,
+              "K2(b)/(c) case did not launch or went non-finite: {}".format(
+                  row))
+        check(all(row[key + "_rel"] <= row["tol"] for key in "ZUJ"),
+              "K2(b)/(c) disagrees with its plain version: {}".format(row))
+        check(not row["bounds"] or row["at_bound_share"] > 0,
+              "the bounds did not bind: {}".format(row))
+    return rows
+
+
+# The golden cases of tests/golden/cases.py: (example, codec, iterations,
+# options, end states), the end states of the JAX solves and of the CPU
+# plain ones. Rendezvous is linear-quadratic: its first step reaches the
+# optimum, and every later candidate ties its J within an ulp or two, so
+# the order of sums decides whether one of them is accepted (CONVERGED
+# after 2 iterations and 2 to 11 evaluations; JAX: 2 and 2) or none is
+# (MAX_REG after 1 and 11; the port on one CPU thread), with the same J, Z
+# and U; any of these ends is accepted.
+GOLDEN_CASES = {
+    "pendulum": ("pendulum", "IGNORE_UNCERTAINTY", 50, {},
+                 [("CONVERGED", 49, 58)]),
+    "cartpole": ("cartpole", "IGNORE_UNCERTAINTY", 40, {},
+                 [("CONVERGED", 14, 25)]),
+    "double_cartpole": ("double_cartpole", "IGNORE_UNCERTAINTY", 25, {},
+                        [("ACCEPTED", 25, 52)]),
+    "rendezvous": ("rendezvous", "IGNORE_UNCERTAINTY", 25, {},
+                   [("MAX_REG", 1, 11)] + [("CONVERGED", 2, e)
+                                           for e in range(2, 12)]),
+    "pendulum_chol": ("pendulum", "UPPER_TRIANGULAR_CHOLESKY", 25, {},
+                      [("ACCEPTED", 25, 36)]),
+    "cartpole_boxqp": ("cartpole", "IGNORE_UNCERTAINTY", 40,
+                       {"u_min": [-0.75], "u_max": [0.75]},
+                       [("CONVERGED", 7, 12)]),
+    "pendulum_vzz": ("pendulum", "IGNORE_UNCERTAINTY", 50,
+                     {"v_zz_reg": True}, [("CONVERGED", 44, 55)]),
+    "pendulum_boxqp_vzz": ("pendulum", "IGNORE_UNCERTAINTY", 50,
+                           {"u_min": [-2.0], "u_max": [2.0],
+                            "v_zz_reg": True}, [("ACCEPTED", 50, 68)]),
+}
+
+
+def phase11_golden_cases():
+    """The eight golden cases in f64 through K1 and K2 against
+    tests/golden/solver_trajectories.npz, with the launch counts: K2 on
+    every evaluation; K1 on every evaluation of the unconstrained,
+    non-v_zz cases and on none of the others (pddp_tpu's gate sends those
+    to the scan backward)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.convert import golden_U0
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    t0 = time.perf_counter()
+    g = np.load(GOLDEN)
+    rows = []
+    for name, (ex, codec, iters, extra, outcomes) in GOLDEN_CASES.items():
+        enc = StateEncoding[codec]
+        model, cost, x0 = example(ex, torch.float64)
+        U0 = torch.as_tensor(golden_U0(name), device="cuda")
+        opts = ILQROptions(n_iterations=iters, riccati_mode="kernel",
+                           fused_rollout=True, **extra)
+        scan = "u_min" in extra or "v_zz_reg" in extra
+        bk.launches = 0
+        reset_counts(fr.launches)
+        t1 = time.perf_counter()
+        r = solve(model, cost, start_state(x0, enc), U0, opts, encoding=enc)
+        torch.cuda.synchronize()
+        Z, U = r.Z.cpu().numpy(), r.U.cpu().numpy()
+        row = {"case": name, "state": r.state.name,
+               "iterations": r.iterations, "evals": r.evals,
+               "K1_launches": bk.launches, "K2_launches": dict(fr.launches),
+               "backward": "scan (pddp_tpu's gate)" if scan else "K1",
+               "line_search": "K2({})".format(fr.stage(model, cost, enc)),
+               "J_rel": abs(r.J_opt - float(g[name + "_J"]))
+               / abs(float(g[name + "_J"])),
+               "Z_abs": float(np.abs(Z - g[name + "_Z"]).max()),
+               "U_abs": float(np.abs(U - g[name + "_U"]).max()),
+               "solve_s": time.perf_counter() - t1}
+        rows.append(row)
+        np.testing.assert_allclose(r.J_opt, g[name + "_J"], rtol=1e-6)
+        np.testing.assert_allclose(Z, g[name + "_Z"], rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(U, g[name + "_U"], rtol=1e-5, atol=1e-7)
+        check((r.state.name, r.iterations, r.evals) in outcomes,
+              "golden {} ended {}, expected {}".format(name, row, outcomes))
+        check(sum(fr.launches.values()) == r.evals
+              and bk.launches == (0 if scan else r.evals),
+              "golden {} launch counts: {}".format(name, row))
+    emit({"phase": 11, "dtype": "float64", "cases": rows,
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
+# Phase 12's configurations: (label, example, codec).
+PATHS = (("pendulum", "pendulum", "IGNORE_UNCERTAINTY"),
+         ("double_cartpole", "double_cartpole", "IGNORE_UNCERTAINTY"),
+         ("rendezvous", "rendezvous", "IGNORE_UNCERTAINTY"),
+         ("pendulum_chol", "pendulum", "UPPER_TRIANGULAR_CHOLESKY"))
+
+
+def example_path(card, label, ex, codec):
+    """One example at the bench shape in float32 (H=200, ten alphas,
+    U0 = 0.1, B=1), as phase 5 runs the cartpole: the 50-iteration solve
+    through the kernels with the launch counts from zero, K1 and K2 held
+    against their plain versions at the local model of its result, their
+    times alone, and one iteration through the kernels and through the
+    plain versions in alternating turns, with its profile."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, backward,
+                                                 control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout, solve,
+                                                 trajectory_cost)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    t0 = time.perf_counter()
+    enc = StateEncoding[codec]
+    ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+    dtype, H, A = torch.float32, 200, 10
+    model, cost, x0 = example(ex, dtype)
+    z0 = start_state(x0, enc)
+    nu = model.action_size
+    U0 = torch.full((H, nu), 0.1, dtype=dtype, device="cuda")
+    alphas = default_fit_alphas(dtype, "cuda")
+    Z0, AUX0 = rollout(model, z0, U0, enc)
+
+    def line_search(kernels, Z, U, k, K):
+        if kernels:
+            out = fr.fused_control_law(model, Z, U, k, K, alphas, enc,
+                                       cost=cost if ign else None)
+        else:
+            out = control_law(model, Z, U, k, K, alphas, enc,
+                              cost=cost if ign else None, cost_in_scan=ign)
+        if ign:
+            return out
+        return out + (trajectory_cost(cost, out[0], out[1], enc),)
+
+    def iteration(kernels):
+        derivs = local_model(Z0, U0, AUX0, model, cost, enc)
+        if kernels:
+            k, K, ok = bk.kernel_backward(*derivs, reg=0.0)
+        else:
+            k, K, ok = backward(*derivs, reg=0.0)
+        Z_b, U_b, J_b = line_search(kernels, derivs[0], U0, k, K)
+        amin = torch.argmin(torch.where(torch.isfinite(J_b), J_b,
+                                        torch.inf)).reshape(1)
+        return (Z_b.index_select(1, amin)[:, 0],
+                U_b.index_select(1, amin)[:, 0], J_b[amin])
+
+    def full_solve():
+        opts = ILQROptions(n_iterations=50, riccati_mode="kernel",
+                           fused_rollout=True)
+        t1 = time.perf_counter()
+        r = solve(model, cost, z0, U0, opts, encoding=enc)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t1), r
+
+    # The path, once, with the launch counts from zero.
+    bk.launches = 0
+    reset_counts(fr.launches)
+    ms_first, r_main = full_solve()
+    counts = {"K1": bk.launches, **{"K2(" + k + ")": v
+                                     for k, v in fr.launches.items()}}
+    st = fr.stage(model, cost, enc)
+    check(counts["K1"] == r_main.evals
+          and counts["K2(" + st + ")"] == r_main.evals
+          and sum(fr.launches.values()) == r_main.evals,
+          "{}: launches {} differ from the solve's {} evaluations".format(
+              label, counts, r_main.evals))
+    check(bool(torch.isfinite(r_main.Z).all())
+          and bool(torch.isfinite(r_main.U).all())
+          and np.isfinite(r_main.J_opt), "{} solve output".format(label))
+
+    # K1 and K2 against their plain versions at the local model of the
+    # solve's result, the regularization doubled until the gains are
+    # finite (as phase 5 does).
+    derivs = local_model(r_main.Z, r_main.U, (), model, cost, enc)
+    Z_n, U_n = derivs[0], r_main.U
+    reg = max(r_main.mu, 1e-6)
+    for _ in range(64):
+        k_p, K_p, ok_p = backward(*derivs, reg=reg)
+        if bool(ok_p):
+            break
+        reg *= 2.0
+    k_k, K_k, ok_k = bk.kernel_backward(*derivs, reg=reg)
+    plain2 = line_search(False, Z_n, U_n, k_p, K_p)
+    kern2 = line_search(True, Z_n, U_n, k_p, K_p)
+    torch.cuda.synchronize()
+    check(bool(ok_p) and bool(ok_k)
+          and all(bool(torch.isfinite(x).all()) for x in plain2),
+          "{}: non-finite values at the path's inputs".format(label))
+    k1_abs = max(rel_err(k_k, k_p)[0], rel_err(K_k, K_p)[0])
+    k1_rel = max(rel_err(k_k, k_p)[1], rel_err(K_k, K_p)[1])
+    k2_abs = max(rel_err(a, b)[0] for a, b in zip(kern2[:2], plain2[:2]))
+    k2_rel = max(rel_err(a, b)[1] for a, b in zip(kern2[:2], plain2[:2]))
+    J_rel = float(((kern2[2] - plain2[2]).abs() / plain2[2].abs()).max())
+    # K1 once more in float64 on the same local model: the float32 gains
+    # of the double cartpole (chaotic, reg ~2e3) and of rendezvous (open
+    # loop growing 1.099x a step, so V_zz reaches ~1e16 over 200 steps)
+    # are ill-conditioned, and the kernel's and the plain version's
+    # rounding part by up to a few percent there; in float64 they agree.
+    d64 = [t.double() for t in derivs]
+    k64_k, K64_k, _ = bk.kernel_backward(*d64, reg=reg)
+    k64_p, K64_p, _ = backward(*d64, reg=reg)
+    k1_rel64 = max(rel_err(k64_k, k64_p)[1], rel_err(K64_k, K64_p)[1])
+    well_posed = ex == "pendulum"
+    check(k1_rel64 <= 1e-8 and (k1_rel <= TOL[("K1", "float32")]
+                                or not well_posed),
+          "{}: K1 disagrees with plain at the path's inputs: f32 {} f64 "
+          "{}".format(label, k1_rel, k1_rel64))
+    # The double cartpole's closed loop is chaotic: over 200 steps in f32
+    # the kernel's and the plain version's rounding part; its deviation
+    # is recorded (phase 10 holds it at the golden horizon).
+    check(ex == "double_cartpole" or (k2_rel <= 1e-4 and J_rel <= 1e-4),
+          "{}: K2 disagrees with plain at the path's inputs: {} J {}"
+          .format(label, k2_rel, J_rel))
+
+    n_rep = 2 if nu > 1 else 5
+    t = {"K1_ms": events_ms(raw_k1(derivs, reg), 200),
+         "K1_plain_ms": events_ms(lambda: backward(*derivs, reg=reg),
+                                  n_rep, warmup=1),
+         "K2_ms": events_ms(raw_k2(model, cost, Z_n, U_n, k_p, K_p, alphas,
+                                   enc), 200),
+         "K2_wrapper_ms": events_ms(lambda: line_search(
+             True, Z_n, U_n, k_p, K_p), 50),
+         "K2_plain_ms": events_ms(lambda: line_search(
+             False, Z_n, U_n, k_p, K_p), 5, warmup=1)}
+    n, nz = model.state_size, Z_n.shape[-1]
+    b1, f1 = k1_work(1, H, nz, nu, 4, sweeps=5)
+    b2, f2 = k2_work(1, H, A, 4, False, ex, int(enc))
+    t["K1_bound_ms"], t["K1_bound_by"] = bound_ms(b1, f1, "float32")
+    t["K2_bound_ms"], t["K2_bound_by"] = bound_ms(b2, f2, "float32")
+
+    turns = {"kernels": [], "plain": []}
+    for kernels in (True, False, False, True):
+        turns["kernels" if kernels else "plain"].append(events_ms(
+            lambda: iteration(kernels), 10 if kernels else 1,
+            warmup=2 if kernels else 0))
+    # A belief-state solve takes seconds: one timed run, the first.
+    solves = [ms_first] + ([full_solve()[0]] if ign else [])
+    profile = device_profile(lambda: iteration(True))
+    res = {"phase": 12, "path": label, "card": card, "dtype": "float32",
+           "H": H, "A": A, "codec": codec, "nz": nz, "nu": nu,
+           "K2_stage": st, "main_path_launches": counts,
+           "main_path": {"state": r_main.state.name,
+                         "iterations": r_main.iterations,
+                         "evals": r_main.evals, "J": r_main.J_opt},
+           "ddp_iteration_ms_{}_h200_kernels".format(label):
+               min(turns["kernels"]),
+           "ddp_iteration_ms_{}_h200_plain".format(label):
+               min(turns["plain"]),
+           "full_solve_ms_50iter_h200_{}".format(label): min(solves),
+           "turns": turns, "full_solve_ms": solves,
+           "max_abs_err": {"K1": k1_abs, "K2": k2_abs},
+           "max_rel_err": {"K1": k1_rel, "K1_float64": k1_rel64,
+                           "K2": k2_rel, "J": J_rel},
+           "kernel_inputs_reg": reg,
+           "idle_share": profile["idle_share"], "profile": profile,
+           "seconds": time.perf_counter() - t0}
+    res.update(t)
+    emit(res)
+    return res
+
+
+def phase12_example_paths(card):
+    t0 = time.perf_counter()
+    out = {label: example_path(card, label, ex, codec)
+           for label, ex, codec in PATHS}
+    emit({"phase": 12, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def phase6_kernels(res, derivs, bnn, bnn_model_, paths):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
     the BNN iteration (phase 8), where K2(d) runs F1-F3's device functions
-    inline and the entries themselves launch no time."""
+    inline and the entries themselves launch no time, K2(b) on the double
+    cartpole's path and K2(c) on the pendulum's under the Cholesky codec
+    (phase 12; the other paths' numbers ride along under "paths")."""
     B, N1, nz = 1, derivs[4].shape[0], derivs[4].shape[1]
     N, nu = N1 - 1, derivs[5].shape[-1]
     b1, f1 = k1_work(B, N, nz, nu, 4, sweeps=5)
@@ -1021,6 +1497,25 @@ def phase6_kernels(res, derivs, bnn, bnn_model_):
             row["wrapper_ms"] = bnn["K2(d)_wrapper_ms"]
             row["also_replaces"] = "scripts/probe_fused_stateful.py:66"
         kernels.append(row)
+    for st, label in (("b", "double_cartpole"), ("c", "pendulum_chol")):
+        p = paths[label]
+        kernels.append({
+            "name": "K2({}) fused_rollout {}".format(st, label),
+            "route": "cuda", "source": "pddp_tpu_torch/csrc/fused_rollout.cu",
+            "replaces": "pddp_tpu/ops/fused_rollout.py:114",
+            "launches": p["main_path_launches"]["K2(" + st + ")"],
+            "max_abs_err": p["max_abs_err"]["K2"], "ms": p["K2_ms"],
+            "wrapper_ms": p["K2_wrapper_ms"], "plain_ms": p["K2_plain_ms"],
+            "bound_ms": p["K2_bound_ms"], "bound_by": p["K2_bound_by"],
+            "library_ms": None,
+            "paths": {k: {"stage": v["K2_stage"], "ms": v["K2_ms"],
+                          "plain_ms": v["K2_plain_ms"],
+                          "bound_ms": v["K2_bound_ms"],
+                          "launches": v["main_path_launches"],
+                          "K1_ms": v["K1_ms"],
+                          "K1_plain_ms": v["K1_plain_ms"],
+                          "K1_bound_ms": v["K1_bound_ms"]}
+                      for k, v in paths.items()}})
     return {"kernels": kernels}
 
 
@@ -1045,7 +1540,10 @@ def main():
     phase7_bnn_kernels()
     bnn, bnn_model_ = phase8_bnn_iteration(card)
     phase9_bnn_solve(card)
-    kernels = phase6_kernels(res, derivs, bnn, bnn_model_)
+    phase10_k2bc()
+    phase11_golden_cases()
+    paths = phase12_example_paths(card)
+    kernels = phase6_kernels(res, derivs, bnn, bnn_model_, paths)
     print(card_line(), flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,9 +26,9 @@ import numpy as np
 import torch
 
 from ..encoding import StateEncoding
-from ..utils.constraint import clamp
+from ..utils.constraint import boxqp, chol_solve, clamp
 from ..utils.evaluation import eval_cost, eval_dynamics
-from ..utils.linalg import SMALL_EIGH_N, small_eigh
+from ..utils.linalg import SMALL_EIGH_N, _cholesky_upper, small_eigh
 
 __all__ = [
     "iLQRState",
@@ -82,11 +82,11 @@ class ILQROptions:
     """Solver options (``pddp_tpu``'s fields and defaults).
 
     ``riccati_mode`` is "scan" (the Python-loop ``backward``) or "kernel"
-    (K1, for action sizes up to ``SMALL_EIGH_N``; others take "scan").
-    ``fused_rollout`` runs the line search in K2 where
-    ``ops.fused_rollout.supports_fused_rollout`` admits the model.
-    Constrained solves (``u_min``/``u_max``), ``v_zz_reg`` and
-    ``riccati_mode="parallel"`` are not ported yet and raise.
+    (K1). As in ``pddp_tpu``, constrained solves (``u_min`` and
+    ``u_max``), ``v_zz_reg`` and action sizes above ``SMALL_EIGH_N`` take
+    the scan whatever the mode. ``fused_rollout`` runs the line search in
+    K2 where ``ops.fused_rollout.supports_fused_rollout`` admits the
+    model. ``riccati_mode="parallel"`` is not ported yet and raises.
     """
 
     n_iterations: int = 50
@@ -266,47 +266,85 @@ def _psd_clamp_with_reg(Q_uu, reg):
     return Q_uu_reg, Q_uu_inv
 
 
+def _all_finite(t, dims):
+    return torch.isfinite(t).flatten(-dims).all(-1)
+
+
 def backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0,
              v_zz_reg=False, u_min=None, u_max=None, U=None):
-    """Unconstrained, Q_uu-regularized Riccati backward as a reverse loop.
+    """Riccati backward as a reverse loop; also K1's plain version
+    (``ops/backward_kernel.py``, unconstrained with Q_uu regularization).
 
-    Also K1's plain version (``ops/backward_kernel.py``). Inputs carry
-    leading batch dims before the time axis.
+    Three modes, as in ``pddp_tpu``:
+     * Q_uu regularization (default): the eigen clamp of Q_uu plus ``reg``;
+     * ``v_zz_reg``: the u-blocks are recomputed against V_zz + reg I and
+       the gains come from their Cholesky factor;
+     * constrained (``u_min`` and ``u_max``, with the nominal actions
+       ``U``): k from ``boxqp`` within [u_min - U_i, u_max - U_i],
+       warm-started from k_{i+1}, and K on the free dimensions from the
+       box-QP's masked factor.
+
+    Inputs carry leading batch dims before the time axis.
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool): ok is False
-        where a gain went non-finite anywhere in the recursion.
+        where a step failed anywhere in the recursion (a non-finite gain
+        or factor, or a box-QP status below 1).
     """
-    if v_zz_reg:
-        raise NotImplementedError("v_zz_reg is not ported yet (ROADMAP A8)")
-    if u_min is not None or u_max is not None:
-        raise NotImplementedError(
-            "the constrained (box-QP) backward is not ported yet "
-            "(ROADMAP A8)")
+    constrained = u_min is not None and u_max is not None
     N = L_u.shape[-2]
     V_z = L_z[..., N, :]
     V_zz = L_zz[..., N, :, :]
+    if v_zz_reg:
+        reg_eye = reg * torch.eye(F_z.shape[-1], dtype=V_zz.dtype,
+                                  device=V_zz.device)
+    k_next = torch.zeros_like(L_u[..., 0, :])
+    # The default mode checks its gains once, after the loop.
+    ok = torch.ones(L_u.shape[:-2], dtype=torch.bool, device=L_u.device)
+    step_ok = None
     ks, Ks = [None] * N, [None] * N
     for i in range(N - 1, -1, -1):
-        Q_z, Q_u, Q_zz, Q_uz, Q_uu = Q(
-            F_z[..., i, :, :], F_u[..., i, :, :], L_z[..., i, :],
-            L_u[..., i, :], L_zz[..., i, :, :], L_uz[..., i, :, :],
-            L_uu[..., i, :, :], V_z, V_zz)
-        _, Q_uu_inv = _psd_clamp_with_reg(Q_uu, reg)
-        k_i = -_mv(Q_uu_inv, Q_u)
-        K_i = -(Q_uu_inv @ Q_uz)
+        ins = (F_z[..., i, :, :], F_u[..., i, :, :], L_z[..., i, :],
+               L_u[..., i, :], L_zz[..., i, :, :], L_uz[..., i, :, :],
+               L_uu[..., i, :, :])
+        Q_z, Q_u, Q_zz, Q_uz, Q_uu = Q(*ins, V_z, V_zz)
+        if v_zz_reg:
+            _, lin_Q_u, _, lin_Q_uz, Q_uu_reg = Q(*ins, V_z, V_zz + reg_eye)
+            U_chol = _cholesky_upper(Q_uu_reg)
+            step_ok = _all_finite(U_chol, 2)
+            if not constrained:
+                kK = -chol_solve(U_chol, torch.cat([lin_Q_u[..., None],
+                                                    lin_Q_uz], dim=-1))
+                k_i, K_i = kK[..., 0], kK[..., 1:]
+        else:
+            lin_Q_u, lin_Q_uz = Q_u, Q_uz
+            Q_uu_reg, Q_uu_inv = _psd_clamp_with_reg(Q_uu, reg)
+            if not constrained:
+                k_i = -_mv(Q_uu_inv, Q_u)
+                K_i = -(Q_uu_inv @ Q_uz)
+        if constrained:
+            U_i = U[..., i, :]
+            res = boxqp(k_next, Q_uu_reg, lin_Q_u, u_min - U_i, u_max - U_i)
+            k_i = res.x
+            step_ok = res.result >= 1
+            if v_zz_reg:
+                step_ok = step_ok & _all_finite(res.U_free, 2)
+            free_f = res.free.to(k_i.dtype)[..., :, None]
+            K_i = -chol_solve(res.U_free, lin_Q_uz * free_f) * free_f
         # V updates use the unregularized Q_uu/Q_uz with correction terms,
-        # since k, K came from the regularized Q_uu.
+        # since k, K came from the regularized quantities.
         K_iT = _T(K_i)
         V_z = (Q_z + _mv(K_iT, Q_u) + _mv(K_iT, _mv(Q_uu, k_i))
                + _mv(_T(Q_uz), k_i))
         V_zz = Q_zz + K_iT @ (Q_uu @ K_i) + K_iT @ Q_uz + _T(Q_uz) @ K_i
         V_zz = 0.5 * (V_zz + _T(V_zz))
-        ks[i], Ks[i] = k_i, K_i
+        if step_ok is not None:
+            ok = ok & step_ok
+        ks[i], Ks[i], k_next = k_i, K_i, k_i
     k = torch.stack(ks, dim=-2)
     K = torch.stack(Ks, dim=-3)
-    ok = (torch.isfinite(k).flatten(-2).all(-1)
-          & torch.isfinite(K).flatten(-3).all(-1))
+    if not (constrained or v_zz_reg):
+        ok = _all_finite(k, 2) & _all_finite(K, 3)
     return k, K, ok
 
 
@@ -419,12 +457,6 @@ def _decrease_reg(mu, delta, mu_min, delta_0):
 
 
 def _check_options(opts: ILQROptions):
-    if opts.u_min is not None or opts.u_max is not None:
-        raise NotImplementedError(
-            "constrained solves (u_min/u_max, the box-QP backward) are not "
-            "ported yet (ROADMAP A8)")
-    if opts.v_zz_reg:
-        raise NotImplementedError("v_zz_reg is not ported yet (ROADMAP A8)")
     if opts.riccati_mode == "parallel":
         raise NotImplementedError(
             "riccati_mode='parallel' is not ported yet (ROADMAP A13)")
@@ -473,6 +505,9 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
     z0 = z0.to(dtype)
     U0 = U0.to(dtype)
     sc = np.dtype(str(dtype).replace("torch.", "")).type
+    u_min, u_max = (None if b is None else torch.as_tensor(
+        b, dtype=dtype, device=device) for b in (opts.u_min, opts.u_max))
+    constrained = u_min is not None and u_max is not None
 
     alphas = (default_fit_alphas(dtype, device) if opts.alphas is None
               else torch.as_tensor(opts.alphas, dtype=dtype, device=device))
@@ -482,17 +517,20 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
 
     def local_fn(Z, U, AUX):
         return local_model(Z, U, AUX, model, cost, encoding, model_opts,
-                           cost_opts,
+                           cost_opts, u_min=u_min, u_max=u_max,
                            approximate_hessians=opts.approximate_hessians)
 
-    def backward_fn(derivs, mu):
-        mode = opts.riccati_mode
-        if mode == "kernel":
+    def backward_fn(derivs, U_cur, mu):
+        # pddp_tpu's gate: constrained and v_zz_reg solves, and action
+        # sizes past the kernel's, take the scan.
+        if (opts.riccati_mode == "kernel" and not constrained
+                and not opts.v_zz_reg):
             from ..ops.backward_kernel import (kernel_backward,
                                                supports_kernel_backward)
             if supports_kernel_backward(derivs[5], derivs[1]):
                 return kernel_backward(*derivs, reg=float(mu))
-        return backward(*derivs, reg=float(mu))
+        return backward(*derivs, reg=float(mu), v_zz_reg=opts.v_zz_reg,
+                        u_min=u_min, u_max=u_max, U=U_cur)
 
     def line_search_fn(Z, U, k, K_new):
         if opts.fused_rollout and not model_opts:
@@ -503,20 +541,23 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
                 if encoding == StateEncoding.IGNORE_UNCERTAINTY:
                     return fused_control_law(
                         model, Z, U, k, K_new, alphas, encoding, cost=cost,
-                        cost_opts=cost_opts, with_aux=True)
+                        cost_opts=cost_opts, u_min=u_min, u_max=u_max,
+                        with_aux=True)
                 # Belief states: trajectories from the kernel, the cost
                 # as one batched post-pass.
                 Z_b, U_b, AUX_b = fused_control_law(
-                    model, Z, U, k, K_new, alphas, encoding, with_aux=True)
+                    model, Z, U, k, K_new, alphas, encoding, u_min=u_min,
+                    u_max=u_max, with_aux=True)
                 J_b = trajectory_cost(cost, Z_b, U_b, encoding, cost_opts)
                 return Z_b, U_b, J_b, AUX_b
         return control_law(model, Z, U, k, K_new, alphas, encoding,
-                           model_opts, cost=cost, cost_opts=cost_opts,
-                           with_aux=True, cost_in_scan=opts.cost_in_scan)
+                           model_opts, u_min=u_min, u_max=u_max, cost=cost,
+                           cost_opts=cost_opts, with_aux=True,
+                           cost_in_scan=opts.cost_in_scan)
 
     # One rollout up front; afterwards the accepted trajectory always
     # comes out of the line search, with its aux recorded.
-    Z, AUX = rollout(model, z0, U0, encoding)
+    Z, AUX = rollout(model, z0, U0, encoding, u_min=u_min, u_max=u_max)
     U = U0
     derivs = local_fn(Z, U, AUX)
     J_opt = sc(derivs[3].sum().item())
@@ -532,7 +573,7 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
         accept = False
         retry = True
         while retry and evals < opts.max_evals:
-            k, K_new, ok = backward_fn(derivs, mu)
+            k, K_new, ok = backward_fn(derivs, U, mu)
             Z_b, U_b, J_b, AUX_b = line_search_fn(derivs[0], U, k, K_new)
             # A diverged candidate gives NaN, which argmin would pick:
             # non-finite candidates count as +inf instead.

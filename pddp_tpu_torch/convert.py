@@ -13,18 +13,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .examples.cartpole.cost import CartpoleCost
-from .examples.cartpole.model import PARAM_NAMES, CartpoleDynamicsModel
+from .examples import cartpole as _cp
+from .examples import double_cartpole as _dcp
+from .examples import pendulum as _pend
+from .examples import rendezvous as _rdv
+from .examples.cartpole.model import PARAM_NAMES
 from .models.bnn import bnn_dynamics_model_factory
 
 __all__ = ["BNN_BUFFERS", "CARTPOLE_COST_FIELDS", "CARTPOLE_MODEL_FIELDS",
-           "bnn", "cartpole", "golden_cartpole_U0"]
+           "COST_FIELDS", "bnn", "cartpole", "double_cartpole",
+           "golden_U0", "golden_cartpole_U0", "pendulum", "rendezvous"]
+
+_DATA = Path(__file__).resolve().parent / "data"
 
 #: model fields carried across, in the order of the model's constructor.
 CARTPOLE_MODEL_FIELDS = PARAM_NAMES
 
-#: cost fields carried across.
-CARTPOLE_COST_FIELDS = ("Q", "R", "Q_term", "x_goal", "u_goal")
+#: cost fields carried across (every example's cost is a QRCost).
+COST_FIELDS = ("Q", "R", "Q_term", "x_goal", "u_goal")
+CARTPOLE_COST_FIELDS = COST_FIELDS
 
 #: BNN model arrays carried across beside the net's leaves.
 BNN_BUFFERS = ("X_mean", "X_std", "dX_mean", "dX_std", "eps_in", "eps_out")
@@ -37,23 +44,53 @@ def _check_numpy(items):
                             .format(name, type(v).__name__))
 
 
+def _example(example, model_cls, cost_cls, model_params, cost_params,
+             device, dtype):
+    _check_numpy(list(model_params.items()) + list(cost_params.items()))
+    model = model_cls(*(np.array(model_params[n])
+                        for n in example.model.PARAM_NAMES),
+                      device=device, dtype=dtype)
+    cost = cost_cls(**{n: np.array(cost_params[n]) for n in COST_FIELDS},
+                    device=device, dtype=dtype)
+    return model, cost
+
+
 def cartpole(model_params, cost_params, *, device=None,
              dtype=torch.float32):
     """(CartpoleDynamicsModel, CartpoleCost) from numpy parameters.
 
     Args:
-        model_params: mapping with the keys of ``CARTPOLE_MODEL_FIELDS``.
-        cost_params: mapping with the keys of ``CARTPOLE_COST_FIELDS``.
+        model_params: mapping with the keys of ``CARTPOLE_MODEL_FIELDS``
+            (the model module's ``PARAM_NAMES``).
+        cost_params: mapping with the keys of ``COST_FIELDS``.
         device: defaults to ``cuda`` (see ``device.resolve_device``).
     """
-    _check_numpy(list(model_params.items()) + list(cost_params.items()))
-    model = CartpoleDynamicsModel(
-        *(np.array(model_params[n]) for n in CARTPOLE_MODEL_FIELDS),
-        device=device, dtype=dtype)
-    cost = CartpoleCost(
-        **{n: np.array(cost_params[n]) for n in CARTPOLE_COST_FIELDS},
-        device=device, dtype=dtype)
-    return model, cost
+    return _example(_cp, _cp.CartpoleDynamicsModel, _cp.CartpoleCost,
+                    model_params, cost_params, device, dtype)
+
+
+def pendulum(model_params, cost_params, *, device=None,
+             dtype=torch.float32):
+    """(PendulumDynamicsModel, PendulumCost) from numpy parameters, keyed
+    as ``cartpole``'s (``examples.pendulum.model.PARAM_NAMES``)."""
+    return _example(_pend, _pend.PendulumDynamicsModel, _pend.PendulumCost,
+                    model_params, cost_params, device, dtype)
+
+
+def double_cartpole(model_params, cost_params, *, device=None,
+                    dtype=torch.float32):
+    """(DoubleCartpoleDynamicsModel, DoubleCartpoleCost) from numpy
+    parameters (``examples.double_cartpole.model.PARAM_NAMES``)."""
+    return _example(_dcp, _dcp.DoubleCartpoleDynamicsModel,
+                    _dcp.DoubleCartpoleCost, model_params, cost_params, device, dtype)
+
+
+def rendezvous(model_params, cost_params, *, device=None,
+               dtype=torch.float32):
+    """(RendezvousDynamicsModel, RendezvousCost) from numpy parameters
+    (``examples.rendezvous.model.PARAM_NAMES``)."""
+    return _example(_rdv, _rdv.RendezvousDynamicsModel, _rdv.RendezvousCost,
+                    model_params, cost_params, device, dtype)
 
 
 def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
@@ -107,5 +144,12 @@ def golden_cartpole_U0():
     solve, as numpy: 0.1 times a standard normal draw from JAX's
     ``PRNGKey(42)``, stored in the package because the port cannot draw
     JAX's random bits."""
-    return np.load(Path(__file__).resolve().parent / "data"
-                   / "golden_cartpole_U0.npy")
+    return np.load(_DATA / "golden_cartpole_U0.npy")
+
+
+def golden_U0(name):
+    """The initial actions (N, nu) float64 of golden case ``name`` of
+    ``tests/golden/cases.py``, as numpy: JAX's ``PRNGKey(42)`` draw, made
+    by ``tests/golden/golden_u0.py``."""
+    with np.load(_DATA / "golden_U0.npz") as data:
+        return data[name]

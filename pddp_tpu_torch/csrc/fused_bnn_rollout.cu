@@ -44,7 +44,11 @@
 
 #include <cstring>
 
+#include "belief_codec.cuh"
+
 namespace {
+
+using pddp::tri;
 
 constexpr int kMaxN = 8;
 constexpr int kMaxNu = 4;
@@ -79,11 +83,6 @@ struct Config {
 constexpr int kConfigInts = sizeof(Config) / sizeof(int);
 
 __host__ __device__ inline int pad8(int x) { return (x + 7) / 8 * 8; }
-
-// Offset of (r, c), c >= r, in the row-major upper triangle of an n x n.
-__device__ __forceinline__ int tri(int r, int c, int n) {
-  return r * n - r * (r - 1) / 2 + (c - r);
-}
 
 template <typename T>
 __device__ __forceinline__ void load8(const T* a, T (&v)[kTile]) {
@@ -172,29 +171,9 @@ __device__ void moment_match(const T* out, int P, int n, const T* jitter,
   __syncthreads();
   if (tid == 0) {
     T L[kMaxN * kMaxN];
-    bool found = false;
-    for (int q = 0; q < n_jitter && !found; ++q) {
-      bool ok = true;
-      for (int i = 0; i < n && ok; ++i) {
-        for (int j = 0; j <= i && ok; ++j) {
-          T s = C[i * n + j] + (i == j ? jitter[q] : T(0));
-          for (int k = 0; k < j; ++k) s = s - L[i * n + k] * L[j * n + k];
-          L[i * n + j] = i == j ? sqrt(s) : s / L[j * n + j];
-          ok = isfinite(L[i * n + j]);
-        }
-      }
-      found = ok;
-    }
-    if (!found) {
-      for (int i = 0; i < n; ++i) {
-        for (int j = 0; j < i; ++j) L[i * n + j] = T(0);
-        const T d = C[i * n + i];
-        L[i * n + i] = sqrt(d < T(1e-12) ? T(1e-12) : d);  // keeps a NaN
-      }
-    }
+    pddp::safe_cholesky_lower(C, n, jitter, n_jitter, L);
     for (int j = 0; j < n; ++j) z[j] = M[j];
-    for (int r = 0; r < n; ++r)
-      for (int c = r; c < n; ++c) z[n + tri(r, c, n)] = L[c * n + r];
+    pddp::triu_flatten_lower_t(L, n, z + n);
   }
   __syncthreads();
 }

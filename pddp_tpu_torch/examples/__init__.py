@@ -1,1 +1,2 @@
-"""Example problems of the port: cartpole so far (ROADMAP A8 adds the rest)."""
+"""Example problems of the port: cartpole, pendulum, double cartpole and
+rendezvous (their envs and ``problems.py`` are not ported yet)."""

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each source in ``csrc/`` is compiled by ``nvcc`` into its own shared
-library with a plain C interface and loaded with ``ctypes``. Nothing is
+Each source in ``csrc/`` (with the shared headers ``csrc/*.cuh`` it
+includes) is compiled by ``nvcc`` into its own shared library with a plain C interface and loaded with ``ctypes``. Nothing is
 built at import: the first call that needs a kernel builds it, into
 ``build/`` beside this package (git-ignored), under a name that carries a
 hash of the source and flags, so an edited source is never served from a
@@ -48,7 +48,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path: the hash covers the source, every shared header
+    in csrc/ and the flags."""
     src = (_CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return _BUILD / "lib{}_{}.so".format(name, digest)
 

@@ -1,8 +1,9 @@
 """Small-matrix linear algebra (port of ``pddp_tpu/utils/linalg.py``).
 
-What the solver, the encodings and the belief-state BNN need: ``mm``, the
-fixed-sweep Jacobi ``small_eigh`` that K1's plain version uses for
-nu > 1, the unrolled ``small_cholesky`` behind ``safe_cholesky`` and its
+What the solver, the encodings, the examples and the belief-state BNN
+need: ``mm``, the adjugate ``small_inv``/``small_solve`` of the double
+cartpole's 3x3 mass matrix, the fixed-sweep Jacobi ``small_eigh`` that
+K1's plain version uses for nu > 1, the unrolled ``small_cholesky`` behind ``safe_cholesky`` and its
 jitter ladder, the triangular solves ``tria_solve``/``tria_solve_right``
 and ``psd_clamp``. The TPU package's unrolled ``small_mm`` and in-kernel
 masked-sum forms are compiler workarounds and are not carried over.
@@ -12,9 +13,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mm", "small_eigh", "small_cholesky", "safe_cholesky",
-           "psd_clamp", "tria_solve", "tria_solve_right", "JITTER_LEVELS",
-           "SMALL_EIGH_N", "SMALL_N"]
+__all__ = ["mm", "small_det", "small_inv", "small_solve", "small_eigh",
+           "small_cholesky", "safe_cholesky", "psd_clamp", "tria_solve",
+           "tria_solve_right", "JITTER_LEVELS", "SMALL_EIGH_N", "SMALL_N"]
 
 #: largest action size for which the Jacobi eigen-clamp (and so K1) is used.
 SMALL_EIGH_N = 4
@@ -93,6 +94,56 @@ def small_eigh(A, sweeps=None, sort=True):
         evecs = torch.gather(
             evecs, -1, order.unsqueeze(-2).expand(evecs.shape))
     return evals, evecs
+
+
+def _minor(A, i, j):
+    n = A.shape[-1]
+    rows = [r for r in range(n) if r != i]
+    cols = [c for c in range(n) if c != j]
+    return torch.stack([torch.stack([A[..., r, c] for c in cols], dim=-1)
+                        for r in rows], dim=-2)
+
+
+def small_det(A):
+    """Determinant by Laplace expansion along the first row, unrolled for
+    n <= 4, in ``pddp_tpu``'s order of operations."""
+    n = A.shape[-1]
+    if n == 1:
+        return A[..., 0, 0]
+    out = 0.0
+    for j in range(n):
+        term = A[..., 0, j] * small_det(_minor(A, 0, j))
+        out = out + term if j % 2 == 0 else out - term
+    return out
+
+
+def small_inv(A):
+    """Inverse through the adjugate, adj / det, unrolled for n <= 4 (the
+    rounding of ``pddp_tpu.utils.linalg.small_inv``; K2 carries the same
+    3x3 solve for the double cartpole)."""
+    n = A.shape[-1]
+    if n == 1:
+        return 1.0 / A
+    d = small_det(A)
+    cof_T = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(n):
+            m = small_det(_minor(A, i, j))
+            cof_T[j][i] = m if (i + j) % 2 == 0 else -m
+    adj = torch.stack([torch.stack(row, dim=-1) for row in cof_T], dim=-2)
+    return adj / d[..., None, None]
+
+
+def small_solve(A, b):
+    """(adj(A) / det(A)) @ b for n <= 4; b is (..., n) or (..., n, k).
+
+    The vector case is an elementwise product and sum, not a matmul:
+    under ``torch.func.jacfwd`` a float32 model's tangents can be float64
+    (see ``utils.evaluation.eval_dynamics``), which matmul refuses."""
+    inv = small_inv(A)
+    if b.dim() == A.dim() - 1:
+        return (inv * b[..., None, :]).sum(-1)
+    return inv @ b
 
 
 def small_cholesky(C):

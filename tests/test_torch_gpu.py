@@ -102,13 +102,13 @@ def test_k2_kernel_matches_plain_on_card(cuda, dtype, tol, bounds):
     alphas = default_fit_alphas(dtype, cuda)
     b = (None, None) if bounds is None else tuple(
         torch.tensor([v], dtype=dtype, device=cuda) for v in bounds)
-    n = fr.launches
+    n = fr.launches["a"]
     got = fr.fused_control_law(model, Z, U, k, K, alphas, IGN, cost=cost,
                                u_min=b[0], u_max=b[1])
     want = control_law(model, Z, U, k, K, alphas, IGN, u_min=b[0],
                        u_max=b[1], cost=cost, cost_in_scan=True)
     torch.cuda.synchronize()
-    assert fr.launches == n + 1
+    assert fr.launches["a"] == n + 1
     for a, w in zip(got, want):
         assert bool(torch.isfinite(w).all())
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
@@ -195,4 +195,72 @@ def test_bnn_fragments_match_plain_on_card(cuda, dtype, tol):
     assert fb.launches["mlp"] == before["mlp"] + 1
     for a, w in pairs:
         a, w = a.cpu(), w.cpu()
+        assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+def _example_inputs(name, enc, N=12, B=2, seed=0):
+    """An example (model, cost) pair of the golden configurations and a
+    batch of B nominal rollouts under ``enc`` with seeded gains, built on
+    the CPU in float64."""
+    import importlib
+
+    from pddp_tpu_torch.encoding import encode
+    mod, model_cls, cost_cls, dt = {
+        "cartpole": ("cartpole", "CartpoleDynamicsModel", "CartpoleCost",
+                     0.05),
+        "pendulum": ("pendulum", "PendulumDynamicsModel", "PendulumCost",
+                     0.1),
+        "double_cartpole": ("double_cartpole", "DoubleCartpoleDynamicsModel",
+                            "DoubleCartpoleCost", 0.05),
+        "rendezvous": ("rendezvous", "RendezvousDynamicsModel",
+                       "RendezvousCost", 0.1)}[name]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    rng = np.random.default_rng(seed)
+    model = getattr(m, model_cls)(dt=dt, device="cpu", dtype=torch.float64)
+    n, nu = model.state_size, model.action_size
+    x0 = torch.as_tensor(0.3 * rng.standard_normal((B, n)))
+    z0 = x0 if enc == IGN else encode(
+        x0, C=1e-2 * torch.eye(n, dtype=torch.float64), encoding=enc)
+    U = torch.as_tensor(0.1 * rng.standard_normal((B, N, nu)))
+    Z, _ = rollout(model, z0, U, enc)
+    nz = Z.shape[-1]
+    k = torch.as_tensor(0.5 * rng.standard_normal((B, N, nu)))
+    K = torch.as_tensor(0.5 * rng.standard_normal((B, N, nu, nz)) / nz)
+    return m, (model_cls, cost_cls, dt), (Z, U, k, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("name,enc", [
+    ("pendulum", IGN), ("double_cartpole", IGN), ("rendezvous", IGN),
+    ("pendulum", StateEncoding.UPPER_TRIANGULAR_CHOLESKY),
+    ("rendezvous", StateEncoding.UPPER_TRIANGULAR_CHOLESKY),
+    ("double_cartpole", StateEncoding.VARIANCE_ONLY),
+    ("cartpole", StateEncoding.FULL_COVARIANCE_MATRIX),
+    ("rendezvous", StateEncoding.STANDARD_DEVIATION_ONLY)])
+def test_k2bc_kernel_matches_plain_on_card(cuda, dtype, tol, name, enc):
+    """K2 stages (b) and (c) against control_law, B=2, N=12, bounds that
+    bind, relative to each output's largest value; the cost in the kernel
+    under IGNORE_UNCERTAINTY, a post-pass under the belief codecs."""
+    m, (model_cls, cost_cls, dt), ins = _example_inputs(name, enc)
+    model = getattr(m, model_cls)(dt=dt, device=cuda, dtype=dtype)
+    cost = getattr(m, cost_cls)(device=cuda, dtype=dtype)
+    Z, U, k, K = (t.to(device=cuda, dtype=dtype).contiguous() for t in ins)
+    alphas = default_fit_alphas(dtype, cuda)
+    nu = model.action_size
+    lo = torch.full((nu,), -0.2, dtype=dtype, device=cuda)
+    hi = torch.full((nu,), 0.2, dtype=dtype, device=cuda)
+    st = fr.stage(model, cost, enc)
+    assert st == ("b" if enc == IGN else "c")
+    n = fr.launches[st]
+    got = fr.fused_control_law(model, Z, U, k, K, alphas, enc, cost=cost,
+                               u_min=lo, u_max=hi)
+    want = control_law(model, Z, U, k, K, alphas, enc, u_min=lo, u_max=hi,
+                       cost=cost, cost_in_scan=enc == IGN)
+    torch.cuda.synchronize()
+    assert fr.launches[st] == n + 1
+    assert bool((want[1].abs() == 0.2).any())
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(w).all())
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())

@@ -99,8 +99,12 @@ def test_supports_gates():
     model = CartpoleDynamicsModel(device="cpu")
     cost = CartpoleCost(device="cpu")
     assert fr.supports_fused_rollout(model, cost, IGN)
-    assert not fr.supports_fused_rollout(model, cost,
-                                         StateEncoding.VARIANCE_ONLY)
+    assert fr.stage(model, cost, StateEncoding.VARIANCE_ONLY) == "c"
+    # An aggregate cost is not carried by the kernel under
+    # IGNORE_UNCERTAINTY; under a belief codec it is a post-pass.
+    assert not fr.supports_fused_rollout(model, cost + cost, IGN)
+    assert fr.supports_fused_rollout(model, cost + cost,
+                                     StateEncoding.VARIANCE_ONLY)
 
     class Other(CartpoleDynamicsModel):
         pass
@@ -119,7 +123,7 @@ def test_supports_gates():
 
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers run the plain versions: no launch."""
-    n1, n2 = bk.launches, fr.launches
+    n1, n2 = bk.launches, dict(fr.launches)
     ins = _riccati_inputs(0, 5, 4, 1)
     bk.kernel_backward(*(torch.as_tensor(a) for a in ins))
     model, cost, Z, U, k, K = _rollout_inputs(5)
