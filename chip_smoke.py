@@ -47,6 +47,11 @@ TOL = {("K1", "float64"): 1e-10, ("K1", "float32"): 1e-4,
        ("K2", "float64"): 1e-10, ("K2", "float32"): 1e-5}
 
 
+# (B, N) of the batched kernel cases (phases 1, 2 and 10): one solve of
+# one step, a ragged block of three, a full batch at the bench horizon.
+BATCHES = [(1, 1), (3, 37), (64, 200)]
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -122,48 +127,56 @@ def device_profile(fn):
 
 
 def raw_k1(derivs, reg):
-    """A closure launching K1 alone on preallocated outputs (no checks, no
-    finiteness reduction), for the kernel's own device time."""
+    """A closure launching K1 alone on preallocated outputs (no checks),
+    for the kernel's own device time; derivs of one solve or of a batch."""
     import torch
     from pddp_tpu_torch.ops import backward_kernel as bk
     ins = derivs[1:3] + derivs[4:]
-    N, nz, nu = ins[1].shape
-    k = torch.empty((1, N, nu), dtype=ins[0].dtype, device=ins[0].device)
-    K = torch.empty((1, N, nu, nz), dtype=ins[0].dtype,
+    if derivs[1].dim() == 3:
+        ins = tuple(t[None] for t in ins)
+    B, N, nz, nu = ins[1].shape
+    k = torch.empty((B, N, nu), dtype=ins[0].dtype, device=ins[0].device)
+    K = torch.empty((B, N, nu, nz), dtype=ins[0].dtype,
                     device=ins[0].device)
+    ok = torch.empty((B,), dtype=torch.bool, device=ins[0].device)
+    p = bk.launch_plan(B, N, nz, nu, ins[0].dtype)
     fn = bk._function(ins[0].dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         check(fn(*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
-                 K.data_ptr(), 1, N, nz, nu, stream) == 0, "K1 launch")
+                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, p.chunk,
+                 p.solves_per_block, stream) == 0, "K1 launch")
     return launch
 
 
 def raw_k2(model, cost, Z, U, k, K, alphas, enc=None):
     """A closure launching K2 (stages a-c) alone on preallocated outputs,
-    for one solve (Z (N+1, nz), U (N, nu), ...); under a belief codec
-    without the cost, as the solve calls it."""
+    for one solve (Z (N+1, nz), U (N, nu), ...) or a batch; under a belief
+    codec without the cost, as the solve calls it."""
     import torch
     from pddp_tpu_torch.encoding import StateEncoding
     from pddp_tpu_torch.ops import fused_rollout as fr
     enc = StateEncoding.IGNORE_UNCERTAINTY if enc is None else enc
-    N, A = U.shape[0], alphas.shape[0]
+    if Z.dim() == 2:
+        Z, U, k, K = (t[None] for t in (Z, U, k, K))
+    B, N, A = U.shape[0], U.shape[1], alphas.shape[0]
     nz, nu = Z.shape[-1], U.shape[-1]
     kind = fr._cost_kind(model, cost, enc)
     params = fr.param_buffer(model, cost if kind else None, Z.dtype,
                              Z.device)
     outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
-            for s in ((1, N + 1, A, nz), (1, N, A, nu), (1, A))]
+            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, A))]
+    p = fr.launch_plan(B, N, A, nz, nu, params.numel(), Z.dtype)
     fn = fr._function(Z.dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, params)),
                  None, outs[0].data_ptr(), outs[1].data_ptr(),
-                 outs[2].data_ptr() if kind else None, 1, N, A,
-                 fr._MODELS[type(model)], int(enc), kind, stream) == 0,
-              "K2 launch")
+                 outs[2].data_ptr() if kind else None, B, N, A,
+                 fr._MODELS[type(model)], int(enc), kind, p.chunk,
+                 p.solves_per_block, stream) == 0, "K2 launch")
     return launch
 
 
@@ -232,6 +245,72 @@ def k2_work(B, N, A, itemsize, bounded, name="cartpole", codec=4,
             B * A * (N * step + (state_cost if cost else 0)))
 
 
+# The chain floor of a latency-chain kernel: N times the latency of the
+# dependent instructions on one step's critical path, counted by hand from
+# csrc/backward_kernel.cu and csrc/fused_rollout.cu, at these latencies in
+# SM cycles. Assumed, not measured on the card: a dependent FP32 FMA, add
+# or multiply 4 cycles and an FP64 one 8 (published microbenchmarks of
+# Volta to Hopper), an IEEE division or square root a special-function
+# approximation (~18 cycles) and 3 (FP32) or 6 (FP64) dependent FMAs, a
+# sine or cosine (no special-function unit on the precise path) 11 (FP32)
+# or 15 (FP64) dependent FMAs of range reduction and polynomial. Shared
+# memory's latency is left out: a floor that kept everything in registers.
+LATENCY = {"float32": {"fma": 4, "div": 30, "sqrt": 30, "sincos": 44},
+           "float64": {"fma": 8, "div": 66, "sqrt": 66, "sincos": 120}}
+
+
+def k1_chain_cycles(nz, nu, dtype_name):
+    """Cycles of one K1 step's critical path: stage A's nz-long product and
+    its add, stage B's nz-long product, its add and the symmetrization,
+    then stage C: for nu=1 the clamp (2) and the reciprocal, for nu=4 the
+    Jacobi's R rotations (each 3 divisions, 2 square roots and 9 dependent
+    adds and multiplies) and the inverse (a division and nu + 3), then a
+    gain column (nu), Q_uu K (nu), the quadratic form (nu), three adds and
+    the symmetrization (2)."""
+    lat = LATENCY[dtype_name]
+    if nu == 1:
+        return (2 * nz + 13) * lat["fma"] + lat["div"]
+    rotations = (8 if dtype_name == "float64" else 5) * nu * (nu - 1) // 2
+    return ((2 * nz + 12 + 4 * nu + 9 * rotations) * lat["fma"]
+            + (3 * rotations + 1) * lat["div"]
+            + 2 * rotations * lat["sqrt"])
+
+
+def k2_chain_cycles(name, codec, nz, dtype_name, bounded=False):
+    """Cycles of one K2 step's critical path for one candidate: the
+    feedback z -> u (a subtraction, nz FMAs, two adds, the clamp) and the
+    model step from u and from the angles' sines to the next state, and
+    under the Cholesky codec the belief's decode and refactorization
+    (n square roots and n divisions behind 2n FMAs), which feeds the next
+    feedback in parallel with the mean."""
+    lat = LATENCY[dtype_name]
+    fma, div, sc = lat["fma"], lat["div"], lat["sincos"]
+    u = (nz + 3 + (2 if bounded else 0)) * fma
+    if name == "cartpole":    # a2 joins a2 cos(theta); 4 ops, /, 2 FMAs
+        mean = max(u + fma, sc) + 6 * fma + div
+    elif name == "pendulum":  # u - mu td and sin's term, *3, /, td'
+        mean = max(u + fma, sc + fma) + 3 * fma + div
+    elif name == "double_cartpole":  # trig -> A -> minors -> det -> /
+        mean = max(sc + 7 * fma + div, u + 4 * fma) + 5 * fma
+    else:                     # rendezvous: u dt / m, acc, x'
+        mean = u + 3 * fma + div
+    n = SIZES[name][0]
+    belief = (n * (lat["sqrt"] + div) + 2 * n * fma) if codec == 1 else 0
+    return max(mean, belief)
+
+
+def chain_ms(cycles, N, clock_mhz):
+    return 1e3 * N * cycles / (clock_mhz * 1e6)
+
+
+def max_sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def bound_ms(nbytes, flops, dtype_name):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -244,12 +323,13 @@ def bound_ms(nbytes, flops, dtype_name):
 # ---------------------------------------------------------------------------
 
 
-def k1_inputs(rng, B, N, nz, nu, dtype, device, indefinite=False):
+def k1_inputs(rng, B, N, nz, nu, dtype, device, indefinite=False,
+              shift=2.0):
     """Seeded Riccati inputs with a PSD joint Hessian of (z, u) per step
     (so L_zz and L_uu are PSD); ``indefinite`` shifts L_uu of the last
-    three steps down by 2 I, so that Q_uu goes negative there and the
-    eigen clamp acts (shifting every step drives V_zz indefinite and the
-    recursion to overflow)."""
+    three steps down by ``shift`` I, so that Q_uu goes negative there and
+    the eigen clamp acts (shifting every step drives V_zz indefinite and
+    the recursion to overflow)."""
     import torch
     n = nz + nu
     F_z = np.eye(nz) + 0.1 * rng.standard_normal((B, N, nz, nz))
@@ -262,7 +342,7 @@ def k1_inputs(rng, B, N, nz, nu, dtype, device, indefinite=False):
     L_uz = H[..., nz:, :nz]
     L_uu = H[..., nz:, nz:].copy()
     if indefinite:
-        L_uu[:, -3:] -= 2.0 * np.eye(nu)
+        L_uu[:, -3:] -= shift * np.eye(nu)
     L_z = rng.standard_normal((B, N + 1, nz))
     L_u = rng.standard_normal((B, N, nu))
     t = [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
@@ -339,10 +419,65 @@ def phase0_build(card):
                              "spill_load_bytes": frame[2]})
                 entry = None
         kernels[name] = rows
+    checked, mismatches = plan_check()
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(next(iter(report.values()))["seconds"], 3),
+          "plans_checked": checked, "plan_mismatches": mismatches,
           "ptxas": kernels})
+    check(not mismatches, "launch plans disagree with the kernels' own "
+          "shared-memory counts: {}".format(mismatches))
+
+
+def plan_check():
+    """The wrappers' launch plans (ops/_plan.py) against the byte counts
+    the libraries compute for the same launches, for every K1 instance and
+    every K2(a)-(c) instance of the examples, f32 and f64, at one solve of
+    200 steps and at BATCHES; K1 has no instance at nz=3."""
+    import ctypes
+
+    import torch
+    from pddp_tpu_torch.encoding import (StateEncoding,
+                                         infer_encoded_state_size)
+    from pddp_tpu_torch.ops import _build
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    f1 = _build.load_library("backward_kernel").pddp_riccati_backward_smem_bytes
+    f1.argtypes, f1.restype = [ctypes.c_int] * 5, ctypes.c_long
+    f2 = _build.load_library("fused_rollout").pddp_fused_rollout_smem_bytes
+    f2.argtypes, f2.restype = [ctypes.c_int] * 7, ctypes.c_long
+    checked, bad = 0, []
+    shapes = [(1, 200)] + BATCHES
+    for dtype in (torch.float32, torch.float64):
+        f64 = int(dtype == torch.float64)
+        for nz, nu in sorted(bk.INSTANCES):
+            for B, N in shapes:
+                p = bk.launch_plan(B, N, nz, nu, dtype)
+                lib = f1(f64, nz, nu, p.chunk, p.solves_per_block)
+                checked += 1
+                if lib != p.smem_bytes:
+                    bad.append(["K1", nz, nu, f64, B, N, p.smem_bytes, lib])
+        for name in EXAMPLES:
+            model, cost, _ = example(name, dtype)
+            for enc in StateEncoding:
+                if fr.stage(model, cost, enc) is None:
+                    continue
+                kind = fr._cost_kind(model, cost, enc)
+                n_params = fr.param_buffer(model, cost if kind else None,
+                                           dtype, "cuda").numel()
+                nz = infer_encoded_state_size(model.state_size, enc)
+                for B, N in shapes:
+                    p = fr.launch_plan(B, N, 10, nz, model.action_size,
+                                       n_params, dtype)
+                    lib = f2(f64, fr._MODELS[type(model)], int(enc), kind,
+                             p.chunk, 10, p.solves_per_block)
+                    checked += 1
+                    if lib != p.smem_bytes:
+                        bad.append(["K2", name, enc.name, f64, B, N,
+                                    p.smem_bytes, lib])
+    if f1(0, 3, 1, 16, 1) != -1:
+        bad.append(["K1", 3, 1, "an instance the wrapper does not list"])
+    return checked, bad
 
 
 def phase1_k1():
@@ -355,11 +490,18 @@ def phase1_k1():
     cases = [(1, 200, 4, 1, False, 0.0), (1, 25, 14, 1, False, 0.0),
              (1, 40, 8, 4, False, 0.0), (1024, 200, 4, 1, False, 0.0),
              (1, 40, 8, 4, True, 10.0), (1, 40, 4, 1, True, 10.0)]
+    # Every (nz, nu) instance at the B, N of BATCHES, the clamp acting:
+    # L_uu of the last steps shifted by 4 I (by 2 I, one single-step
+    # solve of six keeps its Q_uu positive).
+    old_cases = len(cases)
+    cases += [(B, N, nz, nu, True, 10.0) for nz, nu in sorted(bk.INSTANCES)
+              for B, N in BATCHES]
     rows = []
     for seed, (B, N, nz, nu, indefinite, reg) in enumerate(cases):
         for dtype in (torch.float32, torch.float64):
             ins = k1_inputs(np.random.default_rng(seed), B, N, nz, nu, dtype,
-                            "cuda", indefinite)
+                            "cuda", indefinite,
+                            shift=2.0 if seed < old_cases else 4.0)
             k_p, K_p, ok_p = backward(*ins, reg=reg)
             k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=reg)
             torch.cuda.synchronize()
@@ -379,10 +521,27 @@ def phase1_k1():
                         @ L_zz[:, -1] @ F_u[:, -1])
                 row["Q_uu_min_eig_last_step"] = float(
                     torch.linalg.eigvalsh(Q_uu).min())
+            row["ok_equal"] = ok_k.tolist() == ok_p.tolist()
             rows.append(row)
-    emit({"phase": 1, "kernel": "K1", "cases": rows})
+    # ok from the kernel on non-finite inputs: a NaN in L_uu of solve 1 and
+    # in F_z of solve 3 of five.
+    nan_rows = []
+    for dtype in (torch.float32, torch.float64):
+        ins = k1_inputs(np.random.default_rng(99), 5, 20, 4, 1, dtype, "cuda")
+        ins[8][1, 7] = float("nan")
+        ins[1][3, 0, 2, 1] = float("nan")
+        ok_k = bk.kernel_backward(*ins)[2].tolist()
+        ok_p = backward(*ins)[2].tolist()
+        nan_rows.append({"dtype": str(dtype).replace("torch.", ""),
+                         "ok_kernel": ok_k, "ok_plain": ok_p})
+    emit({"phase": 1, "kernel": "K1", "cases": rows, "nan_cases": nan_rows})
+    for row in nan_rows:
+        check(row["ok_kernel"] == row["ok_plain"]
+              == [True, False, True, False, True],
+              "K1's ok on NaN inputs: {}".format(row))
     for row in rows:
-        check(row["finite"], "K1 case gave non-finite gains: {}".format(row))
+        check(row["finite"] and row["ok_equal"],
+              "K1 case gave non-finite gains or another ok: {}".format(row))
         check(row["k_rel"] <= row["tol"] and row["K_rel"] <= row["tol"],
               "K1 disagrees with its plain version: {}".format(row))
         check(row.get("Q_uu_min_eig_last_step", -1.0) < 0,
@@ -396,10 +555,10 @@ def phase2_k2():
     from pddp_tpu_torch.ops import fused_rollout as fr
     enc = StateEncoding.IGNORE_UNCERTAINTY
     rows = []
-    for seed, B in enumerate((1, 1024)):
+    for seed, (B, N) in enumerate([(1, 200), (1024, 200)] + BATCHES):
         for dtype in (torch.float32, torch.float64):
             model, cost, Z, U, k, K = k2_inputs(np.random.default_rng(seed),
-                                                B, 200, dtype, "cuda")
+                                                B, N, dtype, "cuda")
             alphas = torch.as_tensor(1.025**(-np.arange(10.0)**2),
                                      dtype=dtype, device="cuda")
             for bounded in (False, True):
@@ -414,7 +573,7 @@ def phase2_k2():
                                             u_max=b[1])
                 torch.cuda.synchronize()
                 dname = str(dtype).replace("torch.", "")
-                row = {"B": B, "N": 200, "A": 10, "dtype": dname,
+                row = {"B": B, "N": N, "A": 10, "dtype": dname,
                        "bounds": bounded, "tol": TOL[("K2", dname)],
                        "finite": all(bool(torch.isfinite(p).all())
                                      for p in plain)}
@@ -601,8 +760,10 @@ def phase5_main_path(card):
     evals = {"kernels": r_main.evals}
     for kernels in (True, False, False, True):
         key = "kernels" if kernels else "plain"
-        turns[key]["iteration_ms"].append(
-            events_ms(lambda: iteration(kernels), 50, warmup=5))
+        # The plain iteration takes ~0.3 s: ten of them make its mean.
+        turns[key]["iteration_ms"].append(events_ms(
+            lambda: iteration(kernels), 50 if kernels else 10,
+            warmup=5 if kernels else 1))
         ms, r = full_solve(kernels)
         turns[key]["full_solve_ms"].append(ms)
         evals[key] = r.evals
@@ -624,7 +785,14 @@ def phase5_main_path(card):
         res["full_solve_ms_50iter_h200_" + key] = min(v["full_solve_ms"])
         res["turns_" + key] = v
     emit(res)
-    return res, derivs
+    # Phase 13's inputs: the solve's end, and its first iteration (the
+    # local model of U0 and K1's gains at reg=0, as ``iteration`` runs).
+    derivs0 = local_model(Z0, U0, AUX0, model, cost, enc)
+    k0, K0, _ = bk.kernel_backward(*derivs0, reg=0.0)
+    inputs = {"ex": "cartpole", "model": model, "cost": cost, "enc": enc,
+              "derivs": derivs, "reg": reg, "Z": Z_n, "U": U_n, "k": k_p,
+              "K": K_p, "first": (derivs0[0], U0, k0, K0)}
+    return res, derivs, inputs
 
 
 # ---------------------------------------------------------------------------
@@ -978,7 +1146,7 @@ def phase8_bnn_iteration(card):
                                                       frag_err.items()}}}
     res.update(t)
     emit(res)
-    return res, model
+    return res, model, {"derivs": derivs, "reg": reg}
 
 
 def phase9_bnn_solve(card):
@@ -1038,7 +1206,7 @@ EXAMPLES = {
                    [-10.0, -10.0, 10.0, 10.0, 0.0, -5.0, 5.0, 0.0], 0.1, 40),
 }
 # K2(b)/(c) against control_law: f64 the same arithmetic apart from the
-# order of sums and fused multiply-adds; f32 over up to 60 steps.
+# order of sums and fused multiply-adds; f32 over up to 200 steps.
 K2BC_TOL = {"float64": 1e-12, "float32": 1e-4}
 
 
@@ -1065,7 +1233,7 @@ def start_state(x0, enc):
                                          device=x0.device), encoding=enc)
 
 
-def k2bc_inputs(rng, name, enc, B, N, dtype):
+def k2bc_inputs(rng, name, enc, B, N, dtype, first_reg=10.0):
     """As k2_inputs, for example ``name`` under codec ``enc``, in float64
     then cast: the gains of one backward around the rollout of U = 0.1
     under IGNORE_UNCERTAINTY (their belief columns small seeded values),
@@ -1074,7 +1242,11 @@ def k2bc_inputs(rng, name, enc, B, N, dtype):
     candidates near the trajectory they were made for, where the double
     cartpole stays out of its chaotic regime (from starts 0.02 away, its
     closed loop amplifies a rounding difference of 1e-15 to 6e-13 over
-    40 steps, in float64 on the CPU)."""
+    40 steps, in float64 on the CPU). The gains are those of the least
+    reg of first_reg, 10 first_reg, ... that makes them finite with
+    |K| <= 50; over 200 steps those of reg >= 10 leave the pendulum's
+    closed loop unstable (it amplifies a rounding difference some
+    1e4-fold), and first_reg=0.1 gives gains that hold it."""
     import torch
     from pddp_tpu_torch.controllers.ilqr import (backward, local_model,
                                                  rollout)
@@ -1094,7 +1266,7 @@ def k2bc_inputs(rng, name, enc, B, N, dtype):
     derivs = local_model(Z1, U1, AUX, model, cost, ign)
     # Finite, moderate gains: at this first iterate Q_uu is indefinite,
     # and the regularization goes up tenfold from 10 until they are.
-    for reg in 10.0**np.arange(1, 7):
+    for reg in first_reg * 10.0**np.arange(8):
         k1, K1, ok = backward(*derivs, reg=float(reg))
         if bool(ok) and float(K1.abs().max()) <= 50.0:
             break
@@ -1113,8 +1285,8 @@ def phase10_k2bc():
     """K2 stages (b) and (c) against control_law on the card: every
     example under IGNORE_UNCERTAINTY (stage b; the cartpole's stage (a) is
     phase 2) and under VARIANCE_ONLY, the Cholesky codec and the full
-    covariance (stage c), with and without bounds, B = 1 and 64, N = 12
-    and the golden horizon, f64 and f32."""
+    covariance (stage c), with and without bounds, at B, N = (1, 12), (64,
+    the golden horizon) and BATCHES, f64 and f32."""
     import torch
     from pddp_tpu_torch.controllers.ilqr import control_law, default_fit_alphas
     from pddp_tpu_torch.encoding import StateEncoding
@@ -1124,6 +1296,7 @@ def phase10_k2bc():
               StateEncoding.UPPER_TRIANGULAR_CHOLESKY,
               StateEncoding.FULL_COVARIANCE_MATRIX)
     rows = []
+    batch_inputs = {}  # BATCHES' float64 inputs, cast for the f32 turn
     for name in ("pendulum", "double_cartpole", "rendezvous", "cartpole"):
         for enc in codecs:
             if name == "cartpole" and enc == codecs[0]:
@@ -1132,10 +1305,20 @@ def phase10_k2bc():
                 dname = str(dtype).replace("torch.", "")
                 alphas = default_fit_alphas(dtype, "cuda")
                 for B, N, bounded in ((1, 12, True),
-                                      (64, EXAMPLES[name][5], False)):
+                                      (64, EXAMPLES[name][5], False),
+                                      (1, 1, False), (3, 37, True),
+                                      (64, 200, False)):
                     rng = np.random.default_rng(len(rows))
-                    model, cost, ins = k2bc_inputs(rng, name, enc, B, N,
-                                                   dtype)
+                    shared = batch_inputs.get((name, enc, B, N))
+                    if shared is not None:
+                        model, cost, _ = example(name, dtype)
+                        ins = tuple(a.to(dtype) for a in shared)
+                    else:
+                        model, cost, ins = k2bc_inputs(
+                            rng, name, enc, B, N, dtype,
+                            first_reg=0.1 if (B, N) in BATCHES else 10.0)
+                        if (B, N) in BATCHES:
+                            batch_inputs[(name, enc, B, N)] = ins
                     nu = model.action_size
                     b = ((torch.full((nu,), -0.12, dtype=dtype,
                                      device="cuda"),
@@ -1343,23 +1526,27 @@ def example_path(card, label, ex, codec):
           and np.isfinite(r_main.J_opt), "{} solve output".format(label))
 
     # K1 and K2 against their plain versions at the local model of the
-    # solve's result, the regularization doubled until the gains are
-    # finite (as phase 5 does).
+    # solve's result, the regularization doubled until the gains and the
+    # plain line search's candidates are finite, as the solve's next
+    # evaluations would escalate it (the double cartpole's f32 candidates
+    # can diverge at the first reg that makes its gains finite).
     derivs = local_model(r_main.Z, r_main.U, (), model, cost, enc)
     Z_n, U_n = derivs[0], r_main.U
     reg = max(r_main.mu, 1e-6)
     for _ in range(64):
         k_p, K_p, ok_p = backward(*derivs, reg=reg)
         if bool(ok_p):
-            break
+            plain2 = line_search(False, Z_n, U_n, k_p, K_p)
+            if all(bool(torch.isfinite(x).all()) for x in plain2):
+                break
         reg *= 2.0
     k_k, K_k, ok_k = bk.kernel_backward(*derivs, reg=reg)
-    plain2 = line_search(False, Z_n, U_n, k_p, K_p)
     kern2 = line_search(True, Z_n, U_n, k_p, K_p)
     torch.cuda.synchronize()
     check(bool(ok_p) and bool(ok_k)
           and all(bool(torch.isfinite(x).all()) for x in plain2),
-          "{}: non-finite values at the path's inputs".format(label))
+          "{}: non-finite values at the path's inputs (reg={}, plain ok "
+          "{}, kernel ok {})".format(label, reg, bool(ok_p), bool(ok_k)))
     k1_abs = max(rel_err(k_k, k_p)[0], rel_err(K_k, K_p)[0])
     k1_rel = max(rel_err(k_k, k_p)[1], rel_err(K_k, K_p)[1])
     k2_abs = max(rel_err(a, b)[0] for a, b in zip(kern2[:2], plain2[:2]))
@@ -1430,7 +1617,12 @@ def example_path(card, label, ex, codec):
            "seconds": time.perf_counter() - t0}
     res.update(t)
     emit(res)
-    return res
+    derivs0 = local_model(Z0, U0, AUX0, model, cost, enc)
+    k0, K0, _ = bk.kernel_backward(*derivs0, reg=0.0)
+    inputs = {"ex": ex, "model": model, "cost": cost, "enc": enc,
+              "derivs": derivs, "reg": reg, "Z": Z_n, "U": U_n, "k": k_p,
+              "K": K_p, "first": (derivs0[0], U0, k0, K0)}
+    return res, inputs
 
 
 def phase12_example_paths(card):
@@ -1438,17 +1630,101 @@ def phase12_example_paths(card):
     out = {label: example_path(card, label, ex, codec)
            for label, ex, codec in PATHS}
     emit({"phase": 12, "seconds": time.perf_counter() - t0})
-    return out
+    return ({label: r for label, (r, _) in out.items()},
+            {label: i for label, (_, i) in out.items()})
 
 
-def phase6_kernels(res, derivs, bnn, bnn_model_, paths):
+def _candidate_stats(model, Z_b):
+    """The largest |angle| the candidates reach (finite values) and the
+    share of non-finite state values."""
+    import torch
+    finite = torch.isfinite(Z_b)
+    idx = list(getattr(model, "angular_indices", ()) or ())
+    ang = Z_b[..., idx] if idx else Z_b[..., :0]
+    ang = torch.where(torch.isfinite(ang), ang.abs(), torch.zeros_like(ang))
+    return {"max_abs_angle": float(ang.max()) if ang.numel() else None,
+            "nonfinite_share": float((~finite).to(torch.float64).mean())}
+
+
+def phase13_kernel_times(card, path_inputs, bnn_k1):
+    """K1 and K2 alone at every path's shape and inputs (phases 5, 8 and
+    12), for one solve and for 64 (the inputs repeated), by CUDA events
+    after a warm-up, each beside its roofline bound and its chain floor;
+    and K2 at each path's first-iteration inputs (gains at reg=0 around
+    U0 = 0.1) against its time at the solve's end, with the largest angle
+    and the non-finite share its candidates reach at each."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    t0 = time.perf_counter()
+    clock = max_sm_clock_mhz()
+    alphas = default_fit_alphas(torch.float32, "cuda")
+    A = alphas.shape[0]
+
+    def rep(t, B):
+        return t if B == 1 else t.expand((B,) + t.shape).contiguous()
+
+    def k1_row(label, derivs, reg, B):
+        N, nz, nu = derivs[2].shape
+        d = [rep(t, B) for t in derivs]
+        ms = events_ms(raw_k1(d, reg), 200 if B == 1 else 50)
+        bound, by = bound_ms(*k1_work(B, N, nz, nu, 4, sweeps=5), "float32")
+        chain = chain_ms(k1_chain_cycles(nz, nu, "float32"), N, clock)
+        return {"kernel": "K1", "path": label, "B": B, "N": N, "nz": nz,
+                "nu": nu, "ms": ms, "bound_ms": bound, "bound_by": by,
+                "chain_floor_ms": chain}
+
+    rows = [k1_row("bnn", bnn_k1["derivs"], bnn_k1["reg"], B)
+            for B in (1, 64)]
+    for label, p in path_inputs.items():
+        rows += [k1_row(label, p["derivs"], p["reg"], B) for B in (1, 64)]
+        model, enc = p["model"], p["enc"]
+        ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+        cost = p["cost"] if ign else None
+        N, nz = p["U"].shape[0], p["Z"].shape[-1]
+        chain = chain_ms(k2_chain_cycles(p["ex"], int(enc), nz, "float32"),
+                         N, clock)
+        st = fr.stage(model, cost, enc)
+        for B in (1, 64):
+            ins = [rep(t, B) for t in (p["Z"], p["U"], p["k"], p["K"])]
+            ms = events_ms(raw_k2(model, cost, *ins, alphas, enc),
+                           200 if B == 1 else 50)
+            bound, by = bound_ms(*k2_work(B, N, A, 4, False, p["ex"],
+                                          int(enc)), "float32")
+            rows.append({"kernel": "K2({})".format(st), "path": label,
+                         "B": B, "N": N, "nz": nz, "ms": ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "chain_floor_ms": chain})
+        # The first iteration's inputs against the solve's end.
+        first = {"ms": events_ms(raw_k2(model, cost, *p["first"], alphas,
+                                        enc), 200)}
+        first.update(_candidate_stats(model, fr.fused_control_law(
+            model, *p["first"], alphas, enc, cost=cost)[0]))
+        end = _candidate_stats(model, fr.fused_control_law(
+            model, p["Z"], p["U"], p["k"], p["K"], alphas, enc,
+            cost=cost)[0])
+        rows[-2].update({"first_iteration": first, "end": end})
+        if cost is not None:   # the same candidates without the cost
+            rows[-2]["ms_without_cost"] = events_ms(raw_k2(
+                model, None, p["Z"], p["U"], p["k"], p["K"], alphas, enc),
+                200)
+    emit({"phase": 13, "card": card, "dtype": "float32", "A": A,
+          "sm_clock_max_mhz": clock, "rows": rows,
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def phase6_kernels(res, derivs, bnn, bnn_model_, paths, times):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
     the BNN iteration (phase 8), where K2(d) runs F1-F3's device functions
     inline and the entries themselves launch no time, K2(b) on the double
     cartpole's path and K2(c) on the pendulum's under the Cholesky codec
-    (phase 12; the other paths' numbers ride along under "paths")."""
+    (phase 12; the other paths' numbers ride along under "paths"). The
+    latency-chain kernels K1 and K2(a)-(c) also carry their chain floor
+    and their times at 64 solves (phase 13)."""
     B, N1, nz = 1, derivs[4].shape[0], derivs[4].shape[1]
     N, nu = N1 - 1, derivs[5].shape[-1]
     b1, f1 = k1_work(B, N, nz, nu, 4, sweeps=5)
@@ -1516,6 +1792,17 @@ def phase6_kernels(res, derivs, bnn, bnn_model_, paths):
                           "K1_plain_ms": v["K1_plain_ms"],
                           "K1_bound_ms": v["K1_bound_ms"]}
                       for k, v in paths.items()}})
+    def timed(kernel, path):
+        rows = {r["B"]: r for r in times
+                if r["kernel"] == kernel and r["path"] == path}
+        return {"chain_floor_ms": rows[1]["chain_floor_ms"],
+                "ms_B64": rows[64]["ms"], "bound_ms_B64": rows[64][
+                    "bound_ms"]}
+    for row, kernel, path in ((kernels[0], "K1", "cartpole"),
+                              (kernels[1], "K2(a)", "cartpole"),
+                              (kernels[-2], "K2(b)", "double_cartpole"),
+                              (kernels[-1], "K2(c)", "pendulum_chol")):
+        row.update(timed(kernel, path))
     return {"kernels": kernels}
 
 
@@ -1536,14 +1823,16 @@ def main():
     phase2_k2()
     phase3_golden_f64()
     phase4_golden_f32()
-    res, derivs = phase5_main_path(card)
+    res, derivs, main_inputs = phase5_main_path(card)
     phase7_bnn_kernels()
-    bnn, bnn_model_ = phase8_bnn_iteration(card)
+    bnn, bnn_model_, bnn_k1 = phase8_bnn_iteration(card)
     phase9_bnn_solve(card)
     phase10_k2bc()
     phase11_golden_cases()
-    paths = phase12_example_paths(card)
-    kernels = phase6_kernels(res, derivs, bnn, bnn_model_, paths)
+    paths, path_inputs = phase12_example_paths(card)
+    times = phase13_kernel_times(card, {"cartpole": main_inputs,
+                                        **path_inputs}, bnn_k1)
+    kernels = phase6_kernels(res, derivs, bnn, bnn_model_, paths, times)
     print(card_line(), flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

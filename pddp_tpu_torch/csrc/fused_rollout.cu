@@ -33,18 +33,24 @@
 // reads a few KB and writes under 100 KB, so the roofline says
 // nanoseconds. Its real limit is the chain of N dependent model steps on
 // each candidate: the time is N times the latency of one step (tens to a
-// few hundred dependent flops, sin/cos, divisions, two block barriers;
-// under the Cholesky codec at n=8 a factorization of up to five rungs).
+// few hundred dependent flops, sin/cos, divisions; under the Cholesky
+// codec at n=8 a factorization of up to five rungs).
 //
-// What the design does about that: one block per solve and one thread per
-// candidate, each keeping its state in registers for the whole horizon
-// (the n=8 belief matrices of rendezvous spill to local memory); the block
-// shares the nominal z_i, u_i, k_i, K_i of step i through shared memory;
-// the batch of solves is the grid. Prefetching several steps per barrier
-// and packing several solves per block are later work.
+// What the design does about that: one warp per solve and one lane per
+// candidate (A <= 32), each keeping its state in registers for the whole
+// horizon (the n=8 belief matrices of rendezvous spill to local memory);
+// several solves per block, the batch. Nothing but the chain is left in a
+// step: the nominal rows z_i, u_i, k_i, K_i arrive in shared memory ahead
+// of use, a ring of chunks of steps (async_copy.cuh), the bounds sit in
+// registers, the parameters in shared memory, and no step has a barrier.
+// A chunk's states and actions gather in shared memory; when it ends, all
+// 32 lanes take its stage costs (independent once the states are known;
+// each candidate then adds its own in step order) and store its rows to
+// Z_out and U_out contiguously.
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "belief_codec.cuh"
 
 namespace {
@@ -330,146 +336,244 @@ template <typename T>
 struct Args {
   const T *Z, *U, *k, *K, *alphas, *params, *bounds;
   T *Z_out, *U_out, *J_out;
-  int N, A;
+  int B, N, A, C;  // solves, steps, candidates, steps per chunk
+};
+
+// Layout of one instance: its parameters (block-wide) and, per warp, the
+// ring of nominal rows (z_i, u_i, k_i, K_i as four arrays of C steps), the
+// chunk's states (A a step, and the A states before its first step), its
+// actions (A a step) and its stage costs (A a step).
+template <class M, int codec, int cost>
+struct K2Shape {
+  static constexpr int n = M::n, nu = M::nu, nz = encoded_size(codec, n);
+  static constexpr int ny = cost == kAugQR ? M::n_aug : n;
+  // Parameter layout: the model's, then Q, R, Q_term, x_goal, u_goal.
+  static constexpr int kQ = M::n_params, kR = kQ + ny * ny;
+  static constexpr int kQterm = kR + nu * nu, kXgoal = kQterm + ny * ny;
+  static constexpr int kUgoal = kXgoal + ny;
+  static constexpr int n_params = cost == kNoCost ? M::n_params : kUgoal + nu;
+  static constexpr int n_nominal = nz + 2 * nu + nu * nz;
+  __host__ __device__ static constexpr long warp_elems(int chunk, int A) {
+    return long(pddp::kStages) * chunk * n_nominal +
+           long(chunk) * A * (nz + nu + 1) + long(A) * nz;
+  }
+  static constexpr long smem_bytes(int chunk, int A, int solves, int size) {
+    return pddp::round16(long(n_params) * size) +
+           solves * pddp::round16(warp_elems(chunk, A) * size);
+  }
 };
 
 template <typename T, class M, int codec, int cost>
-__global__ void fused_rollout_kernel(Args<T> g) {
-  constexpr int n = M::n, nu = M::nu, nz = encoded_size(codec, n);
-  constexpr int ny = cost == kAugQR ? M::n_aug : n;
-  // Parameter layout: the model's, then Q, R, Q_term, x_goal, u_goal.
-  constexpr int kQ = M::n_params, kR = kQ + ny * ny, kQterm = kR + nu * nu;
-  constexpr int kXgoal = kQterm + ny * ny, kUgoal = kXgoal + ny;
-  constexpr int n_params = cost == kNoCost ? M::n_params : kUgoal + nu;
-  // The nominal row of step i: z_i, u_i, k_i, K_i.
-  constexpr int kNomU = nz, kNomk = nz + nu, kNomK = nz + 2 * nu;
-  constexpr int n_nominal = nz + 2 * nu + nu * nz;
+__global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
+    fused_rollout_kernel(const Args<T> g) {
+  using S = K2Shape<M, codec, cost>;
+  constexpr int nz = S::nz, nu = S::nu;
+  constexpr int n_params = S::n_params;
   static_assert(n_params <= kMaxParams, "parameter buffer");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
 
-  const int N = g.N, A = g.A;
-  const size_t b = blockIdx.x;
-  const int a = threadIdx.x, nt = blockDim.x;
-  const T* Z = g.Z + b * (N + 1) * nz;
-  const T* U = g.U + b * N * nu;
-  const T* k = g.k + b * N * nu;
-  const T* K = g.K + b * N * nu * nz;
-  T* Z_out = g.Z_out + b * (N + 1) * A * nz;
-  T* U_out = g.U_out + b * N * A * nu;
-
-  __shared__ T p[n_params];
-  __shared__ T nominal[n_nominal];
-  for (int e = a; e < n_params; e += nt) p[e] = g.params[e];
+  // The parameters, once per block: the only block barrier.
+  T* const p = reinterpret_cast<T*>(smem_raw);
+  for (int e = threadIdx.x; e < n_params; e += blockDim.x) p[e] = g.params[e];
   __syncthreads();
 
-  const bool active = a < A;
-  const T alpha = active ? g.alphas[a] : T(0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= g.B) return;  // the ragged last block
+  const int N = g.N, A = g.A, C = g.C;
+  const long warp_elems = pddp::round16(S::warp_elems(C, A) * long(sizeof(T))) /
+                          long(sizeof(T));
+  T* const ring = p + pddp::round16(long(n_params) * long(sizeof(T))) /
+                          long(sizeof(T)) +
+                  warp * warp_elems;
+  T* const outZ = ring + long(pddp::kStages) * C * S::n_nominal;
+  T* const outU = outZ + long(C + 1) * A * nz;
+  T* const costs = outU + long(C) * A * nu;
+
+  const size_t bb = b;
+  const T* Z = g.Z + bb * (N + 1) * nz;
+  const T* U = g.U + bb * N * nu;
+  const T* k = g.k + bb * N * nu;
+  const T* K = g.K + bb * N * nu * nz;
+  T* Z_out = g.Z_out + bb * (N + 1) * A * nz;
+  T* U_out = g.U_out + bb * N * A * nu;
+
+  // The ring: chunk c holds steps [c C, min(N, (c+1) C)) in slot c % kStages.
+  const int n_chunks = (N + C - 1) / C;
+  auto issue = [&](int c) {
+    if (c < n_chunks) {
+      const int lo = c * C, n_steps = (N - lo < C ? N - lo : C);
+      T* s = ring + long(c % pddp::kStages) * C * S::n_nominal;
+      pddp::stage_rows<1, nz>(s, nz, 0, Z + lo * nz, n_steps, lane);
+      pddp::stage_rows<1, nu>(s + C * nz, nu, 0, U + lo * nu, n_steps, lane);
+      pddp::stage_rows<1, nu>(s + C * (nz + nu), nu, 0, k + lo * nu, n_steps,
+                              lane);
+      pddp::stage_rows<1, nu * nz>(s + C * (nz + 2 * nu), nu * nz, 0,
+                                   K + lo * nu * nz, n_steps, lane);
+    }
+    pddp::cp_async_commit();  // empty past the end: the count stays even
+  };
+  for (int c = 0; c < pddp::kStages - 1; ++c) issue(c);
+
+  // Lanes past the A candidates help to stage and to store.
+  const bool active = lane < A;
+  const T alpha = active ? g.alphas[lane] : T(0);
+  const bool bounded = g.bounds != nullptr;
+  T lo_b[nu], hi_b[nu];
+#pragma unroll
+  for (int j = 0; j < nu; ++j) {
+    lo_b[j] = bounded ? g.bounds[j] : T(0);
+    hi_b[j] = bounded ? g.bounds[nu + j] : T(0);
+  }
   T z[nz];
+#pragma unroll
   for (int j = 0; j < nz; ++j) z[j] = Z[j];
   if (active)
-    for (int j = 0; j < nz; ++j) Z_out[a * nz + j] = z[j];
+#pragma unroll
+    for (int j = 0; j < nz; ++j) Z_out[lane * nz + j] = z[j];
   T J = T(0);
 
-  for (int i = 0; i < N; ++i) {
-    for (int e = a; e < n_nominal; e += nt) {
-      nominal[e] = e < kNomU   ? Z[(size_t)i * nz + e]
-                   : e < kNomk ? U[(size_t)i * nu + e - kNomU]
-                   : e < kNomK ? k[(size_t)i * nu + e - kNomk]
-                               : K[(size_t)i * nu * nz + e - kNomK];
-    }
-    __syncthreads();
-
-    // Threads past the A candidates only help to load the nominal rows.
+  for (int c = 0; c < n_chunks; ++c) {
+    issue(c + pddp::kStages - 1);
+    pddp::cp_async_wait_oldest();
+    __syncwarp();
+    const int lo = c * C, n_steps = (N - lo < C ? N - lo : C);
+    const T* s = ring + long(c % pddp::kStages) * C * S::n_nominal;
     if (active) {
-      T u[nu];
-      for (int j = 0; j < nu; ++j) {
-        T du = T(0);
-        for (int l = 0; l < nz; ++l)
-          du += (z[l] - nominal[l]) * nominal[kNomK + j * nz + l];
-        T uj = nominal[kNomU + j] + (alpha * nominal[kNomk + j] + du);
-        // min(max(u, u_min), u_max) that keeps a NaN, as torch.clamp does.
-        if (g.bounds != nullptr) {
-          const T lo = g.bounds[j], hi = g.bounds[nu + j];
-          uj = uj < lo ? lo : uj;
-          uj = uj > hi ? hi : uj;
+      // Row 0: the candidates' states before the chunk's first step.
+#pragma unroll
+      for (int e = 0; e < nz; ++e) outZ[lane * nz + e] = z[e];
+      for (int j = 0; j < n_steps; ++j) {
+        const T* zi = s + j * nz;
+        const T* ui = s + C * nz + j * nu;
+        const T* ki = s + C * (nz + nu) + j * nu;
+        const T* Ki = s + C * (nz + 2 * nu) + j * nu * nz;
+        T u[nu];
+#pragma unroll
+        for (int m = 0; m < nu; ++m) {
+          T du = T(0);
+#pragma unroll
+          for (int l = 0; l < nz; ++l) du += (z[l] - zi[l]) * Ki[m * nz + l];
+          T um = ui[m] + (alpha * ki[m] + du);
+          // min(max(u, u_min), u_max) that keeps a NaN, as torch.clamp does.
+          if (bounded) {
+            um = um < lo_b[m] ? lo_b[m] : um;
+            um = um > hi_b[m] ? hi_b[m] : um;
+          }
+          u[m] = um;
         }
-        u[j] = uj;
+        model_step<T, M, codec>(p, z, u);
+#pragma unroll
+        for (int e = 0; e < nz; ++e)
+          outZ[((j + 1) * A + lane) * nz + e] = z[e];
+#pragma unroll
+        for (int e = 0; e < nu; ++e) outU[(j * A + lane) * nu + e] = u[e];
       }
-      if constexpr (cost != kNoCost)
-        J += state_cost<T, M, cost>(z, p + kQ, p + kXgoal) +
-             quad_form<T, nu>(u, p + kR, p + kUgoal);
-      model_step<T, M, codec>(p, z, u);
-
-      T* zo = Z_out + ((size_t)(i + 1) * A + a) * nz;
-      for (int j = 0; j < nz; ++j) zo[j] = z[j];
-      for (int j = 0; j < nu; ++j) U_out[((size_t)i * A + a) * nu + j] = u[j];
     }
-    __syncthreads();
+    __syncwarp();
+    if constexpr (cost != kNoCost) {
+      // The chunk's stage costs, off the chain: once its states are known
+      // the (step, candidate) pairs are independent, so all 32 lanes take
+      // them; then each candidate adds its own in step order, as the
+      // plain version's scan does.
+      for (int e = lane; e < n_steps * A; e += 32)
+        costs[e] = state_cost<T, M, cost>(outZ + e * nz, p + S::kQ,
+                                          p + S::kXgoal) +
+                   quad_form<T, nu>(outU + e * nu, p + S::kR, p + S::kUgoal);
+      __syncwarp();
+      if (active)
+        for (int j = 0; j < n_steps; ++j) J += costs[j * A + lane];
+    }
+    // The chunk's rows, contiguous in Z_out (steps lo+1 ..) and U_out.
+    T* zo = Z_out + (size_t)(lo + 1) * A * nz;
+    for (int e = lane; e < n_steps * A * nz; e += 32) zo[e] = outZ[A * nz + e];
+    T* uo = U_out + (size_t)lo * A * nu;
+    for (int e = lane; e < n_steps * A * nu; e += 32) uo[e] = outU[e];
+    __syncwarp();
   }
   if constexpr (cost != kNoCost) {
     if (active)
-      g.J_out[b * A + a] = J + state_cost<T, M, cost>(z, p + kQterm,
-                                                      p + kXgoal);
+      g.J_out[bb * A + lane] =
+          J + state_cost<T, M, cost>(z, p + S::kQterm, p + S::kXgoal);
   }
 }
 
 template <typename T, class M, int codec, int cost>
-int launch_one(const Args<T>& g, int B, cudaStream_t stream) {
-  constexpr int nz = encoded_size(codec, M::n);
-  constexpr int n_nominal = nz + 2 * M::nu + M::nu * nz;
-  // One thread per candidate, and enough to load a step's nominal row in
-  // one pass (up to 256).
-  int threads = ((g.A + 31) / 32) * 32;
-  const int rows = ((n_nominal + 31) / 32) * 32;
-  if (threads < rows) threads = rows < 256 ? rows : 256;
-  if (threads < ((g.A + 31) / 32) * 32) threads = ((g.A + 31) / 32) * 32;
-  fused_rollout_kernel<T, M, codec, cost><<<B, threads, 0, stream>>>(g);
+int launch_one(const Args<T>& g, int solves, cudaStream_t stream) {
+  using S = K2Shape<M, codec, cost>;
+  const long bytes = S::smem_bytes(g.C, g.A, solves, sizeof(T));
+  if (bytes > pddp::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static long allowed = 48 * 1024;  // per instance
+  const cudaError_t err = pddp::allow_smem(
+      fused_rollout_kernel<T, M, codec, cost>, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (g.B + solves - 1) / solves;
+  fused_rollout_kernel<T, M, codec, cost>
+      <<<blocks, 32 * solves, bytes, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class M>
-int launch_model(const Args<T>& g, int B, int codec, int cost,
-                 cudaStream_t stream) {
+// The (model, codec, cost) instances: f(Inst<M, codec, cost>{}) for the
+// one asked for, or `missing` where there is none.
+template <class M_, int codec_, int cost_>
+struct Inst {
+  using M = M_;
+  static constexpr int codec = codec_, cost = cost_;
+};
+
+template <class M, class F>
+long visit_model(int codec, int cost, long missing, F&& f) {
   switch (codec) {
     case kIgnore:
-      if (cost == kNoCost) return launch_one<T, M, kIgnore, kNoCost>(g, B, stream);
-      if (cost == kQR) return launch_one<T, M, kIgnore, kQR>(g, B, stream);
+      if (cost == kNoCost) return f(Inst<M, kIgnore, kNoCost>{});
+      if (cost == kQR) return f(Inst<M, kIgnore, kQR>{});
       if constexpr (M::n_aug != M::n)
-        if (cost == kAugQR)
-          return launch_one<T, M, kIgnore, kAugQR>(g, B, stream);
+        if (cost == kAugQR) return f(Inst<M, kIgnore, kAugQR>{});
       break;
     case kVar:
-      if (cost == kNoCost) return launch_one<T, M, kVar, kNoCost>(g, B, stream);
+      if (cost == kNoCost) return f(Inst<M, kVar, kNoCost>{});
       break;
     case kStd:
-      if (cost == kNoCost) return launch_one<T, M, kStd, kNoCost>(g, B, stream);
+      if (cost == kNoCost) return f(Inst<M, kStd, kNoCost>{});
       break;
     case kChol:
-      if (cost == kNoCost) return launch_one<T, M, kChol, kNoCost>(g, B, stream);
+      if (cost == kNoCost) return f(Inst<M, kChol, kNoCost>{});
       break;
     case kFull:
-      if (cost == kNoCost) return launch_one<T, M, kFull, kNoCost>(g, B, stream);
+      if (cost == kNoCost) return f(Inst<M, kFull, kNoCost>{});
       break;
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return missing;
+}
+
+template <class F>
+long visit(int model, int codec, int cost, long missing, F&& f) {
+  switch (model) {
+    case 0: return visit_model<Cartpole>(codec, cost, missing, f);
+    case 1: return visit_model<Pendulum>(codec, cost, missing, f);
+    case 2: return visit_model<DoubleCartpole>(codec, cost, missing, f);
+    case 3: return visit_model<Rendezvous>(codec, cost, missing, f);
+  }
+  return missing;
 }
 
 template <typename T>
 int launch(const T* Z, const T* U, const T* k, const T* K, const T* alphas,
            const T* params, const T* bounds, T* Z_out, T* U_out, T* J_out,
-           int B, int N, int A, int model, int codec, int cost,
-           void* stream_ptr) {
-  if (B < 1 || N < 1 || A < 1 || A > 1024 || (cost != kNoCost && !J_out))
+           int B, int N, int A, int model, int codec, int cost, int chunk,
+           int solves, void* stream_ptr) {
+  if (B < 1 || N < 1 || A < 1 || A > 32 || chunk < 1 || solves < 1 ||
+      solves > pddp::kMaxSolvesPerBlock || (cost != kNoCost && !J_out))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args<T> g{Z, U, k, K, alphas, params, bounds, Z_out, U_out, J_out,
-                  N, A};
+                  B, N, A, chunk};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  switch (model) {
-    case 0: return launch_model<T, Cartpole>(g, B, codec, cost, stream);
-    case 1: return launch_model<T, Pendulum>(g, B, codec, cost, stream);
-    case 2: return launch_model<T, DoubleCartpole>(g, B, codec, cost, stream);
-    case 3: return launch_model<T, Rendezvous>(g, B, codec, cost, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(visit(
+      model, codec, cost, cudaErrorInvalidValue, [&](auto inst) -> long {
+        using I = decltype(inst);
+        return launch_one<T, typename I::M, I::codec, I::cost>(g, solves,
+                                                               stream);
+      }));
 }
 
 }  // namespace
@@ -478,17 +582,19 @@ extern "C" {
 
 // model: 0 cartpole, 1 pendulum, 2 double cartpole, 3 rendezvous; codec:
 // StateEncoding's value; cost: 0 none, 1 QRCost, 2 augmented QRCost.
-// Z (B, N+1, nz), U and k (B, N, nu), K (B, N, nu, nz), alphas (A);
+// Z (B, N+1, nz), U and k (B, N, nu), K (B, N, nu, nz), alphas (A <= 32);
 // bounds (2, nu) or null; Z_out (B, N+1, A, nz), U_out (B, N, A, nu),
-// J_out (B, A) or null without a cost.
+// J_out (B, A) or null without a cost. chunk: steps per ring chunk;
+// solves: solves (warps) per block (ops/_plan.py).
 int pddp_fused_rollout_f32(const float* Z, const float* U, const float* k,
                            const float* K, const float* alphas,
                            const float* params, const float* bounds,
                            float* Z_out, float* U_out, float* J_out, int B,
                            int N, int A, int model, int codec, int cost,
-                           void* stream) {
+                           int chunk, int solves, void* stream) {
   return launch<float>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
-                       J_out, B, N, A, model, codec, cost, stream);
+                       J_out, B, N, A, model, codec, cost, chunk, solves,
+                       stream);
 }
 
 int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
@@ -496,9 +602,21 @@ int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
                            const double* params, const double* bounds,
                            double* Z_out, double* U_out, double* J_out, int B,
                            int N, int A, int model, int codec, int cost,
-                           void* stream) {
+                           int chunk, int solves, void* stream) {
   return launch<double>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
-                        J_out, B, N, A, model, codec, cost, stream);
+                        J_out, B, N, A, model, codec, cost, chunk, solves,
+                        stream);
+}
+
+// The launch's dynamic shared memory in bytes, or -1 where the instance
+// does not exist.
+long pddp_fused_rollout_smem_bytes(int f64, int model, int codec, int cost,
+                                   int chunk, int A, int solves) {
+  return visit(model, codec, cost, -1, [&](auto inst) -> long {
+    using I = decltype(inst);
+    return K2Shape<typename I::M, I::codec, I::cost>::smem_bytes(
+        chunk, A, solves, f64 ? 8 : 4);
+  });
 }
 
 }  // extern "C"

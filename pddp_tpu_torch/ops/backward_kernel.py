@@ -2,10 +2,12 @@
 
 Port of ``pddp_tpu/ops/backward_kernel.py:pallas_backward``. The
 sequential reverse recursion of the unconstrained, Q_uu-regularized iLQR
-backward runs in one launch, one block per solve, with V_z and V_zz kept
-in shared memory across the N steps. The eigen clamp of Q_uu is the
-closed form for nu = 1 and the fixed-sweep Jacobi of
-``utils.linalg.small_eigh`` for nu <= 4.
+backward runs in one launch, one warp per solve and several solves per
+block, with the value function in the warp's shared memory across the N
+steps and the per-step inputs staged there ahead of use (``_plan.py``).
+The kernel is an instance per (nz, nu) of ``INSTANCES``; the eigen clamp
+of Q_uu is the closed form for nu = 1 and the fixed-sweep Jacobi of
+``utils.linalg.small_eigh`` for nu = 4. It also writes ``ok``.
 
 The plain version is ``controllers.ilqr.backward``. On CPU tensors the
 wrapper runs it; on CUDA tensors it launches the kernel or raises.
@@ -18,14 +20,18 @@ import ctypes
 import torch
 
 from ..controllers.ilqr import backward
-from ..utils.linalg import SMALL_EIGH_N
+from . import _plan
 from ._build import load_library
 
-__all__ = ["kernel_backward", "supports_kernel_backward", "MAX_NZ",
-           "launches"]
+__all__ = ["kernel_backward", "supports_kernel_backward", "launch_plan",
+           "INSTANCES", "launches"]
 
-#: largest encoded state size the kernel's shared-memory tiles hold.
-MAX_NZ = 16
+#: the kernel's (nz, nu) instances: the paths' shapes (pendulum 2,
+#: cartpole 4, double cartpole 6, rendezvous 8 with nu=4, the BNN under the
+#: Cholesky codec 14) and the examples' belief codecs up to nz = 16
+#: (pendulum 4, 5, 6; cartpole 8, 14; double cartpole 12; rendezvous 16).
+INSTANCES = frozenset({(2, 1), (4, 1), (5, 1), (6, 1), (8, 1), (12, 1),
+                       (14, 1), (8, 4), (16, 4)})
 
 #: number of kernel launches made by ``kernel_backward``.
 launches = 0
@@ -35,26 +41,41 @@ _SYMBOLS = {torch.float32: "pddp_riccati_backward_f32",
 
 
 def supports_kernel_backward(L_u, F_z):
-    """Whether the kernel covers these sizes: nu <= SMALL_EIGH_N and
-    nz <= MAX_NZ."""
-    return L_u.shape[-1] <= SMALL_EIGH_N and F_z.shape[-1] <= MAX_NZ
+    """Whether the kernel has an instance for these sizes (``INSTANCES``);
+    ``solve`` takes the plain backward for any other."""
+    return (F_z.shape[-1], L_u.shape[-1]) in INSTANCES
+
+
+def _elems(nz, nu):
+    """(staged elements of one step, workspace elements of one warp), as
+    ``K1Shape`` lays them out: the joint [F_z F_u], [L_z; L_u] and the
+    joint L blocks per step; [V_zz; V_z], P and Q per warp."""
+    nx = nz + nu
+    return nz * nx + nx + nx * nx, (nz + 1) * nz + (nz + 1) * nx + nx * nx
+
+
+def launch_plan(B, N, nz, nu, dtype):
+    """The ``_plan.Plan`` of B solves of N steps at (nz, nu) in ``dtype``."""
+    step, work = _elems(nz, nu)
+    return _plan.plan(B, N, torch.finfo(dtype).bits // 8, step,
+                      warp_fixed=work)
 
 
 def _function(dtype):
     fn = getattr(load_library("backward_kernel"), _SYMBOLS[dtype])
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
-    """Riccati backward for nu <= SMALL_EIGH_N; the interface and returns
-    of ``controllers.ilqr.backward`` (unconstrained).
+    """Riccati backward at the (nz, nu) of ``INSTANCES``; the interface
+    and returns of ``controllers.ilqr.backward`` (unconstrained).
 
-    Inputs may carry one leading batch dim B (a batch of solves, the
-    kernel's grid). ``reg`` is a host scalar.
+    Inputs may carry one leading batch dim B (a batch of solves, one warp
+    each). ``reg`` is a host scalar.
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool).
@@ -76,9 +97,8 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
         raise TypeError("kernel_backward takes float32 or float64, not "
                         "{}".format(dtype))
     if not supports_kernel_backward(L_u, F_z):
-        raise ValueError("kernel_backward covers nu <= {} and nz <= {}, "
-                         "not nu={}, nz={}".format(SMALL_EIGH_N, MAX_NZ,
-                                                   nu, nz))
+        raise ValueError("kernel_backward has no instance at nz={}, nu={} "
+                         "(it has {})".format(nz, nu, sorted(INSTANCES)))
     shapes = ((B, N, nz, nz), (B, N, nz, nu), (B, N + 1, nz), (B, N, nu),
               (B, N + 1, nz, nz), (B, N, nu, nz), (B, N, nu, nu))
     for name, t, shape in zip(("F_z", "F_u", "L_z", "L_u", "L_zz", "L_uz",
@@ -94,19 +114,20 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
 
     k = torch.empty((B, N, nu), dtype=dtype, device=device)
     K = torch.empty((B, N, nu, nz), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    p = launch_plan(B, N, nz, nu, dtype)
     fn = _function(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
-                 K.data_ptr(), B, N, nz, nu, stream)
+                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, p.chunk,
+                 p.solves_per_block, stream)
     if err != 0:
         raise RuntimeError("K1 (riccati_backward) launch failed: CUDA error "
                            "{}".format(err))
     global launches
     launches += 1
 
-    ok = (torch.isfinite(k).flatten(1).all(1)
-          & torch.isfinite(K).flatten(1).all(1))
     if unbatched:
         return k[0], K[0], ok[0]
     return k, K, ok

@@ -42,17 +42,18 @@ from ..examples.double_cartpole import (DoubleCartpoleCost,
 from ..examples.pendulum import PendulumCost, PendulumDynamicsModel
 from ..examples.rendezvous import RendezvousCost, RendezvousDynamicsModel
 from ..utils.linalg import SMALL_N
-from . import fused_bnn_rollout
+from . import _plan, fused_bnn_rollout
 from ._build import load_library
 
 __all__ = ["fused_control_law", "supports_fused_rollout", "stage",
-           "param_buffer", "launches"]
+           "param_buffer", "launch_plan", "launches", "MAX_ALPHAS"]
 
 #: kernel launches made by ``fused_control_law``, per stage.
 launches = {"a": 0, "b": 0, "c": 0}
 
-#: largest candidate count (one thread per candidate, one block per solve).
-MAX_ALPHAS = 1024
+#: largest candidate count of stages (a)-(c): one lane per candidate, one
+#: warp per solve.
+MAX_ALPHAS = 32
 
 _SYMBOLS = {torch.float32: "pddp_fused_rollout_f32",
             torch.float64: "pddp_fused_rollout_f64"}
@@ -137,9 +138,19 @@ def param_buffer(model, cost, dtype, device):
     return torch.cat([p.to(dtype=dtype, device=device) for p in parts])
 
 
+def launch_plan(B, N, A, nz, nu, n_params, dtype):
+    """The ``_plan.Plan`` of B solves of N steps and A candidates at (nz,
+    nu) with ``n_params`` parameters, in ``dtype``: per step the staged
+    nominal row (z_i, u_i, k_i, K_i) and the A buffered states, actions
+    and stage costs, and per warp the A states before a chunk."""
+    return _plan.plan(B, N, torch.finfo(dtype).bits // 8,
+                      nz + 2 * nu + nu * nz, out_step=A * (nz + nu + 1),
+                      warp_fixed=A * nz, block_elems=n_params)
+
+
 def _function(dtype):
     fn = getattr(load_library("fused_rollout"), _SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -160,9 +171,10 @@ def fused_control_law(model, Z, U, k, K, alphas,
     """Batched-alpha closed-loop rollout in one kernel.
 
     Args mirror ``controllers.ilqr.control_law``; requires
-    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``.
-    Inputs may carry one leading batch dim B of solves (the kernel's
-    grid); ``alphas`` and the bounds are shared by the batch. Under
+    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``
+    and, for stages (a)-(c), at most ``MAX_ALPHAS`` candidates. Inputs may
+    carry one leading batch dim B of solves (one warp each); ``alphas``
+    and the bounds are shared by the batch. Under
     IGNORE_UNCERTAINTY ``cost_opts`` reach the plain version only: the
     kernel's QR costs take no options.
 
@@ -228,6 +240,7 @@ def fused_control_law(model, Z, U, k, K, alphas,
     U_out = torch.empty((B, N, A, nu), dtype=dtype, device=device)
     J_out = (torch.empty((B, A), dtype=dtype, device=device)
              if kind != _NO_COST else None)
+    p = launch_plan(B, N, A, nz, nu, params.numel(), dtype)
     fn = _function(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -236,7 +249,8 @@ def fused_control_law(model, Z, U, k, K, alphas,
                  None if bounds is None else bounds.data_ptr(),
                  Z_out.data_ptr(), U_out.data_ptr(),
                  None if J_out is None else J_out.data_ptr(),
-                 B, N, A, _MODELS[type(model)], int(encoding), kind, stream)
+                 B, N, A, _MODELS[type(model)], int(encoding), kind,
+                 p.chunk, p.solves_per_block, stream)
     if err != 0:
         raise RuntimeError("K2({}) (fused_rollout) launch failed: CUDA error "
                            "{}".format(st, err))

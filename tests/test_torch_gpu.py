@@ -15,7 +15,8 @@ import torch
 from pddp_tpu_torch.controllers.ilqr import (backward, control_law,
                                              default_fit_alphas, local_model,
                                              rollout)
-from pddp_tpu_torch.encoding import StateEncoding
+from pddp_tpu_torch.encoding import (StateEncoding, encode,
+                                     infer_encoded_state_size)
 from pddp_tpu_torch.examples.cartpole import CartpoleCost, CartpoleDynamicsModel
 from pddp_tpu_torch.ops import backward_kernel as bk
 from pddp_tpu_torch.ops import fused_rollout as fr
@@ -264,3 +265,137 @@ def test_k2bc_kernel_matches_plain_on_card(cuda, dtype, tol, name, enc):
     for a, w in zip(got, want):
         assert bool(torch.isfinite(w).all())
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+# (B, N) of the batched kernel cases: one solve of one step, a ragged
+# block of three, and a full batch at the bench horizon.
+BATCHES = [(1, 1), (3, 37), (64, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("nz,nu", sorted(bk.INSTANCES))
+def test_k1_every_instance_on_card(cuda, dtype, tol, nz, nu):
+    """K1 against backward at every (nz, nu) instance and B, N of
+    BATCHES, with Q_uu indefinite in the last three steps (reg=10, the
+    clamp acting), relative to the largest gain; ok from the kernel."""
+    for seed, (B, N) in enumerate(BATCHES):
+        solves = [_riccati_inputs(100 * seed + b, N, nz, nu, indefinite=True)
+                  for b in range(B)]
+        ins = [torch.as_tensor(np.stack(a), dtype=dtype, device=cuda)
+               for a in zip(*solves)]
+        n = bk.launches
+        k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0)
+        k_p, K_p, ok_p = backward(*ins, reg=10.0)
+        torch.cuda.synchronize()
+        assert bk.launches == n + 1
+        assert ok_k.shape == (B,) and bool(ok_k.all()) and bool(ok_p.all())
+        for a, w in ((k_k, k_p), (K_k, K_p)):
+            assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_ok_false_on_nan_on_card(cuda, dtype):
+    """The kernel's ok is False exactly for the solves with a NaN input,
+    as backward's."""
+    ins = [torch.as_tensor(np.stack([a] * 5), dtype=dtype, device=cuda)
+           for a in _riccati_inputs(4, 20, 4, 1)]
+    ins[8][1, 7] = float("nan")     # L_uu of solve 1, step 7
+    ins[1][3, 0, 2, 1] = float("nan")   # F_z of solve 3, step 0
+    _, _, ok_k = bk.kernel_backward(*ins)
+    _, _, ok_p = backward(*ins)
+    assert ok_k.tolist() == ok_p.tolist() == [True, False, True, False,
+                                              True]
+
+
+_EXAMPLES = {
+    "cartpole": ("cartpole", "CartpoleDynamicsModel", "CartpoleCost",
+                 [0.0, 0.0, 0.1, 0.0], 0.05),
+    "pendulum": ("pendulum", "PendulumDynamicsModel", "PendulumCost",
+                 [0.0, 0.0], 0.1),
+    "double_cartpole": ("double_cartpole", "DoubleCartpoleDynamicsModel",
+                        "DoubleCartpoleCost",
+                        [0.0, 0.0, 0.05, 0.0, -0.05, 0.0], 0.05),
+    "rendezvous": ("rendezvous", "RendezvousDynamicsModel", "RendezvousCost",
+                   [-10.0, -10.0, 10.0, 10.0, 0.0, -5.0, 5.0, 0.0], 0.1)}
+
+
+def _path_inputs(name, enc, B, N, seed=0):
+    """An example of the golden configurations with gains that hold its
+    closed loop over 200 steps (one backward around U = 0.1 at the least
+    reg of 0.1, 1, ... that makes them finite and |K| <= 50; the belief
+    columns small seeded values), perturbed per solve, and B nominal
+    rollouts of perturbed actions from the golden start under ``enc``;
+    built on the CPU in float64. Gains of reg >= 10 leave the pendulum's
+    closed loop unstable over 200 steps: it then amplifies a rounding
+    difference some 1e4-fold."""
+    import importlib
+    mod, model_cls, cost_cls, x0, dt = _EXAMPLES[name]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    model = getattr(m, model_cls)(dt=dt, device="cpu", dtype=f64)
+    cost = getattr(m, cost_cls)(device="cpu", dtype=f64)
+    n, nu = model.state_size, model.action_size
+    nz = infer_encoded_state_size(n, enc)
+    x0 = torch.tensor(x0, dtype=f64)
+    U1 = torch.full((N, nu), 0.1, dtype=f64)
+    Z1, AUX = rollout(model, x0, U1, IGN)
+    derivs = local_model(Z1, U1, AUX, model, cost, IGN)
+    for reg in 10.0**np.arange(-1, 7):
+        k1, K1, ok = backward(*derivs, reg=float(reg))
+        if bool(ok) and float(K1.abs().max()) <= 50.0:
+            break
+    assert bool(ok)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f64)
+
+    K1 = torch.cat([K1, t(0.01 * rng.standard_normal((N, nu, nz - n)))], -1)
+    z0 = x0.expand(B, n) if enc == IGN else encode(
+        x0.expand(B, n), C=1e-2 * torch.eye(n, dtype=f64), encoding=enc)
+    Z, _ = rollout(model, z0, U1 + t(0.05 * rng.standard_normal((B, N, nu))),
+                   enc)
+    U = U1 + t(0.05 * rng.standard_normal((B, N, nu)))
+    k = k1 * t(1.0 + 0.01 * rng.standard_normal((B, N, nu)))
+    K = K1 * t(1.0 + 0.01 * rng.standard_normal((B, N, nu, nz)))
+    return m, (model_cls, cost_cls, dt), (Z, U, k, K)
+
+
+_CODECS = (IGN, StateEncoding.VARIANCE_ONLY,
+           StateEncoding.UPPER_TRIANGULAR_CHOLESKY,
+           StateEncoding.FULL_COVARIANCE_MATRIX)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name,enc", [(n, e) for n in _EXAMPLES
+                                      for e in _CODECS])
+def test_k2_batches_on_card(cuda, dtype, name, enc):
+    """K2 stages (a)-(c) against control_law for every example and codec
+    of chip_smoke.py's phase 10 at B, N of BATCHES, ten candidates,
+    relative to each output's largest value: f64 1e-12 (1e-10 for the
+    cartpole's stage (a)), f32 1e-4."""
+    for seed, (B, N) in enumerate(BATCHES):
+        m, (model_cls, cost_cls, dt), ins = _path_inputs(name, enc, B, N,
+                                                         seed)
+        model = getattr(m, model_cls)(dt=dt, device=cuda, dtype=dtype)
+        cost = getattr(m, cost_cls)(device=cuda, dtype=dtype)
+        Z, U, k, K = (t.to(device=cuda, dtype=dtype).contiguous()
+                      for t in ins)
+        alphas = default_fit_alphas(dtype, cuda)
+        st = fr.stage(model, cost, enc)
+        n = fr.launches[st]
+        got = fr.fused_control_law(model, Z, U, k, K, alphas, enc,
+                                   cost=cost)
+        want = control_law(model, Z, U, k, K, alphas, enc, cost=cost,
+                           cost_in_scan=enc == IGN)
+        torch.cuda.synchronize()
+        assert fr.launches[st] == n + 1
+        tol = ((1e-10 if st == "a" else 1e-12) if dtype == torch.float64
+               else 1e-4)
+        for a, w in zip(got, want):
+            assert bool(torch.isfinite(w).all())
+            assert float((a - w).abs().max()) <= tol * float(w.abs().max())

@@ -6,6 +6,9 @@ on the CPU. The kernels themselves are held against the plain versions on
 a card by tests/test_torch_gpu.py.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +21,9 @@ from pddp_tpu.examples.cartpole import CartpoleDynamicsModel as JModel
 from pddp_tpu.ops.backward_kernel import pallas_backward
 from pddp_tpu.ops.fused_rollout import fused_control_law as j_fused
 from pddp_tpu_torch.controllers.ilqr import control_law, default_fit_alphas
-from pddp_tpu_torch.encoding import StateEncoding
+from pddp_tpu_torch.encoding import StateEncoding, infer_encoded_state_size
 from pddp_tpu_torch.examples.cartpole import CartpoleCost, CartpoleDynamicsModel
+from pddp_tpu_torch.ops import _plan
 from pddp_tpu_torch.ops import backward_kernel as bk
 from pddp_tpu_torch.ops import fused_rollout as fr
 from tests.test_torch_gpu import _riccati_inputs, _rollout_inputs
@@ -130,3 +134,75 @@ def test_cpu_wrappers_launch_nothing():
     fr.fused_control_law(model, Z, U, k, K, default_fit_alphas(
         torch.float64), IGN, cost=cost)
     assert (bk.launches, fr.launches) == (n1, n2)
+
+
+def _check_plan(p, B, N):
+    """A launch plan fits a block and its grid covers the batch."""
+    assert 1 <= p.solves_per_block <= _plan.MAX_SOLVES_PER_BLOCK
+    assert 1 <= p.chunk <= min(N, _plan.MAX_CHUNK)
+    assert p.smem_bytes % 16 == 0 and p.smem_bytes <= _plan.SMEM_BYTES
+    assert p.blocks * p.solves_per_block >= B
+    assert (p.blocks - 1) * p.solves_per_block < B
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_instances_and_launch_plans(dtype):
+    """The shapes K1 admits are exactly the CUDA source's dispatch table,
+    and each one's plan at the paths' horizons fits and covers B."""
+    src = (Path(bk.__file__).parent.parent / "csrc"
+           / "backward_kernel.cu").read_text()
+    table = re.search(r"#define PDDP_K1_SHAPES\(X\)(.*?)\n\n", src,
+                      re.S).group(1)
+    assert {(int(a), int(b)) for a, b in re.findall(
+        r"X\((\d+), (\d+)\)", table)} == set(bk.INSTANCES)
+    for nz in range(1, 18):
+        for nu in range(1, 6):
+            assert bk.supports_kernel_backward(
+                torch.zeros(2, nu), torch.zeros(2, nz, nz)) == (
+                    (nz, nu) in bk.INSTANCES)
+    for nz, nu in bk.INSTANCES:
+        for B in (1, 3, 64):
+            for N in (1, 25, 37, 200):
+                _check_plan(bk.launch_plan(B, N, nz, nu, dtype), B, N)
+    # The main path: one warp, a 16-step chunk of 50 staged values a step
+    # in a ring of 3, and the 70-value workspace.
+    itemsize = torch.finfo(dtype).bits // 8
+    assert tuple(bk.launch_plan(1, 200, 4, 1, dtype)) == (
+        1, 16, -(-(3 * 16 * 50 + 70) * itemsize // 16) * 16, 1)
+    assert bk.launch_plan(64, 200, 4, 1, dtype)[::3] == (4, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_launch_plans(dtype):
+    """Stages (a)-(c) at every model and codec they cover, up to
+    MAX_ALPHAS candidates: the plan fits and covers B."""
+    ns = {"cartpole": (4, 1), "pendulum": (2, 1), "double_cartpole": (6, 1),
+          "rendezvous": (8, 4)}
+    for n, nu in ns.values():
+        for enc in StateEncoding:
+            nz = infer_encoded_state_size(n, enc)
+            for A in (1, 10, fr.MAX_ALPHAS):
+                for B in (1, 3, 64):
+                    for N in (1, 37, 200):
+                        _check_plan(fr.launch_plan(B, N, A, nz, nu, 176,
+                                                   dtype), B, N)
+    # The main path: a 16-step ring of 10 values a step, the ten
+    # candidates' 4 + 1 + 1 buffered values a step and 4 before the chunk,
+    # the 63 parameters.
+    itemsize = torch.finfo(dtype).bits // 8
+    r16 = lambda n: -(-n * itemsize // 16) * 16  # noqa: E731
+    assert tuple(fr.launch_plan(1, 200, 10, 4, 1, 63, dtype)) == (
+        1, 16, r16(63) + r16(3 * 16 * 10 + 16 * 10 * 6 + 10 * 4), 1)
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_k1_ok_matches_pallas(nan):
+    """kernel_backward's ok (on the CPU, the plain version's) equals
+    pallas_backward's, for finite inputs and with a NaN in one step."""
+    ins = list(_riccati_inputs(11, 6, 4, 1))
+    if nan:
+        ins[8] = ins[8].copy()
+        ins[8][2, 0, 0] = np.nan
+    _, _, ok_j = pallas_backward(*map(jnp.asarray, ins), interpret=True)
+    _, _, ok_t = bk.kernel_backward(*(torch.as_tensor(a) for a in ins))
+    assert bool(ok_t) == bool(ok_j) == (not nan)
