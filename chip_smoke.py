@@ -16,7 +16,8 @@ horizon 25; phases 7-9), and the other known-dynamics examples: K2 stages
 (b) and (c) against their plain version (phase 10), the eight golden
 solves of tests/golden/cases.py in float64 (phase 11), and the pendulum,
 double cartpole, rendezvous and belief-state pendulum paths at horizon 200
-(phase 12). Each phase prints one JSON line; any failure
+(phase 12); phase 13 times K1 and K2 alone at every path's shape beside
+their bounds. Each phase prints one JSON line; any failure
 raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result. It imports neither JAX nor ``pddp_tpu``.
@@ -24,6 +25,7 @@ prints no result. It imports neither JAX nor ``pddp_tpu``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -139,14 +141,13 @@ def raw_k1(derivs, reg):
     K = torch.empty((B, N, nu, nz), dtype=ins[0].dtype,
                     device=ins[0].device)
     ok = torch.empty((B,), dtype=torch.bool, device=ins[0].device)
-    p = bk.launch_plan(B, N, nz, nu, ins[0].dtype)
     fn = bk._function(ins[0].dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         check(fn(*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
-                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, p.chunk,
-                 p.solves_per_block, stream) == 0, "K1 launch")
+                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, stream) == 0,
+              "K1 launch")
     return launch
 
 
@@ -167,7 +168,6 @@ def raw_k2(model, cost, Z, U, k, K, alphas, enc=None):
                              Z.device)
     outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
             for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, A))]
-    p = fr.launch_plan(B, N, A, nz, nu, params.numel(), Z.dtype)
     fn = fr._function(Z.dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -175,8 +175,8 @@ def raw_k2(model, cost, Z, U, k, K, alphas, enc=None):
         check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, params)),
                  None, outs[0].data_ptr(), outs[1].data_ptr(),
                  outs[2].data_ptr() if kind else None, B, N, A,
-                 fr._MODELS[type(model)], int(enc), kind, p.chunk,
-                 p.solves_per_block, stream) == 0, "K2 launch")
+                 fr._MODELS[type(model)], int(enc), kind, stream) == 0,
+              "K2 launch")
     return launch
 
 
@@ -303,6 +303,7 @@ def chain_ms(cycles, N, clock_mhz):
     return 1e3 * N * cycles / (clock_mhz * 1e6)
 
 
+@functools.lru_cache(maxsize=None)
 def max_sm_clock_mhz():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -316,6 +317,18 @@ def bound_ms(nbytes, flops, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def chain_bound_ms(nbytes, flops, dtype_name, cycles, N):
+    """The bound of a latency-chain kernel (K1, K2(a)-(c)): the larger of
+    the roofline (``bound_ms``) and its chain floor, N dependent steps of
+    ``cycles`` each at the card's maximum SM clock. The chain is operations
+    too, bound by their latency rather than their rate, so "by" says
+    "operations" where it wins. Returns (bound, by, roofline, chain)."""
+    roof, by = bound_ms(nbytes, flops, dtype_name)
+    chain = chain_ms(cycles, N, max_sm_clock_mhz())
+    return max(roof, chain), (by if roof >= chain else "operations"), \
+        roof, chain
 
 
 # ---------------------------------------------------------------------------
@@ -419,65 +432,10 @@ def phase0_build(card):
                              "spill_load_bytes": frame[2]})
                 entry = None
         kernels[name] = rows
-    checked, mismatches = plan_check()
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(next(iter(report.values()))["seconds"], 3),
-          "plans_checked": checked, "plan_mismatches": mismatches,
           "ptxas": kernels})
-    check(not mismatches, "launch plans disagree with the kernels' own "
-          "shared-memory counts: {}".format(mismatches))
-
-
-def plan_check():
-    """The wrappers' launch plans (ops/_plan.py) against the byte counts
-    the libraries compute for the same launches, for every K1 instance and
-    every K2(a)-(c) instance of the examples, f32 and f64, at one solve of
-    200 steps and at BATCHES; K1 has no instance at nz=3."""
-    import ctypes
-
-    import torch
-    from pddp_tpu_torch.encoding import (StateEncoding,
-                                         infer_encoded_state_size)
-    from pddp_tpu_torch.ops import _build
-    from pddp_tpu_torch.ops import backward_kernel as bk
-    from pddp_tpu_torch.ops import fused_rollout as fr
-    f1 = _build.load_library("backward_kernel").pddp_riccati_backward_smem_bytes
-    f1.argtypes, f1.restype = [ctypes.c_int] * 5, ctypes.c_long
-    f2 = _build.load_library("fused_rollout").pddp_fused_rollout_smem_bytes
-    f2.argtypes, f2.restype = [ctypes.c_int] * 7, ctypes.c_long
-    checked, bad = 0, []
-    shapes = [(1, 200)] + BATCHES
-    for dtype in (torch.float32, torch.float64):
-        f64 = int(dtype == torch.float64)
-        for nz, nu in sorted(bk.INSTANCES):
-            for B, N in shapes:
-                p = bk.launch_plan(B, N, nz, nu, dtype)
-                lib = f1(f64, nz, nu, p.chunk, p.solves_per_block)
-                checked += 1
-                if lib != p.smem_bytes:
-                    bad.append(["K1", nz, nu, f64, B, N, p.smem_bytes, lib])
-        for name in EXAMPLES:
-            model, cost, _ = example(name, dtype)
-            for enc in StateEncoding:
-                if fr.stage(model, cost, enc) is None:
-                    continue
-                kind = fr._cost_kind(model, cost, enc)
-                n_params = fr.param_buffer(model, cost if kind else None,
-                                           dtype, "cuda").numel()
-                nz = infer_encoded_state_size(model.state_size, enc)
-                for B, N in shapes:
-                    p = fr.launch_plan(B, N, 10, nz, model.action_size,
-                                       n_params, dtype)
-                    lib = f2(f64, fr._MODELS[type(model)], int(enc), kind,
-                             p.chunk, 10, p.solves_per_block)
-                    checked += 1
-                    if lib != p.smem_bytes:
-                        bad.append(["K2", name, enc.name, f64, B, N,
-                                    p.smem_bytes, lib])
-    if f1(0, 3, 1, 16, 1) != -1:
-        bad.append(["K1", 3, 1, "an instance the wrapper does not list"])
-    return checked, bad
 
 
 def phase1_k1():
@@ -555,12 +513,17 @@ def phase2_k2():
     from pddp_tpu_torch.ops import fused_rollout as fr
     enc = StateEncoding.IGNORE_UNCERTAINTY
     rows = []
-    for seed, (B, N) in enumerate([(1, 200), (1024, 200)] + BATCHES):
+    # (B, N, A): ten candidates, and more than a warp's 32 lanes (a warp
+    # per 32 candidates of a solve).
+    cases = ([(B, N, 10) for B, N in [(1, 200), (1024, 200)] + BATCHES]
+             + [(1, 200, 40), (3, 37, 64)])
+    for seed, (B, N, A) in enumerate(cases):
         for dtype in (torch.float32, torch.float64):
             model, cost, Z, U, k, K = k2_inputs(np.random.default_rng(seed),
                                                 B, N, dtype, "cuda")
-            alphas = torch.as_tensor(1.025**(-np.arange(10.0)**2),
-                                     dtype=dtype, device="cuda")
+            alphas = torch.as_tensor(
+                1.025**(-np.arange(10.0)**2) if A == 10
+                else np.logspace(0.0, -3.0, A), dtype=dtype, device="cuda")
             for bounded in (False, True):
                 b = ((torch.tensor([-0.1], dtype=dtype, device="cuda"),
                       torch.tensor([0.1], dtype=dtype, device="cuda"))
@@ -573,7 +536,7 @@ def phase2_k2():
                                             u_max=b[1])
                 torch.cuda.synchronize()
                 dname = str(dtype).replace("torch.", "")
-                row = {"B": B, "N": N, "A": 10, "dtype": dname,
+                row = {"B": B, "N": N, "A": A, "dtype": dname,
                        "bounds": bounded, "tol": TOL[("K2", dname)],
                        "finite": all(bool(torch.isfinite(p).all())
                                      for p in plain)}
@@ -792,7 +755,7 @@ def phase5_main_path(card):
     inputs = {"ex": "cartpole", "model": model, "cost": cost, "enc": enc,
               "derivs": derivs, "reg": reg, "Z": Z_n, "U": U_n, "k": k_p,
               "K": K_p, "first": (derivs0[0], U0, k0, K0)}
-    return res, derivs, inputs
+    return res, inputs
 
 
 # ---------------------------------------------------------------------------
@@ -1586,8 +1549,11 @@ def example_path(card, label, ex, codec):
     n, nz = model.state_size, Z_n.shape[-1]
     b1, f1 = k1_work(1, H, nz, nu, 4, sweeps=5)
     b2, f2 = k2_work(1, H, A, 4, False, ex, int(enc))
-    t["K1_bound_ms"], t["K1_bound_by"] = bound_ms(b1, f1, "float32")
-    t["K2_bound_ms"], t["K2_bound_by"] = bound_ms(b2, f2, "float32")
+    t["K1_bound_ms"], t["K1_bound_by"] = chain_bound_ms(
+        b1, f1, "float32", k1_chain_cycles(nz, nu, "float32"), H)[:2]
+    t["K2_bound_ms"], t["K2_bound_by"] = chain_bound_ms(
+        b2, f2, "float32", k2_chain_cycles(ex, int(enc), nz, "float32"),
+        H)[:2]
 
     turns = {"kernels": [], "plain": []}
     for kernels in (True, False, False, True):
@@ -1649,7 +1615,8 @@ def _candidate_stats(model, Z_b):
 def phase13_kernel_times(card, path_inputs, bnn_k1):
     """K1 and K2 alone at every path's shape and inputs (phases 5, 8 and
     12), for one solve and for 64 (the inputs repeated), by CUDA events
-    after a warm-up, each beside its roofline bound and its chain floor;
+    after a warm-up, each beside its bound: the larger of its roofline and
+    its chain floor (``chain_bound_ms``);
     and K2 at each path's first-iteration inputs (gains at reg=0 around
     U0 = 0.1) against its time at the solve's end, with the largest angle
     and the non-finite share its candidates reach at each."""
@@ -1669,11 +1636,12 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
         N, nz, nu = derivs[2].shape
         d = [rep(t, B) for t in derivs]
         ms = events_ms(raw_k1(d, reg), 200 if B == 1 else 50)
-        bound, by = bound_ms(*k1_work(B, N, nz, nu, 4, sweeps=5), "float32")
-        chain = chain_ms(k1_chain_cycles(nz, nu, "float32"), N, clock)
+        bound, by, roof, chain = chain_bound_ms(
+            *k1_work(B, N, nz, nu, 4, sweeps=5), "float32",
+            k1_chain_cycles(nz, nu, "float32"), N)
         return {"kernel": "K1", "path": label, "B": B, "N": N, "nz": nz,
                 "nu": nu, "ms": ms, "bound_ms": bound, "bound_by": by,
-                "chain_floor_ms": chain}
+                "roofline_ms": roof, "chain_floor_ms": chain}
 
     rows = [k1_row("bnn", bnn_k1["derivs"], bnn_k1["reg"], B)
             for B in (1, 64)]
@@ -1683,19 +1651,19 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
         ign = enc == StateEncoding.IGNORE_UNCERTAINTY
         cost = p["cost"] if ign else None
         N, nz = p["U"].shape[0], p["Z"].shape[-1]
-        chain = chain_ms(k2_chain_cycles(p["ex"], int(enc), nz, "float32"),
-                         N, clock)
+        cycles = k2_chain_cycles(p["ex"], int(enc), nz, "float32")
         st = fr.stage(model, cost, enc)
         for B in (1, 64):
             ins = [rep(t, B) for t in (p["Z"], p["U"], p["k"], p["K"])]
             ms = events_ms(raw_k2(model, cost, *ins, alphas, enc),
                            200 if B == 1 else 50)
-            bound, by = bound_ms(*k2_work(B, N, A, 4, False, p["ex"],
-                                          int(enc)), "float32")
+            bound, by, roof, chain = chain_bound_ms(
+                *k2_work(B, N, A, 4, False, p["ex"], int(enc)), "float32",
+                cycles, N)
             rows.append({"kernel": "K2({})".format(st), "path": label,
                          "B": B, "N": N, "nz": nz, "ms": ms,
                          "bound_ms": bound, "bound_by": by,
-                         "chain_floor_ms": chain})
+                         "roofline_ms": roof, "chain_floor_ms": chain})
         # The first iteration's inputs against the solve's end.
         first = {"ms": events_ms(raw_k2(model, cost, *p["first"], alphas,
                                         enc), 200)}
@@ -1709,13 +1677,17 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
             rows[-2]["ms_without_cost"] = events_ms(raw_k2(
                 model, None, p["Z"], p["U"], p["k"], p["K"], alphas, enc),
                 200)
+        if label == "cartpole":  # 40 candidates: two warps a solve
+            rows[-2]["ms_A40"] = events_ms(raw_k2(
+                model, cost, p["Z"], p["U"], p["k"], p["K"], torch.logspace(
+                    0.0, -3.0, 40, device="cuda"), enc), 200)
     emit({"phase": 13, "card": card, "dtype": "float32", "A": A,
           "sm_clock_max_mhz": clock, "rows": rows,
           "seconds": time.perf_counter() - t0})
     return rows
 
 
-def phase6_kernels(res, derivs, bnn, bnn_model_, paths, times):
+def phase6_kernels(res, bnn, bnn_model_, paths, times):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -1723,14 +1695,9 @@ def phase6_kernels(res, derivs, bnn, bnn_model_, paths, times):
     inline and the entries themselves launch no time, K2(b) on the double
     cartpole's path and K2(c) on the pendulum's under the Cholesky codec
     (phase 12; the other paths' numbers ride along under "paths"). The
-    latency-chain kernels K1 and K2(a)-(c) also carry their chain floor
-    and their times at 64 solves (phase 13)."""
-    B, N1, nz = 1, derivs[4].shape[0], derivs[4].shape[1]
-    N, nu = N1 - 1, derivs[5].shape[-1]
-    b1, f1 = k1_work(B, N, nz, nu, 4, sweeps=5)
-    b2, f2 = k2_work(B, N, 10, 4, bounded=False)
-    bound1, by1 = bound_ms(b1, f1, "float32")
-    bound2, by2 = bound_ms(b2, f2, "float32")
+    latency-chain kernels K1 and K2(a)-(c) take their bounds, the larger of
+    the roofline and the chain floor, and their times at 64 solves from
+    phase 13."""
     kernels = [
         {"name": "K1 riccati_backward", "route": "cuda",
          "source": "pddp_tpu_torch/csrc/backward_kernel.cu",
@@ -1738,16 +1705,14 @@ def phase6_kernels(res, derivs, bnn, bnn_model_, paths, times):
          "launches": res["main_path_launches"]["K1"],
          "max_abs_err": res["max_abs_err"]["K1"], "ms": res["K1_ms"],
          "wrapper_ms": res["K1_wrapper_ms"],
-         "plain_ms": res["K1_plain_ms"], "bound_ms": bound1,
-         "bound_by": by1, "library_ms": None},
+         "plain_ms": res["K1_plain_ms"], "library_ms": None},
         {"name": "K2(a) fused_rollout_cartpole", "route": "cuda",
          "source": "pddp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "pddp_tpu/ops/fused_rollout.py:114",
          "launches": res["main_path_launches"]["K2"],
          "max_abs_err": res["max_abs_err"]["K2"], "ms": res["K2_ms"],
          "wrapper_ms": res["K2_wrapper_ms"],
-         "plain_ms": res["K2_plain_ms"], "bound_ms": bound2,
-         "bound_by": by2, "library_ms": None},
+         "plain_ms": res["K2_plain_ms"], "library_ms": None},
     ]
     src = "pddp_tpu_torch/csrc/fused_bnn_rollout.cu"
     work = bnn_work(bnn_model_, 1, bnn["N"], bnn["A"], bnn["A"], 4)
@@ -1782,7 +1747,6 @@ def phase6_kernels(res, derivs, bnn, bnn_model_, paths, times):
             "launches": p["main_path_launches"]["K2(" + st + ")"],
             "max_abs_err": p["max_abs_err"]["K2"], "ms": p["K2_ms"],
             "wrapper_ms": p["K2_wrapper_ms"], "plain_ms": p["K2_plain_ms"],
-            "bound_ms": p["K2_bound_ms"], "bound_by": p["K2_bound_by"],
             "library_ms": None,
             "paths": {k: {"stage": v["K2_stage"], "ms": v["K2_ms"],
                           "plain_ms": v["K2_plain_ms"],
@@ -1792,12 +1756,16 @@ def phase6_kernels(res, derivs, bnn, bnn_model_, paths, times):
                           "K1_plain_ms": v["K1_plain_ms"],
                           "K1_bound_ms": v["K1_bound_ms"]}
                       for k, v in paths.items()}})
+
     def timed(kernel, path):
         rows = {r["B"]: r for r in times
                 if r["kernel"] == kernel and r["path"] == path}
-        return {"chain_floor_ms": rows[1]["chain_floor_ms"],
-                "ms_B64": rows[64]["ms"], "bound_ms_B64": rows[64][
-                    "bound_ms"]}
+        one = rows[1]
+        return {"bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+                "bound_note": "chain" if one["chain_floor_ms"]
+                >= one["roofline_ms"] else "roofline",
+                "ms_B64": rows[64]["ms"],
+                "bound_ms_B64": rows[64]["bound_ms"]}
     for row, kernel, path in ((kernels[0], "K1", "cartpole"),
                               (kernels[1], "K2(a)", "cartpole"),
                               (kernels[-2], "K2(b)", "double_cartpole"),
@@ -1823,7 +1791,7 @@ def main():
     phase2_k2()
     phase3_golden_f64()
     phase4_golden_f32()
-    res, derivs, main_inputs = phase5_main_path(card)
+    res, main_inputs = phase5_main_path(card)
     phase7_bnn_kernels()
     bnn, bnn_model_, bnn_k1 = phase8_bnn_iteration(card)
     phase9_bnn_solve(card)
@@ -1832,7 +1800,7 @@ def main():
     paths, path_inputs = phase12_example_paths(card)
     times = phase13_kernel_times(card, {"cartpole": main_inputs,
                                         **path_inputs}, bnn_k1)
-    kernels = phase6_kernels(res, derivs, bnn, bnn_model_, paths, times)
+    kernels = phase6_kernels(res, bnn, bnn_model_, paths, times)
     print(card_line(), flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

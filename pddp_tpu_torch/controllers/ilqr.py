@@ -87,8 +87,7 @@ class ILQROptions:
     do the (nz, nu) that K1 has no instance for
     (``ops.backward_kernel.INSTANCES``). ``fused_rollout`` runs the line
     search in K2 where ``ops.fused_rollout.supports_fused_rollout`` admits
-    the model and there are at most ``MAX_ALPHAS`` candidates.
-    ``riccati_mode="parallel"`` is not ported yet and raises.
+    the model. ``riccati_mode="parallel"`` is not ported yet and raises.
     """
 
     n_iterations: int = 50
@@ -536,12 +535,10 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
 
     def line_search_fn(Z, U, k, K_new):
         if opts.fused_rollout and not model_opts:
-            from ..ops.fused_rollout import (MAX_ALPHAS, fused_control_law,
+            from ..ops.fused_rollout import (fused_control_law,
                                              supports_fused_rollout)
-            # pddp_tpu's gate: stateful models take the scan; so do more
-            # candidates than the kernel's lanes.
-            if (supports_fused_rollout(model, cost, encoding)
-                    and alphas.shape[0] <= MAX_ALPHAS):
+            # pddp_tpu's gate: stateful models take the scan.
+            if supports_fused_rollout(model, cost, encoding):
                 if encoding == StateEncoding.IGNORE_UNCERTAINTY:
                     return fused_control_law(
                         model, Z, U, k, K_new, alphas, encoding, cost=cost,

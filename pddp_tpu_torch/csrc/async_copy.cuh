@@ -12,10 +12,14 @@
 // with cp.async.wait_group and then __syncwarp, which orders the other
 // lanes' copies before its reads.
 //
-// The shared-memory budget of a launch (ops/_plan.py mirrors it) is
-//   round16(block_elems) + solves_per_block * round16(warp_elems(chunk))
-// bytes, warp_elems(chunk) = kStages * chunk * ring_step + chunk * out_step
-// + warp_fixed, in elements of the kernel's type.
+// A launch's plan (plan()) takes up to kMaxSolvesPerBlock warps a block,
+// one per SM sub-partition, so the warps of a block never wait on each
+// other for issue slots, and chunks of up to kMaxChunk steps: with two
+// chunks in flight, 32 steps of cover (a few microseconds) against the
+// latency of device memory. It keeps the most warps, then the longest
+// chunk, that fit the shared memory of a block,
+//   round16(block_elems) + warps * round16(warp_elems(chunk))
+// bytes in elements of the kernel's type; the last block may be ragged.
 
 #pragma once
 
@@ -24,6 +28,7 @@
 namespace pddp {
 
 constexpr int kStages = 3;             // chunks in the ring
+constexpr int kMaxChunk = 16;          // steps a chunk at most
 constexpr int kMaxSmem = 232448;       // bytes a block may use on an H100
 constexpr int kMaxSolvesPerBlock = 4;  // warps a block, one per SM quarter
 
@@ -36,6 +41,26 @@ __host__ __device__ constexpr long smem_bytes(long block_elems,
                                               long warp_elems, int solves) {
   return round16(block_elems * long(sizeof(T))) +
          solves * round16(warp_elems * long(sizeof(T)));
+}
+
+struct Plan {
+  int warps, chunk;  // warps a block, steps a chunk
+  long bytes;        // dynamic shared memory of a block
+};
+
+// The launch of `warps` warps of n steps each; warp_elems(chunk) is one
+// warp's elements. bytes > kMaxSmem: not even one step of one warp fits.
+template <typename T, class WarpElems>
+__host__ Plan plan(long warps, int n, long block_elems,
+                   WarpElems warp_elems) {
+  const auto bytes = [&](int w, int c) {
+    return smem_bytes<T>(block_elems, warp_elems(c), w);
+  };
+  int w = warps < kMaxSolvesPerBlock ? int(warps) : kMaxSolvesPerBlock;
+  int c = n < kMaxChunk ? n : kMaxChunk;
+  while (w > 1 && bytes(w, c) > kMaxSmem) --w;
+  while (c > 1 && bytes(w, c) > kMaxSmem) --c;
+  return {w, c, bytes(w, c)};
 }
 
 // Asynchronous copy of one element from device to shared memory.

@@ -379,45 +379,33 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
 #define PDDP_K1_SHAPES(X) \
   X(2, 1) X(4, 1) X(5, 1) X(6, 1) X(8, 1) X(12, 1) X(14, 1) X(8, 4) X(16, 4)
 
-template <typename T>
-long smem_for(int nz, int nu, int chunk, int solves) {
-#define PDDP_K1_SMEM(NZ_, NU_)                                            \
-  if (nz == NZ_ && nu == NU_)                                             \
-    return pddp::smem_bytes<T>(0, K1Shape<NZ_, NU_>::warp_elems(chunk), \
-                               solves);
-  PDDP_K1_SHAPES(PDDP_K1_SMEM)
-#undef PDDP_K1_SMEM
-  return -1;
-}
-
 template <typename T, int NZ, int NU>
-int launch_shape(const K1Args<T>& g, int solves, cudaStream_t stream) {
-  const long bytes =
-      pddp::smem_bytes<T>(0, K1Shape<NZ, NU>::warp_elems(g.C), solves);
-  if (bytes > pddp::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+int launch_shape(K1Args<T> g, cudaStream_t stream) {
+  const pddp::Plan p = pddp::plan<T>(g.B, g.N, 0, [](int chunk) {
+    return K1Shape<NZ, NU>::warp_elems(chunk);
+  });
+  if (p.bytes > pddp::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static long allowed = 48 * 1024;  // per instance
   const cudaError_t err =
-      pddp::allow_smem(riccati_backward_kernel<T, NZ, NU>, bytes, allowed);
+      pddp::allow_smem(riccati_backward_kernel<T, NZ, NU>, p.bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (g.B + solves - 1) / solves;
+  g.C = p.chunk;
+  const int blocks = (g.B + p.warps - 1) / p.warps;
   riccati_backward_kernel<T, NZ, NU>
-      <<<blocks, 32 * solves, bytes, stream>>>(g);
+      <<<blocks, 32 * p.warps, p.bytes, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const T* F_z, const T* F_u, const T* L_z, const T* L_u,
            const T* L_zz, const T* L_uz, const T* L_uu, double reg, T* k,
-           T* K, bool* ok, int B, int N, int nz, int nu, int chunk,
-           int solves, void* stream_ptr) {
-  if (B < 1 || N < 1 || chunk < 1 || solves < 1 ||
-      solves > pddp::kMaxSolvesPerBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
+           T* K, bool* ok, int B, int N, int nz, int nu, void* stream_ptr) {
+  if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const K1Args<T> g{F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, k, K, ok,
-                    static_cast<T>(reg), B, N, chunk};
+                    static_cast<T>(reg), B, N, 0};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define PDDP_K1_LAUNCH(NZ_, NU_) \
-  if (nz == NZ_ && nu == NU_) return launch_shape<T, NZ_, NU_>(g, solves, stream);
+  if (nz == NZ_ && nu == NU_) return launch_shape<T, NZ_, NU_>(g, stream);
   PDDP_K1_SHAPES(PDDP_K1_LAUNCH)
 #undef PDDP_K1_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
@@ -429,16 +417,17 @@ extern "C" {
 
 // F_z (B, N, nz, nz), F_u (B, N, nz, nu), L_z (B, N+1, nz), L_u (B, N, nu),
 // L_zz (B, N+1, nz, nz), L_uz (B, N, nu, nz), L_uu (B, N, nu, nu); k
-// (B, N, nu), K (B, N, nu, nz), ok (B) bool. chunk: steps per ring chunk;
-// solves: solves (warps) per block (ops/_plan.py).
+// (B, N, nu), K (B, N, nu, nz), ok (B) bool. The launch picks its warps a
+// block and its chunk (pddp::plan); (nz, nu) without an instance returns
+// cudaErrorInvalidValue.
 int pddp_riccati_backward_f32(const float* F_z, const float* F_u,
                               const float* L_z, const float* L_u,
                               const float* L_zz, const float* L_uz,
                               const float* L_uu, double reg, float* k,
                               float* K, bool* ok, int B, int N, int nz,
-                              int nu, int chunk, int solves, void* stream) {
+                              int nu, void* stream) {
   return launch<float>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, k, K, ok,
-                       B, N, nz, nu, chunk, solves, stream);
+                       B, N, nz, nu, stream);
 }
 
 int pddp_riccati_backward_f64(const double* F_z, const double* F_u,
@@ -446,17 +435,9 @@ int pddp_riccati_backward_f64(const double* F_z, const double* F_u,
                               const double* L_zz, const double* L_uz,
                               const double* L_uu, double reg, double* k,
                               double* K, bool* ok, int B, int N, int nz,
-                              int nu, int chunk, int solves, void* stream) {
+                              int nu, void* stream) {
   return launch<double>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, k, K, ok,
-                        B, N, nz, nu, chunk, solves, stream);
-}
-
-// The launch's dynamic shared memory in bytes, or -1 where (nz, nu) has
-// no instance.
-long pddp_riccati_backward_smem_bytes(int f64, int nz, int nu, int chunk,
-                                      int solves) {
-  return f64 ? smem_for<double>(nz, nu, chunk, solves)
-             : smem_for<float>(nz, nu, chunk, solves);
+                        B, N, nz, nu, stream);
 }
 
 }  // extern "C"

@@ -36,11 +36,13 @@
 // few hundred dependent flops, sin/cos, divisions; under the Cholesky
 // codec at n=8 a factorization of up to five rungs).
 //
-// What the design does about that: one warp per solve and one lane per
-// candidate (A <= 32), each keeping its state in registers for the whole
-// horizon (the n=8 belief matrices of rendezvous spill to local memory);
-// several solves per block, the batch. Nothing but the chain is left in a
-// step: the nominal rows z_i, u_i, k_i, K_i arrive in shared memory ahead
+// What the design does about that: one lane per candidate, each keeping
+// its state in registers for the whole horizon (the n=8 belief matrices of
+// rendezvous spill to local memory), and one warp per group of up to 32 of
+// a solve's candidates (a solve of A candidates takes ceil(A / 32) warps,
+// each staging the same nominal rows for itself, so no warp waits on
+// another); several warps per block, the batch. Nothing but the chain is
+// left in a step: the nominal rows z_i, u_i, k_i, K_i arrive in shared memory ahead
 // of use, a ring of chunks of steps (async_copy.cuh), the bounds sit in
 // registers, the parameters in shared memory, and no step has a barrier.
 // A chunk's states and actions gather in shared memory; when it ends, all
@@ -332,17 +334,34 @@ __device__ __forceinline__ T state_cost(const T* x, const T* W,
   }
 }
 
+// Stores n rows of `len` elements from src (contiguous) to dst, row r at
+// dst + r * ld, by all 32 lanes: one run where the rows abut (a warp that
+// holds all of a solve's candidates), else row by row. No division: one
+// per element costs as much as the stores themselves.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const T* src, int n,
+                                           int len, int ld, int lane) {
+  if (len == ld) {
+    for (int e = lane; e < n * len; e += 32) dst[e] = src[e];
+  } else {
+    for (int r = 0; r < n; ++r)
+      for (int e = lane; e < len; e += 32)
+        dst[long(r) * ld + e] = src[r * len + e];
+  }
+}
+
 template <typename T>
 struct Args {
   const T *Z, *U, *k, *K, *alphas, *params, *bounds;
   T *Z_out, *U_out, *J_out;
   int B, N, A, C;  // solves, steps, candidates, steps per chunk
+  int G, W;        // warps per solve, candidates per warp (min(A, 32))
 };
 
-// Layout of one instance: its parameters (block-wide) and, per warp, the
-// ring of nominal rows (z_i, u_i, k_i, K_i as four arrays of C steps), the
-// chunk's states (A a step, and the A states before its first step), its
-// actions (A a step) and its stage costs (A a step).
+// Layout of one instance: its parameters (block-wide) and, per warp of W
+// candidates, the ring of nominal rows (z_i, u_i, k_i, K_i as four arrays
+// of C steps), the chunk's states (W a step, and the W states before its
+// first step), its actions (W a step) and its stage costs (W a step).
 template <class M, int codec, int cost>
 struct K2Shape {
   static constexpr int n = M::n, nu = M::nu, nz = encoded_size(codec, n);
@@ -353,13 +372,9 @@ struct K2Shape {
   static constexpr int kUgoal = kXgoal + ny;
   static constexpr int n_params = cost == kNoCost ? M::n_params : kUgoal + nu;
   static constexpr int n_nominal = nz + 2 * nu + nu * nz;
-  __host__ __device__ static constexpr long warp_elems(int chunk, int A) {
+  __host__ __device__ static constexpr long warp_elems(int chunk, int W) {
     return long(pddp::kStages) * chunk * n_nominal +
-           long(chunk) * A * (nz + nu + 1) + long(A) * nz;
-  }
-  static constexpr long smem_bytes(int chunk, int A, int solves, int size) {
-    return pddp::round16(long(n_params) * size) +
-           solves * pddp::round16(warp_elems(chunk, A) * size);
+           long(chunk) * W * (nz + nu + 1) + long(W) * nz;
   }
 };
 
@@ -378,25 +393,28 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= g.B) return;  // the ragged last block
-  const int N = g.N, A = g.A, C = g.C;
-  const long warp_elems = pddp::round16(S::warp_elems(C, A) * long(sizeof(T))) /
+  const long w = long(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (w >= long(g.B) * g.G) return;  // the ragged last block
+  // This warp's candidates: a0 .. a0 + Aw - 1 of solve b.
+  const int b = int(w / g.G), a0 = int(w % g.G) * 32;
+  const int N = g.N, A = g.A, C = g.C, W = g.W;
+  const int Aw = A - a0 < 32 ? A - a0 : 32;
+  const long warp_elems = pddp::round16(S::warp_elems(C, W) * long(sizeof(T))) /
                           long(sizeof(T));
   T* const ring = p + pddp::round16(long(n_params) * long(sizeof(T))) /
                           long(sizeof(T)) +
                   warp * warp_elems;
   T* const outZ = ring + long(pddp::kStages) * C * S::n_nominal;
-  T* const outU = outZ + long(C + 1) * A * nz;
-  T* const costs = outU + long(C) * A * nu;
+  T* const outU = outZ + long(C + 1) * W * nz;
+  T* const costs = outU + long(C) * W * nu;
 
   const size_t bb = b;
   const T* Z = g.Z + bb * (N + 1) * nz;
   const T* U = g.U + bb * N * nu;
   const T* k = g.k + bb * N * nu;
   const T* K = g.K + bb * N * nu * nz;
-  T* Z_out = g.Z_out + bb * (N + 1) * A * nz;
-  T* U_out = g.U_out + bb * N * A * nu;
+  T* Z_out = g.Z_out + (bb * (N + 1) * A + a0) * nz;
+  T* U_out = g.U_out + (bb * N * A + a0) * nu;
 
   // The ring: chunk c holds steps [c C, min(N, (c+1) C)) in slot c % kStages.
   const int n_chunks = (N + C - 1) / C;
@@ -415,9 +433,9 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
   };
   for (int c = 0; c < pddp::kStages - 1; ++c) issue(c);
 
-  // Lanes past the A candidates help to stage and to store.
-  const bool active = lane < A;
-  const T alpha = active ? g.alphas[lane] : T(0);
+  // Lanes past the warp's Aw candidates help to stage and to store.
+  const bool active = lane < Aw;
+  const T alpha = active ? g.alphas[a0 + lane] : T(0);
   const bool bounded = g.bounds != nullptr;
   T lo_b[nu], hi_b[nu];
 #pragma unroll
@@ -465,9 +483,9 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
         model_step<T, M, codec>(p, z, u);
 #pragma unroll
         for (int e = 0; e < nz; ++e)
-          outZ[((j + 1) * A + lane) * nz + e] = z[e];
+          outZ[((j + 1) * Aw + lane) * nz + e] = z[e];
 #pragma unroll
-        for (int e = 0; e < nu; ++e) outU[(j * A + lane) * nu + e] = u[e];
+        for (int e = 0; e < nu; ++e) outU[(j * Aw + lane) * nu + e] = u[e];
       }
     }
     __syncwarp();
@@ -476,40 +494,46 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
       // the (step, candidate) pairs are independent, so all 32 lanes take
       // them; then each candidate adds its own in step order, as the
       // plain version's scan does.
-      for (int e = lane; e < n_steps * A; e += 32)
+      for (int e = lane; e < n_steps * Aw; e += 32)
         costs[e] = state_cost<T, M, cost>(outZ + e * nz, p + S::kQ,
                                           p + S::kXgoal) +
                    quad_form<T, nu>(outU + e * nu, p + S::kR, p + S::kUgoal);
       __syncwarp();
       if (active)
-        for (int j = 0; j < n_steps; ++j) J += costs[j * A + lane];
+        for (int j = 0; j < n_steps; ++j) J += costs[j * Aw + lane];
     }
-    // The chunk's rows, contiguous in Z_out (steps lo+1 ..) and U_out.
-    T* zo = Z_out + (size_t)(lo + 1) * A * nz;
-    for (int e = lane; e < n_steps * A * nz; e += 32) zo[e] = outZ[A * nz + e];
-    T* uo = U_out + (size_t)lo * A * nu;
-    for (int e = lane; e < n_steps * A * nu; e += 32) uo[e] = outU[e];
+    // The chunk's rows: each step's Aw candidates are contiguous in Z_out
+    // (steps lo+1 ..) and U_out, the whole chunk when the warp has them all.
+    store_rows(Z_out + (size_t)(lo + 1) * A * nz, outZ + Aw * nz, n_steps,
+               Aw * nz, A * nz, lane);
+    store_rows(U_out + (size_t)lo * A * nu, outU, n_steps, Aw * nu, A * nu,
+               lane);
     __syncwarp();
   }
   if constexpr (cost != kNoCost) {
     if (active)
-      g.J_out[bb * A + lane] =
+      g.J_out[bb * A + a0 + lane] =
           J + state_cost<T, M, cost>(z, p + S::kQterm, p + S::kXgoal);
   }
 }
 
 template <typename T, class M, int codec, int cost>
-int launch_one(const Args<T>& g, int solves, cudaStream_t stream) {
+int launch_one(Args<T> g, cudaStream_t stream) {
   using S = K2Shape<M, codec, cost>;
-  const long bytes = S::smem_bytes(g.C, g.A, solves, sizeof(T));
-  if (bytes > pddp::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const long warps = long(g.B) * g.G;
+  const pddp::Plan p = pddp::plan<T>(
+      warps, g.N, S::n_params,
+      [W = g.W](int chunk) { return S::warp_elems(chunk, W); });
+  if (p.bytes > pddp::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static long allowed = 48 * 1024;  // per instance
   const cudaError_t err = pddp::allow_smem(
-      fused_rollout_kernel<T, M, codec, cost>, bytes, allowed);
+      fused_rollout_kernel<T, M, codec, cost>, p.bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (g.B + solves - 1) / solves;
+  g.C = p.chunk;
+  const long blocks = (warps + p.warps - 1) / p.warps;
+  if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
   fused_rollout_kernel<T, M, codec, cost>
-      <<<blocks, 32 * solves, bytes, stream>>>(g);
+      <<<unsigned(blocks), 32 * p.warps, p.bytes, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,19 +584,17 @@ long visit(int model, int codec, int cost, long missing, F&& f) {
 template <typename T>
 int launch(const T* Z, const T* U, const T* k, const T* K, const T* alphas,
            const T* params, const T* bounds, T* Z_out, T* U_out, T* J_out,
-           int B, int N, int A, int model, int codec, int cost, int chunk,
-           int solves, void* stream_ptr) {
-  if (B < 1 || N < 1 || A < 1 || A > 32 || chunk < 1 || solves < 1 ||
-      solves > pddp::kMaxSolvesPerBlock || (cost != kNoCost && !J_out))
+           int B, int N, int A, int model, int codec, int cost,
+           void* stream_ptr) {
+  if (B < 1 || N < 1 || A < 1 || (cost != kNoCost && !J_out))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args<T> g{Z, U, k, K, alphas, params, bounds, Z_out, U_out, J_out,
-                  B, N, A, chunk};
+                  B, N, A, 0, (A + 31) / 32, A < 32 ? A : 32};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return static_cast<int>(visit(
       model, codec, cost, cudaErrorInvalidValue, [&](auto inst) -> long {
         using I = decltype(inst);
-        return launch_one<T, typename I::M, I::codec, I::cost>(g, solves,
-                                                               stream);
+        return launch_one<T, typename I::M, I::codec, I::cost>(g, stream);
       }));
 }
 
@@ -582,19 +604,18 @@ extern "C" {
 
 // model: 0 cartpole, 1 pendulum, 2 double cartpole, 3 rendezvous; codec:
 // StateEncoding's value; cost: 0 none, 1 QRCost, 2 augmented QRCost.
-// Z (B, N+1, nz), U and k (B, N, nu), K (B, N, nu, nz), alphas (A <= 32);
+// Z (B, N+1, nz), U and k (B, N, nu), K (B, N, nu, nz), alphas (A);
 // bounds (2, nu) or null; Z_out (B, N+1, A, nz), U_out (B, N, A, nu),
-// J_out (B, A) or null without a cost. chunk: steps per ring chunk;
-// solves: solves (warps) per block (ops/_plan.py).
+// J_out (B, A) or null without a cost. The launch picks its warps a block
+// and its chunk (pddp::plan).
 int pddp_fused_rollout_f32(const float* Z, const float* U, const float* k,
                            const float* K, const float* alphas,
                            const float* params, const float* bounds,
                            float* Z_out, float* U_out, float* J_out, int B,
                            int N, int A, int model, int codec, int cost,
-                           int chunk, int solves, void* stream) {
+                           void* stream) {
   return launch<float>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
-                       J_out, B, N, A, model, codec, cost, chunk, solves,
-                       stream);
+                       J_out, B, N, A, model, codec, cost, stream);
 }
 
 int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
@@ -602,21 +623,9 @@ int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
                            const double* params, const double* bounds,
                            double* Z_out, double* U_out, double* J_out, int B,
                            int N, int A, int model, int codec, int cost,
-                           int chunk, int solves, void* stream) {
+                           void* stream) {
   return launch<double>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
-                        J_out, B, N, A, model, codec, cost, chunk, solves,
-                        stream);
-}
-
-// The launch's dynamic shared memory in bytes, or -1 where the instance
-// does not exist.
-long pddp_fused_rollout_smem_bytes(int f64, int model, int codec, int cost,
-                                   int chunk, int A, int solves) {
-  return visit(model, codec, cost, -1, [&](auto inst) -> long {
-    using I = decltype(inst);
-    return K2Shape<typename I::M, I::codec, I::cost>::smem_bytes(
-        chunk, A, solves, f64 ? 8 : 4);
-  });
+                        J_out, B, N, A, model, codec, cost, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ Port of ``pddp_tpu/ops/backward_kernel.py:pallas_backward``. The
 sequential reverse recursion of the unconstrained, Q_uu-regularized iLQR
 backward runs in one launch, one warp per solve and several solves per
 block, with the value function in the warp's shared memory across the N
-steps and the per-step inputs staged there ahead of use (``_plan.py``).
+steps and the per-step inputs staged there ahead of use
+(``csrc/async_copy.cuh``; the library picks the chunk and the solves per
+block itself).
 The kernel is an instance per (nz, nu) of ``INSTANCES``; the eigen clamp
 of Q_uu is the closed form for nu = 1 and the fixed-sweep Jacobi of
 ``utils.linalg.small_eigh`` for nu = 4. It also writes ``ok``.
@@ -20,11 +22,10 @@ import ctypes
 import torch
 
 from ..controllers.ilqr import backward
-from . import _plan
 from ._build import load_library
 
-__all__ = ["kernel_backward", "supports_kernel_backward", "launch_plan",
-           "INSTANCES", "launches"]
+__all__ = ["kernel_backward", "supports_kernel_backward", "INSTANCES",
+           "launches"]
 
 #: the kernel's (nz, nu) instances: the paths' shapes (pendulum 2,
 #: cartpole 4, double cartpole 6, rendezvous 8 with nu=4, the BNN under the
@@ -46,27 +47,18 @@ def supports_kernel_backward(L_u, F_z):
     return (F_z.shape[-1], L_u.shape[-1]) in INSTANCES
 
 
-def _elems(nz, nu):
-    """(staged elements of one step, workspace elements of one warp), as
-    ``K1Shape`` lays them out: the joint [F_z F_u], [L_z; L_u] and the
-    joint L blocks per step; [V_zz; V_z], P and Q per warp."""
-    nx = nz + nu
-    return nz * nx + nx + nx * nx, (nz + 1) * nz + (nz + 1) * nx + nx * nx
-
-
-def launch_plan(B, N, nz, nu, dtype):
-    """The ``_plan.Plan`` of B solves of N steps at (nz, nu) in ``dtype``."""
-    step, work = _elems(nz, nu)
-    return _plan.plan(B, N, torch.finfo(dtype).bits // 8, step,
-                      warp_fixed=work)
+_FUNCTIONS: dict = {}
 
 
 def _function(dtype):
-    fn = getattr(load_library("backward_kernel"), _SYMBOLS[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _FUNCTIONS.get(dtype)
+    if fn is None:
+        fn = getattr(load_library("backward_kernel"), _SYMBOLS[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[dtype] = fn
     return fn
 
 
@@ -115,13 +107,11 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
     k = torch.empty((B, N, nu), dtype=dtype, device=device)
     K = torch.empty((B, N, nu, nz), dtype=dtype, device=device)
     ok = torch.empty((B,), dtype=torch.bool, device=device)
-    p = launch_plan(B, N, nz, nu, dtype)
     fn = _function(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
-                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, p.chunk,
-                 p.solves_per_block, stream)
+                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, stream)
     if err != 0:
         raise RuntimeError("K1 (riccati_backward) launch failed: CUDA error "
                            "{}".format(err))

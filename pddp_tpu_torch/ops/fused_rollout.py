@@ -42,18 +42,14 @@ from ..examples.double_cartpole import (DoubleCartpoleCost,
 from ..examples.pendulum import PendulumCost, PendulumDynamicsModel
 from ..examples.rendezvous import RendezvousCost, RendezvousDynamicsModel
 from ..utils.linalg import SMALL_N
-from . import _plan, fused_bnn_rollout
+from . import fused_bnn_rollout
 from ._build import load_library
 
 __all__ = ["fused_control_law", "supports_fused_rollout", "stage",
-           "param_buffer", "launch_plan", "launches", "MAX_ALPHAS"]
+           "param_buffer", "launches"]
 
 #: kernel launches made by ``fused_control_law``, per stage.
 launches = {"a": 0, "b": 0, "c": 0}
-
-#: largest candidate count of stages (a)-(c): one lane per candidate, one
-#: warp per solve.
-MAX_ALPHAS = 32
 
 _SYMBOLS = {torch.float32: "pddp_fused_rollout_f32",
             torch.float64: "pddp_fused_rollout_f64"}
@@ -138,21 +134,17 @@ def param_buffer(model, cost, dtype, device):
     return torch.cat([p.to(dtype=dtype, device=device) for p in parts])
 
 
-def launch_plan(B, N, A, nz, nu, n_params, dtype):
-    """The ``_plan.Plan`` of B solves of N steps and A candidates at (nz,
-    nu) with ``n_params`` parameters, in ``dtype``: per step the staged
-    nominal row (z_i, u_i, k_i, K_i) and the A buffered states, actions
-    and stage costs, and per warp the A states before a chunk."""
-    return _plan.plan(B, N, torch.finfo(dtype).bits // 8,
-                      nz + 2 * nu + nu * nz, out_step=A * (nz + nu + 1),
-                      warp_fixed=A * nz, block_elems=n_params)
+_FUNCTIONS: dict = {}
 
 
 def _function(dtype):
-    fn = getattr(load_library("fused_rollout"), _SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _FUNCTIONS.get(dtype)
+    if fn is None:
+        fn = getattr(load_library("fused_rollout"), _SYMBOLS[dtype])
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[dtype] = fn
     return fn
 
 
@@ -171,10 +163,10 @@ def fused_control_law(model, Z, U, k, K, alphas,
     """Batched-alpha closed-loop rollout in one kernel.
 
     Args mirror ``controllers.ilqr.control_law``; requires
-    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``
-    and, for stages (a)-(c), at most ``MAX_ALPHAS`` candidates. Inputs may
-    carry one leading batch dim B of solves (one warp each); ``alphas``
-    and the bounds are shared by the batch. Under
+    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``.
+    Inputs may carry one leading batch dim B of solves (stages (a)-(c):
+    one warp per 32 candidates of a solve); ``alphas`` and the bounds are
+    shared by the batch. Under
     IGNORE_UNCERTAINTY ``cost_opts`` reach the plain version only: the
     kernel's QR costs take no options.
 
@@ -215,9 +207,8 @@ def fused_control_law(model, Z, U, k, K, alphas,
     if dtype not in _SYMBOLS:
         raise TypeError("fused_control_law takes float32 or float64, not "
                         "{}".format(dtype))
-    if not 1 <= A <= MAX_ALPHAS:
-        raise ValueError("between 1 and {} alphas, not {}".format(
-            MAX_ALPHAS, A))
+    if A < 1:
+        raise ValueError("at least one alpha, not {}".format(A))
     want_nz = infer_encoded_state_size(model.state_size, encoding)
     shapes = ((B, N + 1, want_nz), (B, N, nu), (B, N, nu),
               (B, N, nu, want_nz), (A,))
@@ -240,7 +231,6 @@ def fused_control_law(model, Z, U, k, K, alphas,
     U_out = torch.empty((B, N, A, nu), dtype=dtype, device=device)
     J_out = (torch.empty((B, A), dtype=dtype, device=device)
              if kind != _NO_COST else None)
-    p = launch_plan(B, N, A, nz, nu, params.numel(), dtype)
     fn = _function(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -250,7 +240,7 @@ def fused_control_law(model, Z, U, k, K, alphas,
                  Z_out.data_ptr(), U_out.data_ptr(),
                  None if J_out is None else J_out.data_ptr(),
                  B, N, A, _MODELS[type(model)], int(encoding), kind,
-                 p.chunk, p.solves_per_block, stream)
+                 stream)
     if err != 0:
         raise RuntimeError("K2({}) (fused_rollout) launch failed: CUDA error "
                            "{}".format(st, err))

@@ -2,12 +2,12 @@
 """Same-card A/B of the port's latency-chain kernels, K1 and K2(a)-(c),
 between two checkouts of the repository, on one NVIDIA H100.
 
-    python3 scripts/torch_kernel_ab.py --parent DIR
+    python3 scripts/torch_kernel_ab.py --parent DIR [--order change,parent,...]
 
-runs four turns in subprocesses, parent, this checkout, this checkout,
-parent (DIR holds the parent's files, e.g. unpacked by ``git archive``
-into a git-ignored directory), and prints each turn's JSON line, then a
-summary line with the best of each side's two turns. One turn,
+runs one turn per entry of ``--order`` (default change, parent, parent,
+change) in subprocesses, DIR holding the parent's files (e.g. unpacked by
+``git archive`` into a git-ignored directory), and prints each turn's JSON
+line, then a summary line with the best of each side's turns. One turn,
 
     python3 scripts/torch_kernel_ab.py --tree DIR --label NAME
 
@@ -20,20 +20,27 @@ in float32 with CUDA events after a warm-up:
    hold the closed loop (``chip_smoke.k2bc_inputs``); and the double
    cartpole's K2 at its first iteration's inputs (the local model of
    U0 = 0.1, gains at reg=0);
- * one iteration (local model, K1, K2, argmin) and the 50-iteration solve
-   through the kernels on the cartpole main path and the example paths
-   (the belief-state pendulum's solve takes tens of seconds and is left
-   out).
-Either checkout's C interface is accepted: the one without launch plans
-(before the kernels staged the horizon) and the one with them.
+ * the host's time per call, on the host clock, of the wrappers
+   ``kernel_backward`` and ``fused_control_law`` and of the bare ctypes
+   launches inside them, at the main path's shape (200 calls issued
+   back to back, then one synchronize);
+ * one iteration (local model, K1, K2, argmin; best and median of five
+   runs of five) and the 50-iteration solve (two runs, each with its
+   evaluations and iterations) through the kernels on the cartpole main
+   path and the example paths (the belief-state pendulum's solve takes
+   tens of seconds and is left out).
+With ``--main-path-only`` a turn times the wrappers' host time and the
+cartpole main path alone, for many short turns.
+The K1 of a checkout from before the kernels wrote ``ok`` takes no ``ok``
+pointer; the script launches either.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -42,18 +49,6 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CS = None  # this checkout's chip_smoke module, loaded by ``turn``
-
-
-def _chip_smoke():
-    """This checkout's chip_smoke.py, for its inputs and its timer: its
-    functions import pddp_tpu_torch when called, so they use the package
-    of the tree under test."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 # label -> (chip_smoke.EXAMPLES name, codec)
 PATHS = {"cartpole": ("cartpole", "IGNORE_UNCERTAINTY"),
@@ -68,74 +63,40 @@ K1_SHAPES = {"cartpole": (4, 1, 200), "pendulum": (2, 1, 200),
 H, BATCH = 200, 64
 
 
-def raw_k1(ins, reg):
-    """K1 alone on preallocated outputs: ins = (F_z, F_u, L_z, L_u, L_zz,
-    L_uz, L_uu), batched."""
+def _chip_smoke():
+    """This checkout's chip_smoke.py, for its inputs, launchers and timer:
+    its functions import pddp_tpu_torch when called, so they use the
+    package of the tree under test."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def raw_k1(derivs, reg):
+    """K1 alone on preallocated outputs (``chip_smoke.raw_k1``, or the
+    launch without ``ok`` of a K1 that does not write it)."""
     import torch
     from pddp_tpu_torch.ops import backward_kernel as bk
-    lib = bk.load_library("backward_kernel")
+    if hasattr(bk, "INSTANCES"):
+        return CS.raw_k1(derivs, reg)
+    ins = derivs[1:3] + derivs[4:]
+    if ins[0].dim() == 3:
+        ins = tuple(t[None] for t in ins)
     B, N, nz, nu = ins[1].shape
-    dt, dev = ins[0].dtype, ins[0].device
-    k = torch.empty((B, N, nu), dtype=dt, device=dev)
-    K = torch.empty((B, N, nu, nz), dtype=dt, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    fn = lib.pddp_riccati_backward_f32
-    ptrs = [t.data_ptr() for t in ins]
-    if hasattr(lib, "pddp_riccati_backward_smem_bytes"):
-        ok = torch.empty((B,), dtype=torch.bool, device=dev)
-        p = bk.launch_plan(B, N, nz, nu, dt)
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        args = (*ptrs, reg, k.data_ptr(), K.data_ptr(), ok.data_ptr(), B,
-                N, nz, nu, p.chunk, p.solves_per_block, stream)
-    else:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        args = (*ptrs, reg, k.data_ptr(), K.data_ptr(), B, N, nz, nu,
-                stream)
-    fn.restype = ctypes.c_int
+    k = torch.empty((B, N, nu), dtype=ins[0].dtype, device=ins[0].device)
+    K = torch.empty((B, N, nu, nz), dtype=ins[0].dtype,
+                    device=ins[0].device)
+    fn = bk._function(ins[0].dtype)
+    args = (*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
+            K.data_ptr(), B, N, nz, nu,
+            torch.cuda.current_stream().cuda_stream)
 
     def launch():
         if fn(*args) != 0:
             raise RuntimeError("K1 launch failed")
-    return launch
-
-
-def raw_k2(model, cost, enc, Z, U, k, K, alphas):
-    """K2 (stages a-c) alone on preallocated outputs, batched inputs; the
-    cost in the kernel under IGNORE_UNCERTAINTY only, as the solve."""
-    import torch
-    from pddp_tpu_torch.ops import fused_rollout as fr
-    lib = fr.load_library("fused_rollout")
-    B, N, nu = U.shape
-    A, nz = alphas.shape[0], Z.shape[-1]
-    kind = fr._cost_kind(model, cost, enc)
-    params = fr.param_buffer(model, cost if kind else None, Z.dtype,
-                             Z.device)
-    outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
-            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, A))]
-    stream = torch.cuda.current_stream().cuda_stream
-    fn = lib.pddp_fused_rollout_f32
-    head = ([t.data_ptr() for t in (Z, U, k, K, alphas, params)]
-            + [None, outs[0].data_ptr(), outs[1].data_ptr(),
-               outs[2].data_ptr() if kind else None, B, N, A,
-               fr._MODELS[type(model)], int(enc), kind])
-    if hasattr(lib, "pddp_fused_rollout_smem_bytes"):
-        p = fr.launch_plan(B, N, A, nz, nu, params.numel(), Z.dtype)
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        args = (*head, p.chunk, p.solves_per_block, stream)
-    else:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        args = (*head, stream)
-    fn.restype = ctypes.c_int
-
-    def launch():
-        if fn(*args) != 0:
-            raise RuntimeError("K2 launch failed")
     return launch
 
 
@@ -160,12 +121,48 @@ def first_iteration_inputs(label):
     Z0, AUX0 = rollout(model, z0, U0, enc)
     derivs = local_model(Z0, U0, AUX0, model, cost, enc)
     k, K, _ = backward(*derivs, reg=0.0)
-    return [a[None].contiguous() for a in (derivs[0], U0, k, K)]
+    return derivs, [a[None].contiguous() for a in (derivs[0], U0, k, K)]
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of ``fn``: ``calls`` calls issued back to
+    back on the host clock, then one synchronize (not counted)."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def host_times():
+    """The wrappers' host time per call at the main path's shape, and that
+    of the bare launches they make."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    derivs, (Z, U, k, K) = first_iteration_inputs("cartpole")
+    model, cost, enc, _ = path_problem("cartpole", torch.float32)
+    alphas = default_fit_alphas(torch.float32, "cuda")
+    Z, U, k, K = Z[0], U[0], k[0], K[0]
+    return {
+        "kernel_backward_us": host_us(
+            lambda: bk.kernel_backward(*derivs, reg=1.0)),
+        "K1_launch_us": host_us(raw_k1(derivs, 1.0)),
+        "fused_control_law_us": host_us(lambda: fr.fused_control_law(
+            model, Z, U, k, K, alphas, enc, cost=cost)),
+        "K2_launch_us": host_us(CS.raw_k2(model, cost, Z, U, k, K, alphas,
+                                          enc))}
 
 
 def path_times(label):
-    """One iteration through the kernels (best of five runs of 5) and, but
-    for the belief-state path, the 50-iteration solve (best of two)."""
+    """One iteration through the kernels (best and median of five runs of
+    5) and, but for the belief-state path, two 50-iteration solves."""
     import torch
     from pddp_tpu_torch.controllers.ilqr import (ILQROptions,
                                                  default_fit_alphas,
@@ -190,8 +187,9 @@ def path_times(label):
                                         torch.inf)).reshape(1)
         return out[0].index_select(1, amin), J[amin]
 
-    res = {"iteration_ms": min(CS.events_ms(iteration, 5, warmup=1)
-                               for _ in range(5))}
+    runs = [CS.events_ms(iteration, 5, warmup=1) for _ in range(5)]
+    res = {"iteration_ms": min(runs),
+           "iteration_median_ms": statistics.median(runs)}
     if ign:
         solves = []
         for _ in range(2):
@@ -200,13 +198,15 @@ def path_times(label):
             t0 = time.perf_counter()
             r = solve(model, cost, z0, U0, opts, encoding=enc)
             torch.cuda.synchronize()
-            solves.append(1e3 * (time.perf_counter() - t0))
-        res.update({"solve_ms": min(solves), "solve_evals": r.evals,
-                    "solve_state": r.state.name})
+            solves.append({"ms": 1e3 * (time.perf_counter() - t0),
+                           "evals": r.evals, "iterations": r.iterations,
+                           "state": r.state.name})
+        res.update({"solve_ms": min(s["ms"] for s in solves),
+                    "solves": solves})
     return res
 
 
-def turn(tree, label):
+def turn(tree, label, main_path_only=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import pddp_tpu_torch
@@ -223,30 +223,31 @@ def turn(tree, label):
     build_s = time.perf_counter() - t0
     out = {"tree": label, "build_s": build_s, "k1": {}, "k2": {},
            "paths": {}}
-    for name, (nz, nu, N) in K1_SHAPES.items():
+    for name, (nz, nu, N) in ({} if main_path_only else K1_SHAPES).items():
         row = {}
         for B in (1, BATCH):
             ins = cs.k1_inputs(np.random.default_rng(nz * 10 + nu), B, N, nz,
                                nu, torch.float32, "cuda")
-            row["B{}".format(B)] = cs.events_ms(
-                raw_k1(ins[1:3] + ins[4:], 1.0), 200 if B == 1 else 50)
+            row["B{}".format(B)] = cs.events_ms(raw_k1(ins, 1.0),
+                                                200 if B == 1 else 50)
         out["k1"][name] = row
     alphas = default_fit_alphas(torch.float32, "cuda")
-    for name in PATHS:
+    for name in () if main_path_only else PATHS:
         ex, enc = PATHS[name][0], StateEncoding[PATHS[name][1]]
         row = {}
         for B in (1, BATCH):
             model, cost, ins = cs.k2bc_inputs(np.random.default_rng(0), ex,
                                               enc, B, H, torch.float32)
             row["B{}".format(B)] = cs.events_ms(
-                raw_k2(model, cost, enc, *ins, alphas),
+                cs.raw_k2(model, cost, *ins, alphas, enc),
                 200 if B == 1 else 50)
         if name == "double_cartpole":
-            row["first_iteration_B1"] = cs.events_ms(raw_k2(
-                model, cost, enc, *first_iteration_inputs(name), alphas),
+            row["first_iteration_B1"] = cs.events_ms(cs.raw_k2(
+                model, cost, *first_iteration_inputs(name)[1], alphas, enc),
                 200)
         out["k2"][name] = row
-    for name in PATHS:
+    out["host"] = host_times()
+    for name in ("cartpole",) if main_path_only else PATHS:
         out["paths"][name] = path_times(name)
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
@@ -256,27 +257,32 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="one turn: the checkout to time")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--parent", help="the parent's checkout: run four turns")
+    ap.add_argument("--parent", help="the parent's checkout: run the turns")
+    ap.add_argument("--order", default="change,parent,parent,change",
+                    help="the turns, in order")
+    ap.add_argument("--main-path-only", action="store_true",
+                    help="time the wrappers and the main path alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     if args.tree:
-        turn(args.tree, args.label)
+        turn(args.tree, args.label, args.main_path_only)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card, flush=True)
+    trees = {"parent": os.path.abspath(args.parent), "change": HERE}
     turns = []
-    parent = os.path.abspath(args.parent)
-    for label, tree in (("parent", parent), ("change", HERE),
-                        ("change", HERE), ("parent", parent)):
+    for label in args.order.split(","):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--tree", tree, "--label", label],
-                              capture_output=True, text=True, cwd=tree)
+                               "--tree", trees[label], "--label", label]
+                              + ["--main-path-only"] * args.main_path_only,
+                              capture_output=True, text=True,
+                              cwd=trees[label])
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
@@ -284,23 +290,32 @@ def main():
         print(line, flush=True)
         turns.append(json.loads(line))
 
-    def best(label, get):
-        return min(get(t) for t in turns if t["tree"] == label)
-
-    summary = {"card": card, "k1": {}, "k2": {}, "paths": {}}
-    for name in K1_SHAPES:
-        summary["k1"][name] = {s: {lab: best(lab, lambda t: t["k1"][name][s])
-                                   for lab in ("parent", "change")}
-                               for s in turns[0]["k1"][name]}
-    for name in PATHS:
-        summary["k2"][name] = {s: {lab: best(lab, lambda t: t["k2"][name][s])
-                                   for lab in ("parent", "change")}
-                               for s in turns[0]["k2"][name]}
-        summary["paths"][name] = {
-            s: {lab: best(lab, lambda t: t["paths"][name][s])
+    def best(get):
+        return {lab: min(get(t) for t in turns if t["tree"] == lab)
                 for lab in ("parent", "change")}
-            for s in ("iteration_ms", "solve_ms")
-            if s in turns[0]["paths"][name]}
+
+    def spread(get):
+        """Each side's median, quartiles and runs over its turns."""
+        out = {}
+        for lab in ("parent", "change"):
+            runs = [get(t) for t in turns if t["tree"] == lab]
+            q = statistics.quantiles(runs, n=4) if len(runs) > 1 else runs * 3
+            out[lab] = {"median": statistics.median(runs),
+                        "quartiles": [q[0], q[2]], "runs": runs}
+        return out
+
+    first = turns[0]
+    summary = {"card": card, "order": args.order,
+               "k1": {n: {s: best(lambda t: t["k1"][n][s])
+                          for s in first["k1"][n]} for n in first["k1"]},
+               "k2": {n: {s: best(lambda t: t["k2"][n][s])
+                          for s in first["k2"][n]} for n in first["k2"]},
+               "host": {s: best(lambda t: t["host"][s])
+                        for s in first["host"]},
+               "paths": {n: {s: spread(lambda t: t["paths"][n][s])
+                             for s in ("iteration_ms", "solve_ms")
+                             if s in first["paths"][n]}
+                         for n in first["paths"]}}
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

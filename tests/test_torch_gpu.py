@@ -399,3 +399,39 @@ def test_k2_batches_on_card(cuda, dtype, name, enc):
         for a, w in zip(got, want):
             assert bool(torch.isfinite(w).all())
             assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("A", [40, 64])
+def test_k2_many_alphas_on_card(cuda, dtype, A):
+    """More candidates than a warp has lanes (a warp per 32 of a solve's
+    candidates): K2 against control_law at B, N = (1, 37) and (3, 200),
+    relative to each output's largest value (f64 1e-10, f32 1e-4), and a
+    solve with A step sizes whose line searches all launch K2."""
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    alphas = torch.logspace(0.0, -3.0, A, dtype=dtype, device=cuda)
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for seed, (B, N) in enumerate([(1, 37), (3, 200)]):
+        m, (model_cls, cost_cls, dt), ins = _path_inputs("cartpole", IGN, B,
+                                                         N, seed)
+        model = getattr(m, model_cls)(dt=dt, device=cuda, dtype=dtype)
+        cost = getattr(m, cost_cls)(device=cuda, dtype=dtype)
+        Z, U, k, K = (t.to(device=cuda, dtype=dtype).contiguous()
+                      for t in ins)
+        n = fr.launches["a"]
+        got = fr.fused_control_law(model, Z, U, k, K, alphas, IGN,
+                                   cost=cost)
+        want = control_law(model, Z, U, k, K, alphas, IGN, cost=cost,
+                           cost_in_scan=True)
+        torch.cuda.synchronize()
+        assert fr.launches["a"] == n + 1
+        assert got[0].shape == (B, N + 1, A, 4)
+        for a, w in zip(got, want):
+            assert bool(torch.isfinite(w).all())
+            assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+    n = fr.launches["a"]
+    r = solve(model, cost, Z[0, 0], U[0], ILQROptions(
+        n_iterations=3, alphas=alphas, riccati_mode="kernel",
+        fused_rollout=True), encoding=IGN)
+    assert r.evals >= 1 and fr.launches["a"] - n == r.evals

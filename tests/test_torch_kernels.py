@@ -20,10 +20,10 @@ from pddp_tpu.examples.cartpole import CartpoleCost as JCost
 from pddp_tpu.examples.cartpole import CartpoleDynamicsModel as JModel
 from pddp_tpu.ops.backward_kernel import pallas_backward
 from pddp_tpu.ops.fused_rollout import fused_control_law as j_fused
-from pddp_tpu_torch.controllers.ilqr import control_law, default_fit_alphas
+from pddp_tpu_torch.controllers.ilqr import (ILQROptions, control_law,
+                                             default_fit_alphas, solve)
 from pddp_tpu_torch.encoding import StateEncoding, infer_encoded_state_size
 from pddp_tpu_torch.examples.cartpole import CartpoleCost, CartpoleDynamicsModel
-from pddp_tpu_torch.ops import _plan
 from pddp_tpu_torch.ops import backward_kernel as bk
 from pddp_tpu_torch.ops import fused_rollout as fr
 from tests.test_torch_gpu import _riccati_inputs, _rollout_inputs
@@ -136,19 +136,8 @@ def test_cpu_wrappers_launch_nothing():
     assert (bk.launches, fr.launches) == (n1, n2)
 
 
-def _check_plan(p, B, N):
-    """A launch plan fits a block and its grid covers the batch."""
-    assert 1 <= p.solves_per_block <= _plan.MAX_SOLVES_PER_BLOCK
-    assert 1 <= p.chunk <= min(N, _plan.MAX_CHUNK)
-    assert p.smem_bytes % 16 == 0 and p.smem_bytes <= _plan.SMEM_BYTES
-    assert p.blocks * p.solves_per_block >= B
-    assert (p.blocks - 1) * p.solves_per_block < B
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k1_instances_and_launch_plans(dtype):
-    """The shapes K1 admits are exactly the CUDA source's dispatch table,
-    and each one's plan at the paths' horizons fits and covers B."""
+def test_k1_instances():
+    """The shapes K1 admits are exactly the CUDA source's dispatch table."""
     src = (Path(bk.__file__).parent.parent / "csrc"
            / "backward_kernel.cu").read_text()
     table = re.search(r"#define PDDP_K1_SHAPES\(X\)(.*?)\n\n", src,
@@ -160,39 +149,52 @@ def test_k1_instances_and_launch_plans(dtype):
             assert bk.supports_kernel_backward(
                 torch.zeros(2, nu), torch.zeros(2, nz, nz)) == (
                     (nz, nu) in bk.INSTANCES)
-    for nz, nu in bk.INSTANCES:
-        for B in (1, 3, 64):
-            for N in (1, 25, 37, 200):
-                _check_plan(bk.launch_plan(B, N, nz, nu, dtype), B, N)
-    # The main path: one warp, a 16-step chunk of 50 staged values a step
-    # in a ring of 3, and the 70-value workspace.
-    itemsize = torch.finfo(dtype).bits // 8
-    assert tuple(bk.launch_plan(1, 200, 4, 1, dtype)) == (
-        1, 16, -(-(3 * 16 * 50 + 70) * itemsize // 16) * 16, 1)
-    assert bk.launch_plan(64, 200, 4, 1, dtype)[::3] == (4, 16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k2_launch_plans(dtype):
-    """Stages (a)-(c) at every model and codec they cover, up to
-    MAX_ALPHAS candidates: the plan fits and covers B."""
-    ns = {"cartpole": (4, 1), "pendulum": (2, 1), "double_cartpole": (6, 1),
-          "rendezvous": (8, 4)}
-    for n, nu in ns.values():
-        for enc in StateEncoding:
-            nz = infer_encoded_state_size(n, enc)
-            for A in (1, 10, fr.MAX_ALPHAS):
-                for B in (1, 3, 64):
-                    for N in (1, 37, 200):
-                        _check_plan(fr.launch_plan(B, N, A, nz, nu, 176,
-                                                   dtype), B, N)
-    # The main path: a 16-step ring of 10 values a step, the ten
-    # candidates' 4 + 1 + 1 buffered values a step and 4 before the chunk,
-    # the 63 parameters.
-    itemsize = torch.finfo(dtype).bits // 8
-    r16 = lambda n: -(-n * itemsize // 16) * 16  # noqa: E731
-    assert tuple(fr.launch_plan(1, 200, 10, 4, 1, 63, dtype)) == (
-        1, 16, r16(63) + r16(3 * 16 * 10 + 16 * 10 * 6 + 10 * 4), 1)
+def _alphas(A):
+    """A step sizes from 1 down to 1e-3."""
+    return torch.logspace(0.0, -3.0, A, dtype=torch.float64)
+
+
+def test_k2_many_alphas_matches_pallas():
+    """More candidates than a warp has lanes: the wrapper (on the CPU, its
+    plain version) against the Pallas kernel, as test_k2_plain_matches_pallas."""
+    model, cost, Z, U, k, K = _rollout_inputs(8, seed=2)
+    alphas = _alphas(40)
+    got = fr.fused_control_law(model, Z, U, k, K, alphas, IGN, cost=cost)
+    want = j_fused(JModel(dt=0.05), *(jnp.asarray(t.numpy())
+                                      for t in (Z, U, k, K)),
+                   jnp.asarray(alphas.numpy()), JEnc(4), cost=JCost(),
+                   interpret=True)
+    assert got[0].shape == (9, 40, 4)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("A", [10, 40])
+def test_solve_line_search_takes_k2_at_any_alpha_count(monkeypatch, A):
+    """solve with fused_rollout sends every line search of an admitted
+    model to fused_control_law whatever the number of candidates, and
+    ends where the plain line search does."""
+    model, cost, Z, U, _, _ = _rollout_inputs(10, seed=3)
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(args[5].shape[0])
+        return fused(*args, **kwargs)
+
+    fused = fr.fused_control_law
+    monkeypatch.setattr(fr, "fused_control_law", counted)
+    opts = ILQROptions(n_iterations=3, alphas=_alphas(A),
+                       riccati_mode="kernel")
+    r_k = solve(model, cost, Z[0], U, ILQROptions(
+        **{**opts.__dict__, "fused_rollout": True}), encoding=IGN)
+    r_p = solve(model, cost, Z[0], U, opts, encoding=IGN)
+    assert calls and set(calls) == {A}
+    assert (r_k.iterations, r_k.evals) == (r_p.iterations, r_p.evals)
+    np.testing.assert_allclose(r_k.U.numpy(), r_p.U.numpy(), rtol=1e-12,
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("nan", [False, True])
