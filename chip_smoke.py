@@ -17,10 +17,10 @@ horizon 25; phases 7-9), and the other known-dynamics examples: K2 stages
 solves of tests/golden/cases.py in float64 (phase 11), and the pendulum,
 double cartpole, rendezvous and belief-state pendulum paths at horizon 200
 (phase 12); phase 13 times K1 and K2 alone at every path's shape beside
-their bounds. Each phase prints one JSON line; any failure
-raises and exits non-zero. The last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints no result. It imports neither JAX nor ``pddp_tpu``.
+their bounds, K2(d) at the BNN iteration's for 1 and 64 solves. Each
+phase prints one JSON line; any failure raises and exits non-zero. The
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
+exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
 """
 
 from __future__ import annotations
@@ -253,10 +253,13 @@ def k2_work(B, N, A, itemsize, bounded, name="cartpole", codec=4,
 # Volta to Hopper), an IEEE division or square root a special-function
 # approximation (~18 cycles) and 3 (FP32) or 6 (FP64) dependent FMAs, a
 # sine or cosine (no special-function unit on the precise path) 11 (FP32)
-# or 15 (FP64) dependent FMAs of range reduction and polynomial. Shared
+# or 15 (FP64) dependent FMAs of range reduction and polynomial, a
+# cluster barrier (barrier.cluster arrive and wait) 200 cycles. Shared
 # memory's latency is left out: a floor that kept everything in registers.
-LATENCY = {"float32": {"fma": 4, "div": 30, "sqrt": 30, "sincos": 44},
-           "float64": {"fma": 8, "div": 66, "sqrt": 66, "sincos": 120}}
+LATENCY = {"float32": {"fma": 4, "div": 30, "sqrt": 30, "sincos": 44,
+                       "cluster_sync": 200},
+           "float64": {"fma": 8, "div": 66, "sqrt": 66, "sincos": 120,
+                       "cluster_sync": 200}}
 
 
 def k1_chain_cycles(nz, nu, dtype_name):
@@ -299,6 +302,25 @@ def k2_chain_cycles(name, codec, nz, dtype_name, bounded=False):
     return max(mean, belief)
 
 
+def k2d_chain_cycles(n, nz, widths, P, dtype_name):
+    """Cycles of one K2(d) step's critical path (csrc/fused_bnn_rollout.cu):
+    the feedback law's nz-long chain and its two adds; the noise solve's n
+    chained subtract-and-divides; the particle's n-long sum; the net
+    input's sine, subtraction and division; each layer's K-long FMA chain
+    and its bias and mask; the next state's two; the sums over P of the
+    mean and then the covariance, as trees (the least depth of any order);
+    the n x n Cholesky (n square roots and divisions behind 2n FMAs); one
+    cluster barrier."""
+    lat = LATENCY[dtype_name]
+    fma, div = lat["fma"], lat["div"]
+    depth = int(np.ceil(np.log2(P)))
+    return ((nz + 3) * fma + n * (fma + div) + n * fma
+            + lat["sincos"] + fma + div
+            + (sum(widths[:-1]) + 2 * (len(widths) - 1)) * fma + 2 * fma
+            + 2 * depth * fma + n * (lat["sqrt"] + div) + 2 * n * fma
+            + lat["cluster_sync"])
+
+
 def chain_ms(cycles, N, clock_mhz):
     return 1e3 * N * cycles / (clock_mhz * 1e6)
 
@@ -320,7 +342,7 @@ def bound_ms(nbytes, flops, dtype_name):
 
 
 def chain_bound_ms(nbytes, flops, dtype_name, cycles, N):
-    """The bound of a latency-chain kernel (K1, K2(a)-(c)): the larger of
+    """The bound of a latency-chain kernel (K1, K2(a)-(d)): the larger of
     the roofline (``bound_ms``) and its chain floor, N dependent steps of
     ``cycles`` each at the card's maximum SM clock. The chain is operations
     too, bound by their latency rather than their rate, so "by" says
@@ -432,6 +454,9 @@ def phase0_build(card):
                              "spill_load_bytes": frame[2]})
                 entry = None
         kernels[name] = rows
+    entries = [r["entry"] for r in kernels["fused_bnn_rollout"]]
+    check(all(any("bnn_rollout_kernelI" + t in e for e in entries)
+              for t in "fd"), "ptxas reported no K2(d) instance")
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(next(iter(report.values()))["seconds"], 3),
@@ -773,15 +798,16 @@ BNN_TOL = {"float64": 1e-10, "float32": 1e-4, "float32_J_N25": 1e-3,
            "F_float32": 1e-5}
 
 
-def bnn_model(torch, dtype, N, trained):
+def bnn_model(torch, dtype, N, trained, P=100, hidden=(200, 200)):
     """The bench.py:280 configuration: 4 states, 1 action, net 6-200-200-8,
     100 particles, horizon N + 1, the 2-rung ladder; the trained cartpole
-    weights or an untrained net from seed 0."""
+    weights or an untrained net from seed 0 (of another particle count P
+    or hidden widths where given)."""
     from pddp_tpu_torch.models.bnn import (bnn_dynamics_model_factory,
                                            load_bnn_npz)
-    cls = bnn_dynamics_model_factory(4, 1, [200, 200], angular_indices=(2,),
+    cls = bnn_dynamics_model_factory(4, 1, list(hidden), angular_indices=(2,),
                                      non_angular_indices=(0, 1, 3))
-    model = cls.init(seed=0, n_particles=100, horizon=N + 1, dtype=dtype,
+    model = cls.init(seed=0, n_particles=P, horizon=N + 1, dtype=dtype,
                      device="cuda", chol_jitter=BNN_JITTER)
     return load_bnn_npz(model, TRAINED) if trained else model
 
@@ -794,14 +820,14 @@ def bnn_start(torch, dtype, N):
     return z0, torch.full((N, 1), 0.1, dtype=dtype, device="cuda")
 
 
-def bnn_inputs(torch, dtype, N, trained, B, rng):
+def bnn_inputs(torch, dtype, N, trained, B, rng, P=100, hidden=(200, 200)):
     """Model, cost and (Z, U, k, K) of one reg=1 backward pass around the
     rollout of U = 0.1; for B > 1 the gains are perturbed per solve."""
     from pddp_tpu_torch.controllers.ilqr import backward, local_model, rollout
     from pddp_tpu_torch.encoding import StateEncoding
     from pddp_tpu_torch.examples.cartpole import CartpoleCost
     ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
-    model = bnn_model(torch, dtype, N, trained)
+    model = bnn_model(torch, dtype, N, trained, P, hidden)
     cost = CartpoleCost(device="cuda", dtype=dtype)
     z0, U = bnn_start(torch, dtype, N)
     Z, AUX = rollout(model, z0, U, ch)
@@ -853,6 +879,48 @@ def fragment_errors(torch, model, ins, first):
     return {"F1": F1, "F2": F2, "F3": F3}
 
 
+# K2(d) cases that exercise the split of the particles over a cluster,
+# two steps each (untrained nets): (P, hidden widths, A, B, bounded). P=37
+# is no multiple of the particles a CTA; A=40 is more candidates than the
+# 32 lanes of K2(a)-(c) (each candidate is its own cluster here); B=3 and
+# B=64 change the planned cluster size; the bounds clamp u.
+K2D_SPLIT_CASES = ((37, (32, 32), 10, 1, False),
+                   (37, (32, 32), 40, 3, False),
+                   (37, (32, 32), 10, 3, True),
+                   (100, (200, 200), 40, 1, False),
+                   (100, (200, 200), 10, 3, True),
+                   (100, (200, 200), 10, 64, True))
+K2D_BOUNDS = (-0.05, 0.05)
+
+
+def k2d_split_case(torch, dtype, P, hidden, A, B, bounded):
+    """K2(d) against control_law at one K2D_SPLIT_CASES entry; the row
+    carries the launch plan."""
+    from pddp_tpu_torch.controllers.ilqr import control_law
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    N, dname = 2, str(dtype).replace("torch.", "")
+    model, _, ins = bnn_inputs(torch, dtype, N, False, B,
+                               np.random.default_rng(P + A + B), P, hidden)
+    alphas = torch.logspace(0.0, -3.0, A, dtype=dtype, device="cuda")
+    lo, hi = (torch.tensor([v], dtype=dtype, device="cuda")
+              for v in K2D_BOUNDS) if bounded else (None, None)
+    kern = fb.fused_bnn_control_law(model, *ins, alphas, ch, u_min=lo,
+                                    u_max=hi)
+    plain = control_law(model, *ins, alphas, ch, u_min=lo, u_max=hi,
+                        with_aux=True)
+    torch.cuda.synchronize()
+    row = {"dtype": dname, "N": N, "B": B, "A": A, "P": P,
+           "widths": [6, *hidden, 8], "bounded": bounded, "trained": False,
+           "plan": fb.launch_plan(model, B * A, dtype),
+           "finite": all(bool(torch.isfinite(p).all()) for p in plain),
+           "tol": BNN_TOL[dname]}
+    for name, a, p in zip(("Z", "U", "AUX"), kern, plain):
+        row[name + "_abs"], row[name + "_rel"] = rel_err(a, p)
+    return row
+
+
 def phase7_bnn_kernels():
     """K2(d), F1, F2 and F3 against their plain versions on the card."""
     import torch
@@ -887,6 +955,8 @@ def phase7_bnn_kernels():
                               if dname == "float32" and N > 2
                               else BNN_TOL[dname])
                 rows.append(row)
+        rows += [k2d_split_case(torch, dtype, *case)
+                 for case in K2D_SPLIT_CASES]
         model = bnn_model(torch, dtype, 2, False)
         for G, singular, first in ((10, False, False), (10, True, False),
                                    (10, False, True), (640, False, False)):
@@ -1109,7 +1179,8 @@ def phase8_bnn_iteration(card):
                                                       frag_err.items()}}}
     res.update(t)
     emit(res)
-    return res, model, {"derivs": derivs, "reg": reg}
+    return res, model, {"derivs": derivs, "reg": reg, "model": model,
+                        "rollout_args": rollout_args}
 
 
 def phase9_bnn_solve(card):
@@ -1614,7 +1685,8 @@ def _candidate_stats(model, Z_b):
 
 def phase13_kernel_times(card, path_inputs, bnn_k1):
     """K1 and K2 alone at every path's shape and inputs (phases 5, 8 and
-    12), for one solve and for 64 (the inputs repeated), by CUDA events
+    12; K2(d) at the BNN iteration's), for one solve and for 64 (the inputs
+    repeated), by CUDA events
     after a warm-up, each beside its bound: the larger of its roofline and
     its chain floor (``chain_bound_ms``);
     and K2 at each path's first-iteration inputs (gains at reg=0 around
@@ -1623,6 +1695,7 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
     import torch
     from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
     from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
     from pddp_tpu_torch.ops import fused_rollout as fr
     t0 = time.perf_counter()
     clock = max_sm_clock_mhz()
@@ -1645,6 +1718,22 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
 
     rows = [k1_row("bnn", bnn_k1["derivs"], bnn_k1["reg"], B)
             for B in (1, 64)]
+    model = bnn_k1["model"]
+    *ins, bnn_alphas = bnn_k1["rollout_args"]
+    N, nz = ins[1].shape[1], ins[0].shape[-1]
+    for B in (1, 64):
+        args = [t if B == 1 else t[0].expand((B,) + t.shape[1:]).contiguous()
+                for t in ins] + [bnn_alphas]
+        ms = events_ms(raw_bnn(torch, "rollout", model, torch.float32, args),
+                       200 if B == 1 else 20)
+        bound, by, roof, chain = chain_bound_ms(
+            *bnn_work(model, B, N, A, A, 4)["K2(d)"], "float32",
+            k2d_chain_cycles(4, nz, [6, 200, 200, 8], model.n_particles,
+                             "float32"), N)
+        rows.append({"kernel": "K2(d)", "path": "bnn", "B": B, "N": N,
+                     "nz": nz, "ms": ms, "bound_ms": bound, "bound_by": by,
+                     "roofline_ms": roof, "chain_floor_ms": chain,
+                     "plan": fb.launch_plan(model, B * A, torch.float32)})
     for label, p in path_inputs.items():
         rows += [k1_row(label, p["derivs"], p["reg"], B) for B in (1, 64)]
         model, enc = p["model"], p["enc"]
@@ -1695,9 +1784,9 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times):
     inline and the entries themselves launch no time, K2(b) on the double
     cartpole's path and K2(c) on the pendulum's under the Cholesky codec
     (phase 12; the other paths' numbers ride along under "paths"). The
-    latency-chain kernels K1 and K2(a)-(c) take their bounds, the larger of
+    latency-chain kernels K1 and K2(a)-(d) take their bounds, the larger of
     the roofline and the chain floor, and their times at 64 solves from
-    phase 13."""
+    phase 13 (K2(d) also its cluster size and threads a CTA)."""
     kernels = [
         {"name": "K1 riccati_backward", "route": "cuda",
          "source": "pddp_tpu_torch/csrc/backward_kernel.cu",
@@ -1761,13 +1850,21 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times):
         rows = {r["B"]: r for r in times
                 if r["kernel"] == kernel and r["path"] == path}
         one = rows[1]
-        return {"bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
-                "bound_note": "chain" if one["chain_floor_ms"]
-                >= one["roofline_ms"] else "roofline",
-                "ms_B64": rows[64]["ms"],
-                "bound_ms_B64": rows[64]["bound_ms"]}
+        out = {"bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+               "bound_note": "chain" if one["chain_floor_ms"]
+               >= one["roofline_ms"] else "roofline",
+               "ms_B64": rows[64]["ms"],
+               "bound_ms_B64": rows[64]["bound_ms"]}
+        if "plan" in one:   # K2(d): its cluster launch
+            out.update(cluster=one["plan"]["cluster"],
+                       threads_per_cta=one["plan"]["threads"],
+                       particles_per_cta=one["plan"]["particles_per_cta"],
+                       cluster_B64=rows[64]["plan"]["cluster"],
+                       threads_per_cta_B64=rows[64]["plan"]["threads"])
+        return out
     for row, kernel, path in ((kernels[0], "K1", "cartpole"),
                               (kernels[1], "K2(a)", "cartpole"),
+                              (kernels[2], "K2(d)", "bnn"),
                               (kernels[-2], "K2(b)", "double_cartpole"),
                               (kernels[-1], "K2(c)", "pendulum_chol")):
         row.update(timed(kernel, path))

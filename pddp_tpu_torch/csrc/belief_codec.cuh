@@ -3,7 +3,7 @@
 // layout of encoding.UPPER_TRIANGULAR_CHOLESKY and utils.linalg's
 // safe_cholesky ladder, in the plain versions' order of operations.
 //
-// All functions run on one thread; n is the state size (n <= 8).
+// All functions run on one thread; n (N) is the state size (n <= 8).
 
 #pragma once
 
@@ -34,33 +34,42 @@ __device__ __forceinline__ void triu_flatten_lower_t(const T* L, int n,
     for (int c = r; c < n; ++c) flat[tri(r, c, n)] = L[c * n + r];
 }
 
-// Lower Cholesky factor L (row-major, the lower triangle written) of the
-// symmetric C through a jitter ladder: the first rung jitter[q] whose
+// Lower Cholesky factor L (row-major N x N, the lower triangle written) of
+// the symmetric C through a jitter ladder: the first rung jitter[q] whose
 // Cholesky-Crout factor of C + jitter[q] I is finite wins; where every
 // rung fails, L is diag(sqrt(max(diag C, 1e-12))), which keeps a NaN
-// (utils.linalg.safe_cholesky).
-template <typename T>
-__device__ __forceinline__ void safe_cholesky_lower(const T* C, int n,
+// (utils.linalg.safe_cholesky). N is a constant of the compiler, so the
+// factor stays in registers. A failed rung's later entries are computed
+// and then overwritten by the next rung, which reads only the entries it
+// computed itself: the same result as stopping at the first non-finite
+// entry.
+template <int N, typename T>
+__device__ __forceinline__ void safe_cholesky_lower(const T* C,
                                                     const T* jitter,
                                                     int n_jitter, T* L) {
   bool found = false;
   for (int q = 0; q < n_jitter && !found; ++q) {
     bool ok = true;
-    for (int i = 0; i < n && ok; ++i) {
-      for (int j = 0; j <= i && ok; ++j) {
-        T s = C[i * n + j] + (i == j ? jitter[q] : T(0));
-        for (int k = 0; k < j; ++k) s = s - L[i * n + k] * L[j * n + k];
-        L[i * n + j] = i == j ? sqrt(s) : s / L[j * n + j];
-        ok = isfinite(L[i * n + j]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        T s = C[i * N + j] + (i == j ? jitter[q] : T(0));
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = s - L[i * N + k] * L[j * N + k];
+        L[i * N + j] = i == j ? sqrt(s) : s / L[j * N + j];
+        ok = ok && isfinite(L[i * N + j]);
       }
     }
     found = ok;
   }
   if (!found) {
-    for (int i = 0; i < n; ++i) {
-      for (int j = 0; j < i; ++j) L[i * n + j] = T(0);
-      const T d = C[i * n + i];
-      L[i * n + i] = sqrt(d < T(1e-12) ? T(1e-12) : d);  // keeps a NaN
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < i; ++j) L[i * N + j] = T(0);
+      const T d = C[i * N + i];
+      L[i * N + i] = sqrt(d < T(1e-12) ? T(1e-12) : d);  // keeps a NaN
     }
   }
 }

@@ -14,7 +14,7 @@
 //   F3 = scripts/probe_kernel_mlp_batch.py:86 (the candidate MLP);
 //   P7 = scripts/probe_fused_stateful.py:66/:91 is the rollout entry itself.
 //
-// Per step i and candidate a (one block each):
+// Per step i and candidate a:
 //   u   = U_i + (alpha k_i + K_i (z - Z_i)), clamped to the bounds if given
 //   eps = solve eps Uc = prev - mean per particle, or eps_in[i] for all
 //         particles when any element is not finite or i == 0
@@ -22,50 +22,91 @@
 //   out = MLP(x) with each particle's dropout masks; output = X + delta(out)
 //   z   = [mean(output), triu(safe_cholesky(cov(output, ddof=1)))]
 // which is BNNDynamicsModel.step (models/bnn/model.py) in the same order of
-// operations. The rolling state (the previous outputs) stays in shared
-// memory for the whole horizon.
+// operations, but for the sums of the moment match (below).
 //
-// What bounds it on an H100: the MLP. At the main-path shape (net
-// 6-200-200-8, P=100, A=10, N=25, f32) it does 2.1 GFLOP, which is 0.03 ms
-// at the 67 TFLOP/s of plain f32 arithmetic, and it moves under 1 MB. With
-// one block per candidate only A blocks run, so the time is N times one
-// step of one SM: about 4.3 M multiply-adds per step.
+// What bounds it on an H100. At the main-path shape (net 6-200-200-8,
+// P=100, A=10, N=25, f32) the MLP is 2.1 GFLOP, 0.03 ms at the 67 TFLOP/s
+// of plain f32 arithmetic, and it moves under 1 MB; each step is also a
+// chain of dependent work (feedback law, noise solve, three K-long dot
+// products, sums over P, a 4x4 Cholesky, a cluster barrier), about 0.03 ms
+// over N=25. The first design (one block per candidate, 10 of 132 SMs; a
+// thread per output column reloading 8 activations per multiply-add; W2
+// re-read from L2 every step; ten block barriers around one-thread
+// phases) took 2.6 ms. This one takes about 0.38 ms: per step about half
+// is the 200 x 200 layer on 13 particles of a CTA (4 x 4 tiles read 2
+// bytes of shared memory a multiply-add, and shared memory serves 4 bytes
+// a thread a cycle; 8 x 4 tiles read less but leave one warp per SM
+// quarter, and measured slower), the rest the chains above at a few
+// hundred cycles each (PERF.md).
 //
-// What the design does about that: the MLP runs from shared memory, with
-// the activations stored transposed (feature-major) so a thread loads eight
-// particles of one feature with vector loads and keeps eight accumulators
-// per output column; weights are read through the read-only cache,
-// coalesced across the column index. Particles run in chunks sized to the
-// shared memory (all 100 at once in f32, two chunks in f64). Tensor cores,
-// TMA, clusters (spreading one candidate over several SMs) and packing the
-// batch of solves are later work.
+// What the design does about it:
+//  * one thread-block cluster per (solve, candidate), the particles split
+//    over its c CTAs (c <= 8, planned here from B*A, P and the widths with
+//    cudaOccupancyMaxActiveClusters: the largest c whose clusters all fit
+//    on the card at once, else the smallest that fits shared memory), so
+//    B*A*c SMs share the MLP;
+//  * the weights stay in shared memory for the whole horizon: each CTA
+//    stages them once with bulk asynchronous copies (cp.async.bulk onto an
+//    mbarrier), largest layer first, then its particles' dropout masks,
+//    as far as 227 KB go; what does not fit is read through __ldg (all of
+//    W2 at c = 1, and in f64);
+//  * a register-tiled MLP: a thread owns 4 particles x 4 output columns,
+//    so one shared-memory activation load serves 4 outputs and one weight
+//    load 4 particles; a layer too narrow for that (the output layer) takes
+//    1 x 1 tiles over more warps, each loading 8 steps of k ahead. Each
+//    output keeps the first design's sum: one FMA chain over k ascending,
+//    then the bias, the mask, the ReLU (keeping a NaN), so the MLP's
+//    results are the same to the bit;
+//  * one cluster exchange a step: each CTA stores its particles' next
+//    states into every CTA's copy of the P x n array through distributed
+//    shared memory, then cluster.sync(); every CTA then runs the moment
+//    match on all P rows in the same order (so all hold the same z with no
+//    second barrier), and the noise solve and the feedback law of the next
+//    step on its own copy. The noise solve runs for all P particles in each
+//    CTA, so its any-non-finite fallback sees every particle. The sums of
+//    the moment match are spread over lanes: each mean entry over a warp
+//    (lane l adds p = l, l + 32, ... in ascending order, then shuffles add
+//    the lanes at distance 16, 8, 4, 2, 1), each covariance entry over half
+//    a warp (lane l adds p = l, l + 16, ..., then distances 8, 4, 2, 1).
+//    This order differs from the plain version's, within the f32
+//    tolerances;
+//  * the two shared-memory copies of the particle array alternate by step,
+//    so a CTA that runs ahead never overwrites rows a peer still reads;
+//  * nothing on a step's chain waits on device memory: the step's nominal
+//    rows and noise rows are staged one step ahead by cp.async, the
+//    normalization constants and the jitter ladder once, and the state
+//    size is a constant of the compiler in the per-particle and Cholesky
+//    code (an instance per n <= 8), so those vectors stay in registers.
+// Tensor cores (3xTF32 or FP64 mma for the MLP) are not used: the port
+// keeps full f32.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
 
+#include "async_copy.cuh"
 #include "belief_codec.cuh"
+
+namespace cg = cooperative_groups;
+
+extern __shared__ __align__(16) unsigned char g_smem[];
 
 namespace {
 
-using pddp::tri;
+using pddp::round16;
 
 constexpr int kMaxN = 8;
 constexpr int kMaxNu = 4;
 constexpr int kMaxNz = kMaxN + kMaxN * (kMaxN + 1) / 2;
 constexpr int kMaxLayers = 6;
-constexpr int kTile = 8;
-// Defaults measured by scripts/bnn_kernel_variants.py on an H100 (PERF.md):
-// 1024 threads and a 4-deep unroll keep the most weight loads in flight.
-#ifndef PDDP_BNN_THREADS
-#define PDDP_BNN_THREADS 1024
-#endif
-#ifndef PDDP_BNN_UNROLL
-#define PDDP_BNN_UNROLL 4
-#endif
-constexpr int kThreads = PDDP_BNN_THREADS;  // threads per block
-constexpr int kUnroll = PDDP_BNN_UNROLL;    // MLP inner-loop unroll
-constexpr int kMaxSmem = 227 * 1024;
+constexpr int kPad = 4;            // a CTA's particles padded to this
+constexpr int kMinThreads = 128;   // threads a CTA, at least
+constexpr int kMaxThreads = 512;   // and at most (128 registers a thread)
+constexpr int kMaxCluster = 8;     // the portable cluster size
+constexpr int kBulkPiece = 65536;  // bytes of one bulk copy at most
+constexpr int kMaxJitter = 16;     // rungs of the Cholesky ladder
+constexpr int kMaxF = 2 * kMaxN + kMaxNu;  // net input width in K2(d)
 
 // Mirrored field by field by ops/fused_bnn_rollout.py:_CONFIG_FIELDS.
 struct Config {
@@ -77,171 +118,537 @@ struct Config {
   int x_mean_off, x_std_off, dx_mean_off, dx_std_off, u_min_off, u_max_off;
   int jitter_off, n_jitter;
   int predicted_std, sample_input, infer_noise, constrained;
-  int chunk, max_width;
 };
 
 constexpr int kConfigInts = sizeof(Config) / sizeof(int);
 
-__host__ __device__ inline int pad8(int x) { return (x + 7) / 8 * 8; }
+// A launch's plan: the cluster, the particles and threads of a CTA, and
+// the CTA's shared memory, in elements of the kernel's type from the start
+// of the dynamic shared memory (-1: not in shared memory).
+struct Plan {
+  int c;        // CTAs a cluster
+  int ppc;      // particles a CTA (the last CTA may have fewer)
+  int npad;     // ppc rounded up to the tile
+  int threads;  // threads a CTA
+  int bytes;    // dynamic shared memory a CTA
+  int tx_bytes; // bytes the bulk copies bring
+  int act0, act1, full0, full1, eps, X, out;
+  int stage, stage_len;  // two slots of a step's staged inputs
+  int w_s[kMaxLayers], b_s[kMaxLayers], m_s[kMaxLayers];
+};
 
-template <typename T>
-__device__ __forceinline__ void load8(const T* a, T (&v)[kTile]) {
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) v[t] = a[t];
+// What pddp_bnn_plan_* reports: c, ppc, threads, bytes, masks resident,
+// then each layer's weights resident (0/1).
+constexpr int kPlanInts = 5 + kMaxLayers;
+
+// ---------------------------------------------------------------------------
+// Device helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <>
-__device__ __forceinline__ void load8<float>(const float* a,
-                                              float (&v)[kTile]) {
-  const float4 x = reinterpret_cast<const float4*>(a)[0];
-  const float4 y = reinterpret_cast<const float4*>(a)[1];
+// Four 16-byte aligned elements from shared memory (or any generic
+// address), and four into shared memory.
+__device__ __forceinline__ void lds4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
 }
 
-template <>
-__device__ __forceinline__ void load8<double>(const double* a,
-                                               double (&v)[kTile]) {
+__device__ __forceinline__ void lds4(const double* p, double* v) {
+  const double2 x = reinterpret_cast<const double2*>(p)[0];
+  const double2 y = reinterpret_cast<const double2*>(p)[1];
+  v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+}
+
+__device__ __forceinline__ void sts4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void sts4(double* p, const double* v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// Four aligned elements from device memory through the read-only cache.
+__device__ __forceinline__ void ldg4(const float* p, float* v) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+__device__ __forceinline__ void ldg4(const double* p, double* v) {
+  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 y = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+}
+
+template <bool SMEM, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (SMEM) return *p;
+  else return __ldg(p);
+}
+
+template <typename T>
+__device__ __forceinline__ T half_warp_sum(T s) {
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const double2 x = reinterpret_cast<const double2*>(a)[h];
-    v[2 * h] = x.x;
-    v[2 * h + 1] = x.y;
+  for (int off = 8; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// The weights' bulk copies: thread 0 arms the barrier with the bytes to
+// come and issues the copies; every thread waits for them in wait_weights.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned long long* bar,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+template <typename T>
+__device__ void copy_part(T* dst, const T* src, long elems,
+                          unsigned long long* bar) {
+  const long bytes = round16(elems * long(sizeof(T)));
+  for (long o = 0; o < bytes; o += kBulkPiece) {
+    const long nb = bytes - o < kBulkPiece ? bytes - o : kBulkPiece;
+    bulk_copy(reinterpret_cast<unsigned char*>(dst) + o,
+              reinterpret_cast<const unsigned char*>(src) + o,
+              static_cast<unsigned>(nb), bar);
   }
 }
 
-// mean (n) and upper factor Uc (n x n) of an encoded state z.
+// Stages the plan's resident weights and biases (bulk copies) and the
+// masks of the CTA's particles [p0, p0 + pc) (plain loads), and returns
+// each hidden layer's mask rows of those particles (row q = particle
+// p0 + q), or nullptr where the layer has none. Ends in __syncthreads.
 template <typename T>
-__device__ void decode(const T* z, int n, T* mean, T* Uc) {
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int r = e / n, c = e % n;
-    Uc[e] = c >= r ? z[n + tri(r, c, n)] : T(0);
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) mean[j] = z[j];
-  __syncthreads();
-}
-
-// F1: eps (P x n) with eps Uc = prev - mean per particle; eps0 for every
-// particle when any element is not finite, or when ``first``.
-template <typename T>
-__device__ void infer_eps(const T* Uc, const T* mean, const T* prev,
-                          const T* eps0, bool first, T* eps, int P, int n) {
-  int bad = 0;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    T x[kMaxN];
-    for (int j = 0; j < n; ++j) {
-      T s = prev[p * n + j] - mean[j];
-      for (int k = 0; k < j; ++k) s = s - x[k] * Uc[k * n + j];
-      x[j] = s / Uc[j * n + j];
-      bad |= !isfinite(x[j]);
+__device__ void stage_net(const Config& cfg, const Plan& pl,
+                          const T* __restrict__ params, int p0, int pc,
+                          unsigned long long* bar, const T** mask) {
+  T* sm = reinterpret_cast<T*>(g_smem);
+  if (threadIdx.x == 0 && pl.tx_bytes > 0) {
+    mbar_init(bar);
+    mbar_expect(bar, static_cast<unsigned>(pl.tx_bytes));
+    for (int l = 0; l < cfg.n_layers; ++l) {
+      if (pl.w_s[l] < 0) continue;
+      const int K = cfg.width[l], O = cfg.width[l + 1];
+      copy_part(sm + pl.w_s[l], params + cfg.w_off[l], long(K) * O, bar);
+      copy_part(sm + pl.b_s[l], params + cfg.b_off[l], long(O), bar);
     }
-    for (int j = 0; j < n; ++j) eps[p * n + j] = x[j];
   }
-  bad = __syncthreads_or(bad);
-  if (bad || first)
-    for (int e = threadIdx.x; e < P * n; e += blockDim.x) eps[e] = eps0[e];
+  for (int l = 0; l + 1 < cfg.n_layers; ++l) {
+    const int O = cfg.width[l + 1];
+    mask[l] = nullptr;
+    if (cfg.m_off[l] < 0) continue;
+    const T* src = params + cfg.m_off[l] + long(p0) * O;
+    if (pl.m_s[l] < 0) {
+      mask[l] = src;
+      continue;
+    }
+    T* dst = sm + pl.m_s[l];
+    for (int e = threadIdx.x; e < pc * O; e += blockDim.x) dst[e] = src[e];
+    mask[l] = dst;
+  }
   __syncthreads();
 }
 
-// F2: output particles (P x n) -> z = [mean, triu(U)], U the upper Cholesky
-// factor of the ddof=1 covariance through the jitter ladder (the first rung
-// whose factor is finite; else the square root of the diagonal clamped at
-// 1e-12). M and C are scratch of n and n x n.
+__device__ __forceinline__ void wait_weights(const Plan& pl,
+                                             unsigned long long* bar) {
+  if (pl.tx_bytes > 0)
+    while (!mbar_try_wait(bar, 0)) {
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The step's device functions
+// ---------------------------------------------------------------------------
+
+// The state size n as a constant of the compiler: the per-particle and
+// per-belief work (noise solve, particles, Cholesky ladder) then keeps its
+// n-vectors in registers. f is called with Int<n>.
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+template <typename F>
+__device__ __forceinline__ void with_n(int n, F&& f) {
+  switch (n) {
+    case 1: f(Int<1>{}); break;
+    case 2: f(Int<2>{}); break;
+    case 3: f(Int<3>{}); break;
+    case 4: f(Int<4>{}); break;
+    case 5: f(Int<5>{}); break;
+    case 6: f(Int<6>{}); break;
+    case 7: f(Int<7>{}); break;
+    default: f(Int<8>{}); break;
+  }
+}
+
+// mean (n) and upper factor Uc (n x n) of an encoded state z; one thread.
+template <int NN, typename T>
+__device__ __forceinline__ void decode(const T* z, T* mean, T* Uc) {
+  pddp::triu_unflatten(z + NN, NN, Uc);
+#pragma unroll
+  for (int j = 0; j < NN; ++j) mean[j] = z[j];
+}
+
+// F1: eps with eps Uc = prev - mean for every particle p < P, the rows of
+// p in [p0, p0 + pc) stored in eps (row p - p0). Returns whether any
+// element of any particle is not finite, for every thread of the block
+// (ends in a block barrier).
+template <typename T>
+__device__ int solve_eps(const T* Uc, const T* mean, const T* prev, int P,
+                         int n, int p0, int pc, T* eps) {
+  int bad = 0;
+  with_n(n, [&](auto nn) {
+    constexpr int NN = decltype(nn)::value;
+    for (int p = threadIdx.x; p < P; p += blockDim.x) {
+      T x[NN];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        T s = prev[p * NN + j] - mean[j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = s - x[k] * Uc[k * NN + j];
+        x[j] = s / Uc[j * NN + j];
+        bad |= !isfinite(x[j]);
+      }
+      const int q = p - p0;
+      if (q >= 0 && q < pc)
+#pragma unroll
+        for (int j = 0; j < NN; ++j) eps[q * NN + j] = x[j];
+    }
+  });
+  return __syncthreads_or(bad);
+}
+
+// The CTA's particles of the step: the noise e (zero without input
+// sampling; the drawn rows e0 when `drawn`, else the solved rows eps),
+// X = mean + e Uc, and e into aux; rows q < pc.
+template <typename T>
+__device__ void particles(int n, bool sample, bool drawn, const T* e0,
+                          const T* eps, const T* mean, const T* Uc, int pc,
+                          T* X, T* aux) {
+  with_n(n, [&](auto nn) {
+    constexpr int NN = decltype(nn)::value;
+    for (int q = threadIdx.x; q < pc; q += blockDim.x) {
+      T e[NN];
+#pragma unroll
+      for (int j = 0; j < NN; ++j)
+        e[j] = !sample ? T(0) : drawn ? e0[q * NN + j] : eps[q * NN + j];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        if (sample) {
+          T s = T(0);
+#pragma unroll
+          for (int r = 0; r < NN; ++r) s += e[r] * Uc[r * NN + j];
+          X[q * NN + j] = mean[j] + s;
+        } else {
+          X[q * NN + j] = mean[j];
+        }
+        aux[q * NN + j] = e[j];
+      }
+    }
+  });
+}
+
+// F2: output particles (P x n) -> z = [mean, triu(U)], U the upper
+// Cholesky factor of the ddof=1 covariance through the jitter ladder (the
+// first rung whose factor is finite; else the square root of the diagonal
+// clamped at 1e-12), with its decoded mean and Uc. The sums take a warp
+// per entry (the order in the note at the top). M and C are scratch of n
+// and n x n; when Zrow is given, thread 0 also stores z there. Ends in a
+// block barrier.
 template <typename T>
 __device__ void moment_match(const T* out, int P, int n, const T* jitter,
-                             int n_jitter, T* M, T* C, T* z) {
-  const int tid = threadIdx.x;
-  if (tid < n) {
+                             int n_jitter, T* M, T* C, T* z, T* mean, T* Uc,
+                             T* Zrow) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  for (int j = warp; j < n; j += warps) {
     T s = T(0);
-    for (int p = 0; p < P; ++p) s += out[p * n + tid];
-    M[tid] = s / T(P);
+#pragma unroll 4
+    for (int p = lane; p < P; p += 32) s += out[p * n + j];
+    s = warp_sum(s);
+    if (lane == 0) M[j] = s / T(P);
   }
   __syncthreads();
-  if (tid < n * (n + 1) / 2) {
-    int r = 0, rem = tid;
-    while (rem >= n - r) rem -= n - r++;
-    const int c = r + rem;
+  const int half = threadIdx.x / 16, hl = threadIdx.x % 16;
+  const int entries = n * (n + 1) / 2;
+  for (int e0 = 0; e0 < entries; e0 += 2 * warps) {
+    const int e = e0 + half;
+    int r = 0, c = 0;
     T s = T(0);
-    for (int p = 0; p < P; ++p)
-      s += (out[p * n + r] - M[r]) * (out[p * n + c] - M[c]);
-    s = s / T(P - 1);
-    C[r * n + c] = s;
-    C[c * n + r] = s;
+    if (e < entries) {
+      int rem = e;
+      while (rem >= n - r) rem -= n - r++;
+      c = r + rem;
+#pragma unroll 4
+      for (int p = hl; p < P; p += 16)
+        s += (out[p * n + r] - M[r]) * (out[p * n + c] - M[c]);
+    }
+    s = half_warp_sum(s);
+    if (e < entries && hl == 0) {
+      s = s / T(P - 1);
+      C[r * n + c] = s;
+      C[c * n + r] = s;
+    }
   }
   __syncthreads();
-  if (tid == 0) {
-    T L[kMaxN * kMaxN];
-    pddp::safe_cholesky_lower(C, n, jitter, n_jitter, L);
-    for (int j = 0; j < n; ++j) z[j] = M[j];
-    pddp::triu_flatten_lower_t(L, n, z + n);
+  if (threadIdx.x == 0) {
+    with_n(n, [&](auto nn) {
+      constexpr int NN = decltype(nn)::value;
+      T Cr[NN * NN], L[NN * NN];
+#pragma unroll
+      for (int e = 0; e < NN * NN; ++e) Cr[e] = C[e];
+      pddp::safe_cholesky_lower<NN>(Cr, jitter, n_jitter, L);
+      T zr[NN + NN * (NN + 1) / 2];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) zr[j] = M[j];
+      pddp::triu_flatten_lower_t(L, NN, zr + NN);
+#pragma unroll
+      for (int e = 0; e < NN + NN * (NN + 1) / 2; ++e) {
+        z[e] = zr[e];
+        if (Zrow != nullptr) Zrow[e] = zr[e];
+      }
+      decode<NN>(zr, mean, Uc);
+    });
   }
   __syncthreads();
 }
 
-// F3 on one chunk of cp particles starting at p0: in holds the chunk's net
-// input feature-major (in[f * chunk + q]); the last layer writes the rows of
-// out (P x width[n_layers]). Hidden layers: (x W + b) * mask, then ReLU.
-template <typename T>
-__device__ void mlp_chunk(const Config& cfg, const T* __restrict__ params,
-                          T* in, T* nxt, T* out, int p0, int cp) {
-  const int ntiles = (cp + kTile - 1) / kTile;
-  const int chunk = cfg.chunk;
-  for (int l = 0; l < cfg.n_layers; ++l) {
-    const int K = cfg.width[l], O = cfg.width[l + 1];
-    const T* __restrict__ W = params + cfg.w_off[l];
-    const T* __restrict__ bias = params + cfg.b_off[l];
-    const bool last = l == cfg.n_layers - 1;
-    const T* mask = (!last && cfg.m_off[l] >= 0) ? params + cfg.m_off[l]
-                                                 : nullptr;
-    for (int item = threadIdx.x; item < ntiles * O; item += blockDim.x) {
-      const int tile = item / O, o = item % O;
-      T acc[kTile];
+// One linear layer over the CTA's particles: in holds K features
+// feature-major (in[k * ldp + q], ldp = npad); a thread takes a tile of TP
+// particles x TO outputs (4 x 4, or 1 x 1 for a layer too narrow to give
+// half the threads a 4 x 4 tile). Hidden layers write (x W + b) * mask, then
+// ReLU, feature-major into nxt; the last layer writes x W + b as rows
+// rows[q * O + o] of the CTA's pc particles. VEC: O is a multiple of 4,
+// so a weight row's 4 columns, the bias and a mask row load as one vector.
+template <typename T, int TP, int TO, bool SMEM_W, bool VEC>
+__device__ __forceinline__ void layer(int in_off, int ldp, int K, int O,
+                                      const T* W, const T* bias,
+                                      const T* mask, int pc, bool last,
+                                      int nxt_off, T* __restrict__ rows) {
+  // From offsets, so that the compiler sees shared memory (LDS, not LD).
+  T* const sm = reinterpret_cast<T*>(g_smem);
+  const T* __restrict__ in = sm + in_off;
+  T* __restrict__ nxt = sm + nxt_off;
+  constexpr bool V4 = VEC && TO == 4;
+  const int ptiles = ldp / TP, otiles = (O + TO - 1) / TO;
+  for (int item = threadIdx.x; item < ptiles * otiles; item += blockDim.x) {
+    const int q0 = (item % ptiles) * TP, o0 = (item / ptiles) * TO;
+    T acc[TP][TO];
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) acc[t] = T(0);
-      const T* src = in + tile * kTile;
-#pragma unroll kUnroll
-      for (int kk = 0; kk < K; ++kk) {
-        const T w = __ldg(W + kk * O + o);
-        T a[kTile];
-        load8(src + kk * chunk, a);
+    for (int t = 0; t < TP; ++t)
 #pragma unroll
-        for (int t = 0; t < kTile; ++t) acc[t] += a[t] * w;
+      for (int j = 0; j < TO; ++j) acc[t][j] = T(0);
+    const T* a_p = in + q0;
+    const T* w_p = W + o0;
+    const auto load = [&](int kk, T (&a)[TP], T (&w)[TO]) {
+      if constexpr (TP == 1) {
+        a[0] = a_p[kk * ldp];
+      } else {
+#pragma unroll
+        for (int h = 0; h < TP; h += 4) lds4(a_p + kk * ldp + h, a + h);
       }
-      const T b = __ldg(bias + o);
+      if constexpr (V4) {
+        if constexpr (SMEM_W) lds4(w_p + kk * O, w);
+        else ldg4(w_p + kk * O, w);
+      } else {
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        const int q = tile * kTile + t;
-        T v = acc[t] + b;
-        if (last) {
-          if (q < cp) out[(p0 + q) * O + o] = v;
+        for (int j = 0; j < TO; ++j)
+          w[j] = o0 + j < O ? ld<SMEM_W>(w_p + kk * O + j) : T(0);
+      }
+    };
+    // D steps of k at a time: their loads first, then their multiply-adds
+    // in k order, so one load latency covers D steps of the chain.
+    constexpr int D = TP * TO == 1 ? 8 : sizeof(T) == 8 ? 1 : 4;
+    int kk = 0;
+    for (; kk + D <= K; kk += D) {
+      T a[D][TP], w[D][TO];
+#pragma unroll
+      for (int u = 0; u < D; ++u) load(kk + u, a[u], w[u]);
+#pragma unroll
+      for (int u = 0; u < D; ++u)
+#pragma unroll
+        for (int t = 0; t < TP; ++t)
+#pragma unroll
+          for (int j = 0; j < TO; ++j) acc[t][j] += a[u][t] * w[u][j];
+    }
+    for (; kk < K; ++kk) {
+      T a[TP], w[TO];
+      load(kk, a, w);
+#pragma unroll
+      for (int t = 0; t < TP; ++t)
+#pragma unroll
+        for (int j = 0; j < TO; ++j) acc[t][j] += a[t] * w[j];
+    }
+    T b[TO];
+    if constexpr (V4) {
+      if constexpr (SMEM_W) lds4(bias + o0, b);
+      else ldg4(bias + o0, b);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TO; ++j)
+        b[j] = o0 + j < O ? ld<SMEM_W>(bias + o0 + j) : T(0);
+    }
+    if (last) {
+#pragma unroll
+      for (int t = 0; t < TP; ++t)
+#pragma unroll
+        for (int j = 0; j < TO; ++j)
+          if (q0 + t < pc && o0 + j < O)
+            rows[(q0 + t) * O + o0 + j] = acc[t][j] + b[j];
+      continue;
+    }
+    T v[TO][TP];
+#pragma unroll
+    for (int t = 0; t < TP; ++t) {
+      const int q = q0 + t;
+      T m[TO];
+      if (mask != nullptr) {
+        if (q >= pc) {
+#pragma unroll
+          for (int j = 0; j < TO; ++j) m[j] = T(0);
+        } else if constexpr (V4) {
+          lds4(mask + q * O + o0, m);
         } else {
-          if (mask != nullptr) v = v * (q < cp ? mask[(p0 + q) * O + o]
-                                               : T(0));
-          nxt[o * chunk + q] = v < T(0) ? T(0) : v;  // ReLU that keeps a NaN
+#pragma unroll
+          for (int j = 0; j < TO; ++j)
+            m[j] = o0 + j < O ? mask[q * O + o0 + j] : T(0);
         }
       }
+#pragma unroll
+      for (int j = 0; j < TO; ++j) {
+        T x = acc[t][j] + b[j];
+        if (mask != nullptr) x = x * m[j];
+        v[j][t] = x < T(0) ? T(0) : x;  // ReLU that keeps a NaN
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TO; ++j) {
+      if (o0 + j >= O) continue;
+      if constexpr (TP == 1) {
+        nxt[(o0 + j) * ldp + q0] = v[j][0];
+      } else {
+#pragma unroll
+        for (int h = 0; h < TP; h += 4)
+          sts4(nxt + (o0 + j) * ldp + q0 + h, v[j] + h);
+      }
+    }
+  }
+}
+
+template <typename T, int TP, int TO, bool SMEM_W>
+__device__ __forceinline__ void layer_vec(int in, int ldp, int K, int O,
+                                          const T* W, const T* bias,
+                                          const T* mask, int pc, bool last,
+                                          int nxt, T* rows) {
+  if (O % 4 == 0)
+    layer<T, TP, TO, SMEM_W, true>(in, ldp, K, O, W, bias, mask, pc, last,
+                                   nxt, rows);
+  else
+    layer<T, TP, TO, SMEM_W, false>(in, ldp, K, O, W, bias, mask, pc, last,
+                                    nxt, rows);
+}
+
+
+// F3 over the CTA's pc particles: the shared memory at offset act0 holds
+// the net input feature-major (padded to pl.npad particles); the last
+// layer's rows go to rows. act0 and act1 are overwritten.
+template <typename T>
+__device__ void mlp(const Config& cfg, const Plan& pl,
+                    const T* __restrict__ params, const T* const* mask,
+                    int act0, int act1, int pc, T* rows) {
+  const T* sm = reinterpret_cast<const T*>(g_smem);
+  int in = act0, nxt = act1;
+  for (int l = 0; l < cfg.n_layers; ++l) {
+    const int K = cfg.width[l], O = cfg.width[l + 1];
+    const bool last = l == cfg.n_layers - 1;
+    const T* mk = last ? nullptr : mask[l];
+    const bool wide =
+        2 * (pl.npad / 4) * ((O + 3) / 4) >= static_cast<int>(blockDim.x);
+    if (pl.w_s[l] >= 0) {
+      const T* W = sm + pl.w_s[l];
+      const T* b = sm + pl.b_s[l];
+      if (wide)
+        layer_vec<T, 4, 4, true>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
+                                 rows);
+      else
+        layer_vec<T, 1, 1, true>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
+                                 rows);
+    } else {
+      const T* W = params + cfg.w_off[l];
+      const T* b = params + cfg.b_off[l];
+      if (wide)
+        layer_vec<T, 4, 4, false>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
+                                  rows);
+      else
+        layer_vec<T, 1, 1, false>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
+                                  rows);
     }
     __syncthreads();
-    T* s = in;
+    const int s = in;
     in = nxt;
     nxt = s;
   }
 }
 
-// The net input of particles [p0, p0 + cp) from particles X (P x n) and the
-// constrained action uc, feature-major into act.
+// The net input of the CTA's pc particles X (pc x n) and the constrained
+// action uc, normalized by the input's mean xm and std xs, feature-major
+// into act (padded with zeros to npad).
 template <typename T>
-__device__ void net_input(const Config& cfg, const T* __restrict__ params,
-                          const T* X, const T* uc, T* act, int p0, int cp) {
+__device__ void net_input(const Config& cfg, const T* xm, const T* xs,
+                          const T* X, const T* uc, T* act, int npad,
+                          int pc) {
   const int n = cfg.n, naug = cfg.n_nonang + 2 * cfg.n_ang;
-  const int F = cfg.width[0], chunk = cfg.chunk;
-  const T* xm = params + cfg.x_mean_off;
-  const T* xs = params + cfg.x_std_off;
-  for (int e = threadIdx.x; e < F * chunk; e += blockDim.x) {
-    const int f = e / chunk, q = e % chunk;
+  const int F = cfg.width[0];
+  for (int e = threadIdx.x; e < F * npad; e += blockDim.x) {
+    const int f = e / npad, q = e % npad;
     T v = T(0);
-    if (q < cp) {
-      const T* x = X + (p0 + q) * n;
+    if (q < pc) {
+      const T* x = X + q * n;
       if (f < cfg.n_nonang) {
         v = x[cfg.nonang[f]];
       } else if (f < naug) {
@@ -253,52 +660,97 @@ __device__ void net_input(const Config& cfg, const T* __restrict__ params,
       }
       v = (v - xm[f]) / xs[f];
     }
-    act[f * chunk + q] = v;
+    act[e] = v;
   }
   __syncthreads();
 }
 
+// Step i's inputs staged in shared memory one step ahead by cp.async: the
+// nominal state row Z_i, U_i, k_i, K_i, and the CTA's rows of the drawn
+// noise eps_in[i] and (with the predicted std) eps_out[i]. One commit
+// group a step; the step waits for its own with stage_wait.
 template <typename T>
-struct Smem {
-  T *prev, *eps, *X, *out, *act0, *act1;
+struct Stage {
+  T *Z, *U, *k, *K, *e0, *eo;
 };
 
 template <typename T>
-__device__ Smem<T> carve(const Config& cfg, unsigned char* raw) {
-  T* base = reinterpret_cast<T*>(raw);
-  const int pn = pad8(cfg.P * cfg.n);
-  Smem<T> s;
-  s.prev = base;
-  s.eps = s.prev + pn;
-  s.X = s.eps + pn;
-  s.out = s.X + pn;
-  s.act0 = s.out + pad8(cfg.P * cfg.width[cfg.n_layers]);
-  s.act1 = s.act0 + cfg.max_width * cfg.chunk;
+__device__ __forceinline__ Stage<T> stage_slot(T* base, int nz, int nu,
+                                               int nrows) {
+  Stage<T> s;
+  s.Z = base;
+  s.U = s.Z + nz;
+  s.k = s.U + nu;
+  s.K = s.k + nu;
+  s.e0 = s.K + nu * nz;
+  s.eo = s.e0 + nrows;
   return s;
 }
 
-size_t smem_bytes(const Config& cfg, size_t itemsize) {
-  const size_t pn = pad8(cfg.P * cfg.n);
-  return (3 * pn + pad8(cfg.P * cfg.width[cfg.n_layers])
-          + 2 * (size_t)cfg.max_width * cfg.chunk) * itemsize;
+template <typename T>
+__device__ __forceinline__ void stage_step(const Stage<T>& s, const T* Zi,
+                                           const T* Ui, const T* ki,
+                                           const T* Ki, const T* e0,
+                                           const T* eo, int nz, int nu,
+                                           int nrows) {
+  for (int e = threadIdx.x; e < nz; e += blockDim.x)
+    pddp::cp_async(s.Z + e, Zi + e);
+  for (int e = threadIdx.x; e < nu; e += blockDim.x) {
+    pddp::cp_async(s.U + e, Ui + e);
+    pddp::cp_async(s.k + e, ki + e);
+  }
+  for (int e = threadIdx.x; e < nu * nz; e += blockDim.x)
+    pddp::cp_async(s.K + e, Ki + e);
+  if (e0 != nullptr)
+    for (int e = threadIdx.x; e < nrows; e += blockDim.x)
+      pddp::cp_async(s.e0 + e, e0 + e);
+  if (eo != nullptr)
+    for (int e = threadIdx.x; e < nrows; e += blockDim.x)
+      pddp::cp_async(s.eo + e, eo + e);
+  pddp::cp_async_commit();
 }
 
+__device__ __forceinline__ void stage_wait_previous() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+// K2(d): one cluster of pl.c CTAs per (solve b, candidate a); CTA rank r
+// takes particles [r * ppc, r * ppc + pc).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bnn_rollout_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_kernel(
     const T* __restrict__ Z, const T* __restrict__ U,
     const T* __restrict__ k, const T* __restrict__ K,
     const T* __restrict__ alphas, const T* __restrict__ params,
     const T* __restrict__ eps_in, const T* __restrict__ eps_out,
     const T* __restrict__ bounds, T* __restrict__ Z_out,
-    T* __restrict__ U_out, T* __restrict__ AUX, int N, int A, Config cfg) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> sm = carve<T>(cfg, smem_raw);
+    T* __restrict__ U_out, T* __restrict__ AUX, int N, int A, Config cfg,
+    Plan pl) {
+  cg::cluster_group cluster = cg::this_cluster();
   __shared__ T zc[kMaxNz], uc[kMaxNu], mean[kMaxN], Uc[kMaxN * kMaxN];
-  __shared__ T M[kMaxN], C[kMaxN * kMaxN];
+  __shared__ T M[kMaxN], C[kMaxN * kMaxN], jit[kMaxJitter];
+  __shared__ T xm[kMaxF], xs[kMaxF], dxm[kMaxN], dxs[kMaxN];
+  __shared__ T lo[kMaxNu], hi[kMaxNu], ulo[kMaxNu], uhi[kMaxNu];
+  __shared__ unsigned long long bar;
+  T* sm = reinterpret_cast<T*>(g_smem);
+  T* const full0 = sm + pl.full0;
+  T* const full1 = sm + pl.full1;
+  T* eps = sm + pl.eps;
+  T* X = sm + pl.X;
+  T* out = sm + pl.out;
   const int n = cfg.n, nu = cfg.nu, P = cfg.P;
   const int nz = n + n * (n + 1) / 2, O = 2 * n, tid = threadIdx.x;
-  const size_t b = blockIdx.x / A;
-  const int a = blockIdx.x % A;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long cl = blockIdx.x / pl.c;
+  const size_t b = cl / A;
+  const int a = static_cast<int>(cl % A);
+  const int p0 = rank * pl.ppc;
+  const int pc = max(0, min(pl.ppc, P - p0));
+  const int rows_n = pc * n;
+  const bool lead = rank == 0;
   Z += b * (N + 1) * nz;
   U += b * N * nu;
   k += b * N * nu;
@@ -307,171 +759,380 @@ __global__ void __launch_bounds__(kThreads) bnn_rollout_kernel(
   U_out += b * N * A * nu;
   AUX += b * N * A * P * n;
   const T alpha = alphas[a];
-  const T* dxm = params + cfg.dx_mean_off;
-  const T* dxs = params + cfg.dx_std_off;
+  const bool drawn_rows = cfg.sample_input != 0;
+  const bool pstd = cfg.predicted_std != 0;
+  const auto slot = [&](int i) {
+    return stage_slot(sm + pl.stage + (i & 1) * pl.stage_len, nz, nu,
+                      pl.ppc * n);
+  };
+  const auto stage = [&](int i) {
+    stage_step(slot(i), Z + (size_t)i * nz, U + (size_t)i * nu,
+               k + (size_t)i * nu, K + (size_t)i * nu * nz,
+               drawn_rows ? eps_in + ((size_t)i * P + p0) * n : nullptr,
+               pstd ? eps_out + ((size_t)i * P + p0) * n : nullptr, nz, nu,
+               rows_n);
+  };
+  stage(0);
 
-  for (int e = tid; e < nz; e += blockDim.x) {
-    zc[e] = Z[e];
-    Z_out[a * nz + e] = Z[e];
+  const T* mask[kMaxLayers];
+  stage_net(cfg, pl, params, p0, pc, &bar, mask);
+  // The step's constants, in shared memory for the whole horizon.
+  if (tid < cfg.n_jitter) jit[tid] = params[cfg.jitter_off + tid];
+  if (tid < cfg.width[0]) {
+    xm[tid] = params[cfg.x_mean_off + tid];
+    xs[tid] = params[cfg.x_std_off + tid];
   }
-  for (int e = tid; e < P * n; e += blockDim.x) sm.prev[e] = T(0);
-  __syncthreads();
+  if (tid < n) {
+    dxm[tid] = params[cfg.dx_mean_off + tid];
+    dxs[tid] = params[cfg.dx_std_off + tid];
+  }
+  if (tid < nu) {
+    if (bounds != nullptr) {
+      lo[tid] = bounds[tid];
+      hi[tid] = bounds[nu + tid];
+    }
+    if (cfg.constrained) {
+      ulo[tid] = params[cfg.u_min_off + tid];
+      uhi[tid] = params[cfg.u_max_off + tid];
+    }
+  }
+  if (tid == 0) {
+    for (int e = 0; e < nz; ++e) {
+      zc[e] = Z[e];
+      if (lead) Z_out[a * nz + e] = Z[e];
+    }
+    with_n(n, [&](auto nn) { decode<decltype(nn)::value>(zc, mean, Uc); });
+  }
+  // Every CTA of the cluster runs before any stores into its peers.
+  cluster.sync();
+  wait_weights(pl, &bar);
 
   for (int i = 0; i < N; ++i) {
-    // The feedback law.
+    const T* prev = (i & 1) ? full0 : full1;  // the outputs of step i - 1
+    T* next = (i & 1) ? full1 : full0;
+    const Stage<T> st = slot(i);
+    if (i + 1 < N) stage(i + 1);
+    else pddp::cp_async_commit();
+    stage_wait_previous();
+
+    // The step's noise: solved for all P particles (the fallback sees
+    // every one), kept for the CTA's own. Its barrier also publishes the
+    // staged rows.
+    const bool solve = cfg.sample_input && cfg.infer_noise && i > 0;
+    int bad = 0;
+    if (solve) bad = solve_eps(Uc, mean, prev, P, n, p0, pc, eps);
+    else __syncthreads();
+
+    // The feedback law, beside the particles.
     if (tid < nu) {
-      const T* Ki = K + ((size_t)i * nu + tid) * nz;
+      const T* Ki = st.K + tid * nz;
       T du = T(0);
-      for (int j = 0; j < nz; ++j) du += (zc[j] - Z[(size_t)i * nz + j]) * Ki[j];
-      T u = U[(size_t)i * nu + tid] + (alpha * k[(size_t)i * nu + tid] + du);
+      for (int j = 0; j < nz; ++j) du += (zc[j] - st.Z[j]) * Ki[j];
+      T u = st.U[tid] + (alpha * st.k[tid] + du);
       if (bounds != nullptr) {
-        const T lo = bounds[tid], hi = bounds[nu + tid];
-        u = u < lo ? lo : u;  // a NaN stays, as in torch.clamp
-        u = u > hi ? hi : u;
+        u = u < lo[tid] ? lo[tid] : u;  // a NaN stays, as in torch.clamp
+        u = u > hi[tid] ? hi[tid] : u;
       }
-      U_out[((size_t)i * A + a) * nu + tid] = u;
-      if (cfg.constrained) {
-        const T lo = params[cfg.u_min_off + tid];
-        const T hi = params[cfg.u_max_off + tid];
-        u = (hi - lo) / T(2) * tanh(u) + (hi + lo) / T(2);
-      }
+      if (lead) U_out[((size_t)i * A + a) * nu + tid] = u;
+      if (cfg.constrained)
+        u = (uhi[tid] - ulo[tid]) / T(2) * tanh(u) +
+            (uhi[tid] + ulo[tid]) / T(2);
       uc[tid] = u;
     }
-    decode(zc, n, mean, Uc);
+    particles(n, drawn_rows, !solve || bad, st.e0, eps, mean, Uc, pc, X,
+              AUX + ((size_t)i * A + a) * P * n + (size_t)p0 * n);
+    __syncthreads();
 
-    // The step's noise and particles.
-    const T* e0 = eps_in + (size_t)i * P * n;
-    if (!cfg.sample_input) {
-      for (int e = tid; e < P * n; e += blockDim.x) sm.eps[e] = T(0);
-      __syncthreads();
-    } else if (!cfg.infer_noise) {
-      for (int e = tid; e < P * n; e += blockDim.x) sm.eps[e] = e0[e];
-      __syncthreads();
-    } else {
-      infer_eps(Uc, mean, sm.prev, e0, i == 0, sm.eps, P, n);
-    }
-    T* aux = AUX + ((size_t)i * A + a) * P * n;
-    for (int e = tid; e < P * n; e += blockDim.x) {
-      const int p = e / n, j = e % n;
-      if (cfg.sample_input) {
-        T s = T(0);
-        for (int q = 0; q < n; ++q) s += sm.eps[p * n + q] * Uc[q * n + j];
-        sm.X[e] = mean[j] + s;
-      } else {
-        sm.X[e] = mean[j];
+    // The MLP of the CTA's particles.
+    net_input(cfg, xm, xs, X, uc, sm + pl.act0, pl.npad, pc);
+    mlp(cfg, pl, params, mask, pl.act0, pl.act1, pc, out);
+
+    // Next-state particles, into every CTA's copy: the rolling state.
+    for (int e = tid; e < rows_n; e += blockDim.x) {
+      const int q = e / n, j = e % n, p = p0 + q;
+      T dx = out[q * O + j] * dxs[j] + dxm[j];
+      if (pstd) {
+        const T log_std = out[q * O + n + j] + log(dxs[j]);
+        dx = dx + exp(log_std) * st.eo[e];
       }
-      aux[e] = sm.eps[e];
+      const T v = X[e] + dx;
+      for (int r = 0; r < pl.c; ++r)
+        cluster.map_shared_rank(next, r)[p * n + j] = v;
     }
-    __syncthreads();
+    cluster.sync();
 
-    // The MLP, chunk by chunk.
-    for (int p0 = 0; p0 < P; p0 += cfg.chunk) {
-      const int cp = min(cfg.chunk, P - p0);
-      net_input(cfg, params, sm.X, uc, sm.act0, p0, cp);
-      mlp_chunk(cfg, params, sm.act0, sm.act1, sm.out, p0, cp);
-    }
-
-    // Next-state particles: the rolling state of the next step.
-    const T* eo = cfg.predicted_std ? eps_out + (size_t)i * P * n : nullptr;
-    for (int e = tid; e < P * n; e += blockDim.x) {
-      const int p = e / n, j = e % n;
-      T dx = sm.out[p * O + j] * dxs[j] + dxm[j];
-      if (cfg.predicted_std) {
-        const T log_std = sm.out[p * O + n + j] + log(dxs[j]);
-        dx = dx + exp(log_std) * eo[e];
-      }
-      sm.prev[e] = sm.X[e] + dx;
-    }
-    __syncthreads();
-
-    moment_match(sm.prev, P, n, params + cfg.jitter_off, cfg.n_jitter, M, C,
-                 zc);
-    for (int e = tid; e < nz; e += blockDim.x)
-      Z_out[((size_t)(i + 1) * A + a) * nz + e] = zc[e];
-    __syncthreads();
+    moment_match(next, P, n, jit, cfg.n_jitter, M, C, zc, mean, Uc,
+                 lead ? Z_out + ((size_t)(i + 1) * A + a) * nz : nullptr);
   }
 }
 
 // F1 entry: one block per group g of U_chol (G, n, n), deltas (G, P, n).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bnn_infer_eps_kernel(
+__global__ void __launch_bounds__(kMaxThreads) bnn_infer_eps_kernel(
     const T* __restrict__ U_chol, const T* __restrict__ deltas,
     const T* __restrict__ eps0, int first, T* __restrict__ eps, Config cfg) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = cfg.n, P = cfg.P;
-  T* D = reinterpret_cast<T*>(smem_raw);
-  T* E = D + pad8(P * n);
+  T* E = reinterpret_cast<T*>(g_smem);
   __shared__ T Uc[kMaxN * kMaxN], zero[kMaxN];
+  const int n = cfg.n, P = cfg.P;
   const size_t g = blockIdx.x;
   for (int e = threadIdx.x; e < n * n; e += blockDim.x)
     Uc[e] = U_chol[g * n * n + e];
   for (int e = threadIdx.x; e < n; e += blockDim.x) zero[e] = T(0);
-  for (int e = threadIdx.x; e < P * n; e += blockDim.x)
-    D[e] = deltas[g * P * n + e];
   __syncthreads();
-  infer_eps(Uc, zero, D, eps0, first != 0, E, P, n);
+  const int bad = solve_eps(Uc, zero, deltas + g * P * n, P, n, 0, P, E);
+  const bool drawn = bad || first;
   for (int e = threadIdx.x; e < P * n; e += blockDim.x)
-    eps[g * P * n + e] = E[e];
+    eps[g * P * n + e] = drawn ? eps0[e] : E[e];
 }
 
 // F2 entry: particles (G, P, n) -> z (G, nz) and its decoded factor
 // (G, n, n).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bnn_moment_match_kernel(
+__global__ void __launch_bounds__(kMaxThreads) bnn_moment_match_kernel(
     const T* __restrict__ particles, const T* __restrict__ params,
     T* __restrict__ z_out, T* __restrict__ U_out, Config cfg) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* out = reinterpret_cast<T*>(g_smem);
+  __shared__ T z[kMaxNz], M[kMaxN], C[kMaxN * kMaxN], mean[kMaxN];
+  __shared__ T Uc[kMaxN * kMaxN], jit[kMaxJitter];
   const int n = cfg.n, P = cfg.P, nz = n + n * (n + 1) / 2;
-  T* out = reinterpret_cast<T*>(smem_raw);
-  __shared__ T z[kMaxNz], M[kMaxN], C[kMaxN * kMaxN], Uc[kMaxN * kMaxN];
   const size_t g = blockIdx.x;
   for (int e = threadIdx.x; e < P * n; e += blockDim.x)
     out[e] = particles[g * P * n + e];
+  if (threadIdx.x < cfg.n_jitter)
+    jit[threadIdx.x] = params[cfg.jitter_off + threadIdx.x];
   __syncthreads();
-  moment_match(out, P, n, params + cfg.jitter_off, cfg.n_jitter, M, C, z);
-  decode(z, n, M, Uc);
-  for (int e = threadIdx.x; e < nz; e += blockDim.x) z_out[g * nz + e] = z[e];
+  moment_match(out, P, n, jit, cfg.n_jitter, M, C, z, mean, Uc,
+               z_out + g * nz);
   for (int e = threadIdx.x; e < n * n; e += blockDim.x)
     U_out[g * n * n + e] = Uc[e];
 }
 
-// F3 entry: net inputs x (G, P, F) -> outputs (G, P, O).
+// F3 entry: net inputs x (G, P, F) -> outputs (G, P, O); one cluster of
+// pl.c CTAs per group, the particles split as in K2(d).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bnn_mlp_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 1) bnn_mlp_kernel(
     const T* __restrict__ x, const T* __restrict__ params,
-    T* __restrict__ y, Config cfg) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> sm = carve<T>(cfg, smem_raw);
+    T* __restrict__ y, Config cfg, Plan pl) {
+  __shared__ unsigned long long bar;
+  T* sm = reinterpret_cast<T*>(g_smem);
   const int P = cfg.P, F = cfg.width[0], O = cfg.width[cfg.n_layers];
-  const size_t g = blockIdx.x;
-  for (int p0 = 0; p0 < P; p0 += cfg.chunk) {
-    const int cp = min(cfg.chunk, P - p0);
-    for (int e = threadIdx.x; e < F * cfg.chunk; e += blockDim.x) {
-      const int f = e / cfg.chunk, q = e % cfg.chunk;
-      sm.act0[e] = q < cp ? x[(g * P + p0 + q) * F + f] : T(0);
-    }
-    __syncthreads();
-    mlp_chunk(cfg, params, sm.act0, sm.act1, sm.out, p0, cp);
+  const size_t g = blockIdx.x / pl.c;
+  const int p0 = static_cast<int>(blockIdx.x % pl.c) * pl.ppc;
+  const int pc = max(0, min(pl.ppc, P - p0));
+  const T* mask[kMaxLayers];
+  stage_net(cfg, pl, params, p0, pc, &bar, mask);
+  T* act0 = sm + pl.act0;
+  for (int e = threadIdx.x; e < F * pl.npad; e += blockDim.x) {
+    const int f = e / pl.npad, q = e % pl.npad;
+    act0[e] = q < pc ? x[(g * P + p0 + q) * F + f] : T(0);
   }
-  for (int e = threadIdx.x; e < P * O; e += blockDim.x)
-    y[g * P * O + e] = sm.out[e];
+  __syncthreads();
+  wait_weights(pl, &bar);
+  mlp(cfg, pl, params, mask, pl.act0, pl.act1, pc, y + (g * P + p0) * O);
 }
 
+// ---------------------------------------------------------------------------
+// Launch plans
+// ---------------------------------------------------------------------------
+
 bool valid(const Config& cfg) {
-  if (cfg.n < 1 || cfg.n > kMaxN || cfg.P < 2 || cfg.n_layers < 1 || cfg.n_layers > kMaxLayers ||
-      cfg.chunk < kTile || cfg.chunk % kTile != 0 ||
-      cfg.width[cfg.n_layers] != 2 * cfg.n)
+  if (cfg.n < 1 || cfg.n > kMaxN || cfg.P < 2 || cfg.n_layers < 1 ||
+      cfg.n_layers > kMaxLayers || cfg.width[cfg.n_layers] != 2 * cfg.n ||
+      cfg.n_jitter < 0 || cfg.n_jitter > kMaxJitter)
     return false;
+  for (int l = 0; l <= cfg.n_layers; ++l)
+    if (cfg.width[l] < 1) return false;
   return true;
+}
+
+// The shared-memory layout of c CTAs a cluster (the rollout's, or the MLP
+// entry's without the particle arrays) within budget bytes: the
+// activations and particle arrays first; then each layer's weights and
+// bias, largest layer first, where they fit (a streamed small layer stays
+// in L1 more easily than a large one); then all masks of the CTA's
+// particles, if they fit. False when not even the first part fits.
+template <typename T>
+bool layout(const Config& cfg, int c, bool rollout, long budget, Plan& p) {
+  const int P = cfg.P, n = cfg.n, L = cfg.n_layers;
+  p = Plan{};
+  p.ppc = (P + c - 1) / c;
+  p.c = (P + p.ppc - 1) / p.ppc;
+  p.npad = (p.ppc + kPad - 1) / kPad * kPad;
+  int max_in = 0, max_out = 0;
+  for (int l = 0; l < L; ++l) {
+    max_in = cfg.width[l] > max_in ? cfg.width[l] : max_in;
+    max_out = cfg.width[l + 1] > max_out ? cfg.width[l + 1] : max_out;
+  }
+  const auto r16 = [](long elems) {
+    return round16(elems * long(sizeof(T))) / long(sizeof(T));
+  };
+  long off = 0;
+  const auto take = [&](long elems) {
+    const long o = off;
+    off += r16(elems);
+    return static_cast<int>(o);
+  };
+  p.act0 = take(long(max_in) * p.npad);
+  p.act1 = take(long(max_in) * p.npad);
+  p.full0 = p.full1 = p.eps = p.X = p.out = p.stage = -1;
+  if (rollout) {
+    const long nz = n + n * (n + 1) / 2;
+    p.full0 = take(long(P) * n);
+    p.full1 = take(long(P) * n);
+    p.eps = take(long(p.ppc) * n);
+    p.X = take(long(p.ppc) * n);
+    p.out = take(long(p.ppc) * cfg.width[L]);
+    p.stage_len = static_cast<int>(
+        r16(nz + 2 * cfg.nu + cfg.nu * nz + 2 * long(p.ppc) * n));
+    p.stage = take(2L * p.stage_len);
+  }
+  for (int l = 0; l < kMaxLayers; ++l) p.w_s[l] = p.b_s[l] = p.m_s[l] = -1;
+  const auto fits = [&](long extra) {
+    return (off + extra) * long(sizeof(T)) <= budget;
+  };
+  if (!fits(0)) return false;
+  bool placed[kMaxLayers] = {};
+  for (int round = 0; round < L; ++round) {
+    int best = -1;
+    for (int l = 0; l < L; ++l)
+      if (!placed[l] && (best < 0 || long(cfg.width[l]) * cfg.width[l + 1] >
+                                         long(cfg.width[best]) *
+                                             cfg.width[best + 1]))
+        best = l;
+    placed[best] = true;
+    const long w = long(cfg.width[best]) * cfg.width[best + 1];
+    const long bias = cfg.width[best + 1];
+    if (!fits(r16(w) + r16(bias))) continue;
+    p.w_s[best] = take(w);
+    p.b_s[best] = take(bias);
+    p.tx_bytes += static_cast<int>((r16(w) + r16(bias)) * long(sizeof(T)));
+  }
+  long masks = 0;
+  for (int l = 0; l + 1 < L; ++l)
+    if (cfg.m_off[l] >= 0) masks += r16(long(p.ppc) * cfg.width[l + 1]);
+  if (masks > 0 && fits(masks))
+    for (int l = 0; l + 1 < L; ++l)
+      if (cfg.m_off[l] >= 0) p.m_s[l] = take(long(p.ppc) * cfg.width[l + 1]);
+  p.bytes = static_cast<int>(off * long(sizeof(T)));
+  const int tiles = (p.npad / 4) * ((max_out + 3) / 4);
+  int t = (tiles + 31) / 32 * 32;
+  p.threads = t < kMinThreads ? kMinThreads : t > kMaxThreads ? kMaxThreads : t;
+  return true;
+}
+
+cudaLaunchConfig_t launch_config(const Plan& p, long clusters,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(static_cast<unsigned>(clusters * p.c));
+  lc.blockDim = dim3(static_cast<unsigned>(p.threads));
+  lc.dynamicSmemBytes = static_cast<size_t>(p.bytes);
+  lc.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(p.c);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  return lc;
+}
+
+// The plan of `clusters` clusters of a kernel: the largest c <= 8 whose
+// clusters all run on the card at once (cudaOccupancyMaxActiveClusters),
+// else the smallest c that fits. The last plan is kept per kernel, so a
+// repeated launch of the same shape asks the runtime nothing but the
+// shared-memory attribute.
+struct Cached {
+  bool ok;
+  int device;
+  long clusters;
+  Config cfg;
+  Plan plan;
+};
+
+template <typename T, typename Kernel>
+int plan_launch(Kernel kernel, Cached& cache, const Config& cfg,
+                long clusters, bool rollout, Plan& out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cache.ok && cache.device == dev && cache.clusters == clusters &&
+      memcmp(&cache.cfg, &cfg, sizeof(Config)) == 0) {
+    out = cache.plan;
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out.bytes));
+  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long budget = long(optin) - long(fa.sharedSizeBytes);
+  bool found = false;
+  Plan fit{};
+  for (int c = cfg.P < kMaxCluster ? cfg.P : kMaxCluster; c >= 1; --c) {
+    Plan p;
+    if (!layout<T>(cfg, c, rollout, budget, p) || p.c != c) continue;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t lc = launch_config(p, 1, nullptr, &attr);
+    int active = 0;
+    err = cudaOccupancyMaxActiveClusters(
+        &active, reinterpret_cast<const void*>(kernel), &lc);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active < 1) continue;
+    fit = p;
+    found = true;
+    if (clusters <= active) break;
+  }
+  if (!found) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fit.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cache = Cached{true, dev, clusters, cfg, fit};
+  out = fit;
+  return 0;
+}
+
+template <typename T>
+Cached& rollout_cache() {
+  static Cached c{};
+  return c;
+}
+
+template <typename T>
+Cached& mlp_cache() {
+  static Cached c{};
+  return c;
+}
+
+template <typename T>
+int plan_of(int entry, long clusters, const Config& cfg, Plan& p) {
+  if (entry == 0)
+    return plan_launch<T>(bnn_rollout_kernel<T>, rollout_cache<T>(), cfg,
+                          clusters, true, p);
+  return plan_launch<T>(bnn_mlp_kernel<T>, mlp_cache<T>(), cfg, clusters,
+                        false, p);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
-  if (bytes > static_cast<size_t>(kMaxSmem) - 4096)
-    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
+}
+
+int block_threads(int P) {
+  const int t = (P + 31) / 32 * 32;
+  return t < kMinThreads ? kMinThreads : t > kMaxThreads ? kMaxThreads : t;
 }
 
 template <typename T>
@@ -483,15 +1144,19 @@ int launch_rollout(const T* Z, const T* U, const T* k, const T* K,
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
   if (B < 1 || N < 1 || A < 1 || cfg.nu < 1 || cfg.nu > kMaxNu ||
-      !valid(cfg))
+      cfg.width[0] > kMaxF || !valid(cfg) || !aligned16(params))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(cfg, sizeof(T));
-  int err = set_smem(bnn_rollout_kernel<T>, bytes);
+  Plan pl;
+  const long clusters = long(B) * A;
+  int err = plan_of<T>(0, clusters, cfg, pl);
   if (err != 0) return err;
-  bnn_rollout_kernel<T><<<B * A, kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      Z, U, k, K, alphas, params, eps_in, eps_out, bounds, Z_out, U_out, AUX,
-      N, A, cfg);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t lc = launch_config(
+      pl, clusters, static_cast<cudaStream_t>(stream), &attr);
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &lc, bnn_rollout_kernel<T>, Z, U, k, K, alphas, params, eps_in,
+      eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl));
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,10 +1168,10 @@ int launch_infer_eps(const T* U_chol, const T* deltas, const T* eps0,
   memcpy(&cfg, cfg_ints, sizeof(cfg));
   if (G < 1 || cfg.n < 1 || cfg.n > kMaxN || cfg.P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = 2 * pad8(cfg.P * cfg.n) * sizeof(T);
+  const size_t bytes = size_t(cfg.P) * cfg.n * sizeof(T);
   int err = set_smem(bnn_infer_eps_kernel<T>, bytes);
   if (err != 0) return err;
-  bnn_infer_eps_kernel<T><<<G, kThreads, bytes,
+  bnn_infer_eps_kernel<T><<<G, block_threads(cfg.P), bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       U_chol, deltas, eps0, first, eps, cfg);
   return static_cast<int>(cudaGetLastError());
@@ -519,10 +1184,10 @@ int launch_moment_match(const T* particles, const T* params, T* z_out,
   memcpy(&cfg, cfg_ints, sizeof(cfg));
   if (G < 1 || cfg.n < 1 || cfg.n > kMaxN || cfg.P < 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = pad8(cfg.P * cfg.n) * sizeof(T);
+  const size_t bytes = size_t(cfg.P) * cfg.n * sizeof(T);
   int err = set_smem(bnn_moment_match_kernel<T>, bytes);
   if (err != 0) return err;
-  bnn_moment_match_kernel<T><<<G, kThreads, bytes,
+  bnn_moment_match_kernel<T><<<G, 8 * 32, bytes,
                                static_cast<cudaStream_t>(stream)>>>(
       particles, params, z_out, U_out, cfg);
   return static_cast<int>(cudaGetLastError());
@@ -533,13 +1198,38 @@ int launch_mlp(const T* x, const T* params, T* y, int G, const int* cfg_ints,
                void* stream) {
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
-  if (G < 1 || !valid(cfg)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(cfg, sizeof(T));
-  int err = set_smem(bnn_mlp_kernel<T>, bytes);
+  if (G < 1 || !valid(cfg) || !aligned16(params))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  int err = plan_of<T>(1, G, cfg, pl);
   if (err != 0) return err;
-  bnn_mlp_kernel<T><<<G, kThreads, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(x, params, y, cfg);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t lc =
+      launch_config(pl, G, static_cast<cudaStream_t>(stream), &attr);
+  err = static_cast<int>(
+      cudaLaunchKernelEx(&lc, bnn_mlp_kernel<T>, x, params, y, cfg, pl));
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int report_plan(int entry, int clusters, const int* cfg_ints, int* out) {
+  Config cfg;
+  memcpy(&cfg, cfg_ints, sizeof(cfg));
+  if (clusters < 1 || !valid(cfg) || (entry != 0 && entry != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  const int err = plan_of<T>(entry, clusters, cfg, p);
+  if (err != 0) return err;
+  out[0] = p.c;
+  out[1] = p.ppc;
+  out[2] = p.threads;
+  out[3] = p.bytes;
+  int masks = 0;
+  for (int l = 0; l < kMaxLayers; ++l) masks |= p.m_s[l] >= 0;
+  out[4] = masks;
+  for (int l = 0; l < kMaxLayers; ++l) out[5 + l] = p.w_s[l] >= 0;
+  return 0;
 }
 
 }  // namespace
@@ -547,6 +1237,8 @@ int launch_mlp(const T* x, const T* params, T* y, int G, const int* cfg_ints,
 extern "C" {
 
 int pddp_bnn_config_ints() { return kConfigInts; }
+
+int pddp_bnn_plan_ints() { return kPlanInts; }
 
 #define PDDP_BNN_ENTRIES(T, S)                                                \
   int pddp_bnn_rollout_##S(const T* Z, const T* U, const T* k, const T* K,   \
@@ -574,6 +1266,9 @@ int pddp_bnn_config_ints() { return kConfigInts; }
   int pddp_bnn_mlp_##S(const T* x, const T* params, T* y, int G,             \
                        const int* cfg, void* stream) {                       \
     return launch_mlp<T>(x, params, y, G, cfg, stream);                      \
+  }                                                                           \
+  int pddp_bnn_plan_##S(int entry, int clusters, const int* cfg, int* out) { \
+    return report_plan<T>(entry, clusters, cfg, out);                        \
   }
 
 PDDP_BNN_ENTRIES(float, f32)

@@ -276,7 +276,7 @@ __device__ __forceinline__ void encode_covar(const T* C, T* z) {
     // symmetric as decoded, so its symmetrization is exact.
     const T jitter[5] = {T(1e-12), T(1e-9), T(1e-6), T(1e-3), T(1e-1)};
     T L[n * n];
-    pddp::safe_cholesky_lower(C, n, jitter, 5, L);
+    pddp::safe_cholesky_lower<n>(C, jitter, 5, L);
     pddp::triu_flatten_lower_t(L, n, o);
   } else {
     T v[n];

@@ -32,15 +32,13 @@ from ..utils.linalg import JITTER_LEVELS
 from ._build import load_library
 
 __all__ = ["supports", "fused_bnn_control_law", "infer_eps", "moment_match",
-           "mlp", "launches"]
+           "mlp", "launch_plan", "launches"]
 
 #: kernel launches per entry: "rollout" (K2(d)), "infer_eps" (F1),
 #: "moment_match" (F2), "mlp" (F3).
 launches = {"rollout": 0, "infer_eps": 0, "moment_match": 0, "mlp": 0}
 
-MAX_N, MAX_NU, MAX_LAYERS, TILE = 8, 4, 6, 8
-#: shared memory a block may take, less the kernel's static arrays.
-_SMEM_BUDGET = 227 * 1024 - 4096
+MAX_N, MAX_NU, MAX_LAYERS = 8, 4, 6
 
 #: csrc/fused_bnn_rollout.cu:Config, field by field (name, count).
 _CONFIG_FIELDS = (
@@ -51,11 +49,7 @@ _CONFIG_FIELDS = (
     ("dx_mean_off", 1), ("dx_std_off", 1), ("u_min_off", 1),
     ("u_max_off", 1), ("jitter_off", 1), ("n_jitter", 1),
     ("predicted_std", 1), ("sample_input", 1), ("infer_noise", 1),
-    ("constrained", 1), ("chunk", 1), ("max_width", 1))
-
-
-def _pad8(x):
-    return (x + 7) // 8 * 8
+    ("constrained", 1))
 
 
 def _widths(net):
@@ -66,46 +60,42 @@ def _widths(net):
 def supports(model, encoding=None):
     """Whether the kernel covers ``model`` under ``encoding``: a
     ``BNNDynamicsModel`` (exact type) under UPPER_TRIANGULAR_CHOLESKY
-    with state size <= 8, action size <= 4, at most 6 linear layers, ReLU
-    and at least two particles, whose activations fit in shared memory
-    in both float32 and float64."""
+    with state size <= 8, action size <= 4, at most 6 linear layers, an
+    output of width 2 n, ReLU and at least two particles. The launch plan
+    (cluster, particles and shared memory of a CTA) is the library's: a
+    shape it cannot plan makes the launch raise."""
     if type(model) is not BNNDynamicsModel:
         return False
     if encoding != StateEncoding.UPPER_TRIANGULAR_CHOLESKY:
         return False
     net = model.net
-    if (model.state_size > MAX_N or model.action_size > MAX_NU
-            or len(net.layers) > MAX_LAYERS or net.activation != "relu"
-            or model.n_particles < 2 or model.eps_in is None):
-        return False
-    return _chunk(_widths(net), model.n_particles, model.state_size,
-                  8) is not None
-
-
-def _chunk(widths, P, n, itemsize):
-    """Particles per MLP chunk: all of them if the shared memory holds
-    their activations, else the largest multiple of the tile that fits
-    (None when not even one tile fits)."""
-    fixed = (3 * _pad8(P * n) + _pad8(P * widths[-1])) * itemsize
-    fit = (_SMEM_BUDGET - fixed) // (2 * max(widths) * itemsize) // TILE * TILE
-    if fit < TILE:
-        return None
-    return min(fit, (P + TILE - 1) // TILE * TILE)
+    return (model.state_size <= MAX_N and model.action_size <= MAX_NU
+            and len(net.layers) <= MAX_LAYERS and net.activation == "relu"
+            and _widths(net)[-1] == 2 * model.state_size
+            and model.n_particles >= 2 and model.eps_in is not None)
 
 
 class _Packer:
     """Concatenates tensors into one flat parameter buffer and records
-    each one's offset in the kernel's config."""
+    each one's offset in the kernel's config. Each part is padded with
+    zeros to a multiple of 16 bytes, so that every part starts on a
+    16-byte boundary of the buffer: the kernels stage the weights with
+    bulk copies, which need that."""
 
     def __init__(self, dtype, device):
         self.dtype, self.device = dtype, device
-        self.parts, self.size, self.cfg = [], 0, {}
+        self.parts, self.starts, self.size, self.cfg = [], [], 0, {}
+        self.align = 16 // torch.empty((), dtype=dtype).element_size()
 
     def put(self, t):
         t = torch.as_tensor(t).reshape(-1).to(dtype=self.dtype,
                                                device=self.device)
+        pad = -t.numel() % self.align
+        if pad:
+            t = torch.cat([t, t.new_zeros(pad)])
         self.parts.append(t)
         start, self.size = self.size, self.size + t.numel()
+        self.starts.append(start)
         return start
 
     def net(self, net, P, n):
@@ -114,10 +104,7 @@ class _Packer:
         self.cfg["b_off"] = [self.put(layer.b) for layer in net.layers]
         self.cfg["m_off"] = [-1 if m is None else self.put(m)
                              for m in net.eval_masks()]
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
-        self.cfg.update(n=n, P=P, n_layers=len(net.layers), width=widths,
-                        chunk=_chunk(widths, P, n, itemsize),
-                        max_width=max(widths))
+        self.cfg.update(n=n, P=P, n_layers=len(net.layers), width=widths)
 
     def jitter(self, jitter_levels):
         jitter = JITTER_LEVELS if jitter_levels is None else jitter_levels
@@ -133,6 +120,11 @@ class _Packer:
 
 def _params(model, dtype, device):
     """(parameter buffer, config ints) of ``model`` for the rollout."""
+    return _pack(model, dtype, device).done()
+
+
+def _pack(model, dtype, device):
+    """The packer holding ``model``'s rollout parameters and config."""
     pk = _Packer(dtype, device)
     n, nu = model.state_size, model.action_size
     pk.net(model.net, model.n_particles, n)
@@ -154,7 +146,7 @@ def _params(model, dtype, device):
         sample_input=int(model.sample_input_distribution),
         infer_noise=int(model.infer_noise_variables),
         constrained=int(model.constrained))
-    return pk.done()
+    return pk
 
 
 def _config_ints(cfg):
@@ -172,6 +164,7 @@ _SIGNATURES = {
     "infer_eps": [_PTR] * 3 + [_INT, _PTR, _INT, _PTR, _PTR],
     "moment_match": [_PTR] * 4 + [_INT, _PTR, _PTR],
     "mlp": [_PTR] * 3 + [_INT, _PTR, _PTR],
+    "plan": [_INT, _INT, _PTR, _PTR],
 }
 
 
@@ -361,8 +354,7 @@ def mlp(net, x):
     widths = _widths(net)
     if (len(net.layers) > MAX_LAYERS or net.activation != "relu"
             or widths[0] != F or widths[-1] > 2 * MAX_N
-            or widths[-1] % 2 or _chunk(widths, P, widths[-1] // 2,
-                                        x.element_size()) is None):
+            or widths[-1] % 2 or P < 2):
         raise ValueError("the MLP kernel does not cover this net")
     _check("x", x, (G, P, F), dtype, device)
     pk = _Packer(dtype, device)
@@ -376,3 +368,30 @@ def mlp(net, x):
     _raise_on(err, "F3 (bnn_mlp)")
     launches["mlp"] += 1
     return y
+
+
+def launch_plan(model, clusters, dtype, entry="rollout"):
+    """The library's launch plan of K2(d) (``entry="rollout"``, one cluster
+    per (solve, candidate): ``clusters`` = B * A) or of F3 (``"mlp"``, one
+    per group of its P particles) for the ``BNNDynamicsModel`` ``model``
+    on the current CUDA device: {"cluster": CTAs a cluster,
+    "particles_per_cta", "threads": threads a CTA, "smem_bytes": dynamic
+    shared memory a CTA, "masks_resident", "weights_resident": one flag a
+    layer}. Raises where the library cannot plan the shape."""
+    if entry == "rollout":
+        cfg = _pack(model, dtype, "cpu").cfg
+    else:
+        pk = _Packer(dtype, "cpu")
+        pk.net(model.net, model.n_particles, model.state_size)
+        cfg = pk.cfg
+    fn = _function("plan", dtype)
+    lib = load_library("fused_bnn_rollout")
+    out = (ctypes.c_int * lib.pddp_bnn_plan_ints())()
+    err = fn(0 if entry == "rollout" else 1, int(clusters),
+             _config_ints(cfg), out)
+    _raise_on(err, "the K2(d)/F3 launch plan")
+    n_layers = cfg["n_layers"]
+    return {"cluster": out[0], "particles_per_cta": out[1],
+            "threads": out[2], "smem_bytes": out[3],
+            "masks_resident": bool(out[4]),
+            "weights_resident": [bool(v) for v in out[5:5 + n_layers]]}

@@ -29,8 +29,14 @@ in float32 with CUDA events after a warm-up:
    evaluations and iterations) through the kernels on the cartpole main
    path and the example paths (the belief-state pendulum's solve takes
    tens of seconds and is left out).
-With ``--main-path-only`` a turn times the wrappers' host time and the
-cartpole main path alone, for many short turns.
+and K2(d) alone at the BNN iteration's shape (trained net 6-200-200-8,
+P=100, N=25, ten alphas) for one solve and for 64, and F3 for 10 and 640
+groups of the net's 100 particles (``chip_smoke.raw_bnn``), each turn
+saving K2(d)'s (Z, U, AUX) and F3's output on the same seeded inputs, so
+that the summary gives the largest difference between the parent's and
+the change's outputs. With ``--main-path-only`` a turn times the
+wrappers' host time and the cartpole main path alone, for many short
+turns; with ``--bnn-only`` K2(d) and F3 alone.
 The K1 of a checkout from before the kernels wrote ``ok`` takes no ``ok``
 pointer; the script launches either.
 """
@@ -206,7 +212,95 @@ def path_times(label):
     return res
 
 
-def turn(tree, label, main_path_only=False):
+def bnn_times(label, out_dir):
+    """K2(d) at B=1 and 64 and F3 at G=10 and 640 alone (float32), and
+    their outputs on the same inputs, saved to out_dir for the summary."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    f32 = torch.float32
+    model, _, ins = CS.bnn_inputs(torch, f32, 25, True, 1,
+                                  np.random.default_rng(8))
+    alphas = default_fit_alphas(f32, "cuda")
+    res, saved = {}, {}
+    for B in (1, BATCH):
+        args = [t.unsqueeze(0).expand((B,) + t.shape).contiguous()
+                for t in ins]
+        res["K2d_B{}".format(B)] = CS.events_ms(
+            CS.raw_bnn(torch, "rollout", model, f32, args + [alphas]),
+            200 if B == 1 else 20)
+        out = fb.fused_bnn_control_law(model, *args, alphas, ch)
+        for name, t in zip(("Z", "U", "AUX"), out):
+            saved["K2d_B{}_{}".format(B, name)] = t.cpu()
+    for name, t in zip(("Z", "U", "k", "K"), ins):
+        saved["input_" + name] = t.cpu()
+    for G in (10, 640):
+        x = torch.as_tensor(np.random.default_rng(G).standard_normal(
+            (G, model.n_particles, 6)), dtype=f32, device="cuda")
+        res["F3_G{}".format(G)] = CS.events_ms(
+            CS.raw_bnn(torch, "mlp", model, f32, (x,)), 200)
+        saved["F3_G{}".format(G)] = fb.mlp(model.net, x).cpu()
+    res.update(bnn_iteration(model, alphas))
+    torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, label + ".pt"))
+    return res
+
+
+def bnn_iteration(model, alphas):
+    """One BNN iteration through the kernels as chip_smoke.py's phase 8
+    runs it (local model, K1, K2(d), the cost post-pass, the masked
+    argmin): the best of five runs on CUDA events, and one run under
+    torch.profiler (device busy ms, idle share, launches)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (local_model, rollout,
+                                                 trajectory_cost)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    cost = CartpoleCost(device="cuda", dtype=torch.float32)
+    z0, U0 = CS.bnn_start(torch, torch.float32, 25)
+    Z0, AUX0 = rollout(model, z0, U0, ch)
+
+    def iteration():
+        derivs = local_model(Z0, U0, AUX0, model, cost, ch)
+        k, K, _ = bk.kernel_backward(*derivs, reg=1.0)
+        Z_b, U_b, _ = fr.fused_control_law(model, derivs[0], U0, k, K,
+                                           alphas, ch, with_aux=True)
+        J = trajectory_cost(cost, Z_b, U_b, ch)
+        return torch.argmin(torch.where(torch.isfinite(J), J, torch.inf))
+
+    runs = [CS.events_ms(iteration, 5, warmup=1) for _ in range(3)]
+    prof = CS.device_profile(iteration)
+    return {"iteration_ms": min(runs),
+            "iteration_device_busy_ms": prof["device_busy_ms"],
+            "iteration_idle_share": prof["idle_share"],
+            "iteration_launches": prof["kernel_launches"]}
+
+
+def output_differences(out_dir):
+    """The largest |parent - change| of each saved output (the first turn
+    of each side), and of K2(d)'s first step alone: U and AUX of step 0,
+    which no moment match has touched, and Z after the first one."""
+    import torch
+    a = torch.load(os.path.join(out_dir, "parent.pt"))
+    b = torch.load(os.path.join(out_dir, "change.pt"))
+    out = {k: float((a[k] - b[k]).abs().max()) for k in sorted(a)}
+    for B in (1, BATCH):
+        for name, i in (("U", 0), ("AUX", 0), ("Z", 1)):
+            k = "K2d_B{}_{}".format(B, name)
+            # AUX comes back (N, B, ...), Z and U (B, N, ...).
+            x, y = ((a[k][i], b[k][i]) if name == "AUX"
+                    else (a[k][:, i], b[k][:, i]))
+            out["{}_step{}".format(k, i)] = float((x - y).abs().max())
+    return out
+
+
+def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import pddp_tpu_torch
@@ -222,7 +316,13 @@ def turn(tree, label, main_path_only=False):
     _build.build_all()
     build_s = time.perf_counter() - t0
     out = {"tree": label, "build_s": build_s, "k1": {}, "k2": {},
-           "paths": {}}
+           "paths": {}, "bnn": {}}
+    if not main_path_only:
+        out["bnn"] = bnn_times(label, out_dir)
+    if bnn_only:
+        out["seconds"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+        return
     for name, (nz, nu, N) in ({} if main_path_only else K1_SHAPES).items():
         row = {}
         for B in (1, BATCH):
@@ -262,13 +362,18 @@ def main():
                     help="the turns, in order")
     ap.add_argument("--main-path-only", action="store_true",
                     help="time the wrappers and the main path alone")
+    ap.add_argument("--bnn-only", action="store_true",
+                    help="time K2(d) and F3 alone")
+    ap.add_argument("--out", default=os.path.join(HERE, "build", "ab"),
+                    help="where the turns save their outputs")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     if args.tree:
-        turn(args.tree, args.label, args.main_path_only)
+        turn(args.tree, args.label, args.main_path_only, args.bnn_only,
+             args.out)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -278,9 +383,14 @@ def main():
     trees = {"parent": os.path.abspath(args.parent), "change": HERE}
     turns = []
     for label in args.order.split(","):
+        first = not any(t["tree"] == label for t in turns)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--tree", trees[label], "--label", label]
-                              + ["--main-path-only"] * args.main_path_only,
+                               "--tree", trees[label], "--label", label,
+                               "--out", os.path.abspath(args.out)
+                               if first else os.path.join(
+                                   os.path.abspath(args.out), "later")]
+                              + ["--main-path-only"] * args.main_path_only
+                              + ["--bnn-only"] * args.bnn_only,
                               capture_output=True, text=True,
                               cwd=trees[label])
         if proc.returncode != 0:
@@ -311,11 +421,15 @@ def main():
                "k2": {n: {s: best(lambda t: t["k2"][n][s])
                           for s in first["k2"][n]} for n in first["k2"]},
                "host": {s: best(lambda t: t["host"][s])
-                        for s in first["host"]},
+                        for s in first.get("host", {})},
+               "bnn": {s: spread(lambda t: t["bnn"][s])
+                       for s in first["bnn"]},
                "paths": {n: {s: spread(lambda t: t["paths"][n][s])
                              for s in ("iteration_ms", "solve_ms")
                              if s in first["paths"][n]}
                          for n in first["paths"]}}
+    if first["bnn"]:
+        summary["bnn_output_max_abs_diff"] = output_differences(args.out)
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

@@ -293,3 +293,32 @@ def test_fused_gate_and_cpu_wrappers(models):
     x = _t(rng.standard_normal((2, bnn_path.P, 6)))
     np.testing.assert_array_equal(_np(fb.mlp(tm.net, x)), _np(tm.net(x)))
     assert fb.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_packed_parameters_start_on_16_bytes(dtype):
+    """K2(d) and F3 stage each weight with a bulk copy, which needs every
+    part of the packed parameter buffer (and its length) on a 16-byte
+    boundary; the kernel checks the buffer's own address. A net of odd
+    widths with masks on both hidden layers, and the action bounds."""
+    from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory
+    cls = bnn_dynamics_model_factory(3, 1, [7, 5], angular_indices=(1,),
+                                     non_angular_indices=(0, 2),
+                                     constrain_min=-1.0, constrain_max=1.0)
+    model = cls.init(seed=2, n_particles=13, horizon=3, dtype=dtype,
+                     device="cpu", chol_jitter=(1e-12, 1e-6, 1e-3))
+    assert fb.supports(model, StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
+    pk = fb._pack(model, dtype, "cpu")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert pk.cfg["constrained"] == 1 and min(pk.cfg["m_off"]) >= 0
+    assert all(s * itemsize % 16 == 0 for s in pk.starts)
+    assert pk.size * itemsize % 16 == 0
+    offsets = (pk.cfg["w_off"] + pk.cfg["b_off"] + pk.cfg["m_off"]
+               + [pk.cfg[k] for k in ("x_mean_off", "x_std_off",
+                                      "dx_mean_off", "dx_std_off",
+                                      "u_min_off", "u_max_off",
+                                      "jitter_off")])
+    assert sorted(o for o in offsets if o >= 0) == sorted(pk.starts)
+    buf, cfg = pk.done()
+    assert buf.numel() == pk.size and len(cfg) == sum(
+        c for _, c in fb._CONFIG_FIELDS)

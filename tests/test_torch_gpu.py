@@ -115,13 +115,17 @@ def test_k2_kernel_matches_plain_on_card(cuda, dtype, tol, bounds):
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
 
 
-def _bnn(cuda, dtype, N, P=16, hidden=(32, 32)):
+def _bnn(cuda, dtype, N, P=16, hidden=(32, 32), gains=True):
     """A seeded untrained BNN, its start belief, and finite gains of one
-    reg=1 backward pass around U = 0.1 (computed on the CPU)."""
+    reg=1 backward pass around U = 0.1 (computed on the CPU; none
+    without ``gains``)."""
     from pddp_tpu_torch.encoding import encode
     from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory
     cls = bnn_dynamics_model_factory(4, 1, list(hidden), angular_indices=(2,),
                                      non_angular_indices=(0, 1, 3))
+    if not gains:
+        return cls.init(seed=3, n_particles=P, horizon=N + 1, dtype=dtype,
+                        device=cuda, chol_jitter=(1e-12, 1e-6)), None
     m = cls.init(seed=3, n_particles=P, horizon=N + 1, dtype=torch.float64,
                  device="cpu", chol_jitter=(1e-12, 1e-6))
     z0 = encode(torch.zeros(4, dtype=torch.float64),
@@ -143,23 +147,57 @@ CH = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("B", [1, 3])
-def test_k2d_bnn_kernel_matches_plain_on_card(cuda, dtype, tol, B):
+@pytest.mark.parametrize("P", [16, 37])
+@pytest.mark.parametrize("A", [10, 40])
+@pytest.mark.parametrize("bounds", [None, (-0.05, 0.05)])
+def test_k2d_bnn_kernel_matches_plain_on_card(cuda, dtype, tol, B, P, A,
+                                              bounds):
     """K2(d) against control_law with the same model, two steps, relative
-    to each output's largest value."""
+    to each output's largest value: P=37 is no multiple of a cluster's
+    CTAs, A=40 more candidates than a warp's lanes, and B and A change
+    the planned cluster size; the bounds clamp u."""
     from pddp_tpu_torch.ops import fused_bnn_rollout as fb
-    model, (Z, U, k, K) = _bnn(cuda, dtype, 2)
+    model, (Z, U, k, K) = _bnn(cuda, dtype, 2, P=P)
     if B > 1:
         Z, U, k, K = (t.expand((B,) + t.shape).contiguous()
                       for t in (Z, U, k, K))
-    alphas = default_fit_alphas(dtype, cuda)
+    alphas = (default_fit_alphas(dtype, cuda) if A == 10 else
+              torch.logspace(0.0, -3.0, A, dtype=dtype, device=cuda))
+    lo, hi = (None, None) if bounds is None else (
+        torch.tensor([v], dtype=dtype, device=cuda) for v in bounds)
     n = fb.launches["rollout"]
-    got = fb.fused_bnn_control_law(model, Z, U, k, K, alphas, CH)
-    want = control_law(model, Z, U, k, K, alphas, CH, with_aux=True)
+    got = fb.fused_bnn_control_law(model, Z, U, k, K, alphas, CH, u_min=lo,
+                                   u_max=hi)
+    want = control_law(model, Z, U, k, K, alphas, CH, u_min=lo, u_max=hi,
+                       with_aux=True)
     torch.cuda.synchronize()
     assert fb.launches["rollout"] == n + 1
+    assert fb.launch_plan(model, B * A, dtype)["cluster"] >= 1
     for a, w in zip(got, want):
         assert bool(torch.isfinite(w).all())
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("G", [10, 640])
+def test_bnn_mlp_groups_on_card(cuda, dtype, tol, G):
+    """F3 at the bench net's widths (6-200-200-8, 100 particles) for 10
+    groups (a cluster each, the weights in shared memory) and 640 (a CTA
+    each, the widest layer read from L2), against the net's own call,
+    relative to the output's largest value."""
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    model, _ = _bnn(cuda, dtype, 2, P=100, hidden=(200, 200),
+                    gains=False)
+    x = torch.as_tensor(np.random.default_rng(G).standard_normal(
+        (G, 100, 6)), dtype=dtype, device=cuda)
+    n = fb.launches["mlp"]
+    got = fb.mlp(model.net, x)
+    want = model.net(x)
+    torch.cuda.synchronize()
+    assert fb.launches["mlp"] == n + 1
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
 @pytest.mark.gpu
