@@ -17,9 +17,14 @@ horizon 25; phases 7-9), and the other known-dynamics examples: K2 stages
 solves of tests/golden/cases.py in float64 (phase 11), and the pendulum,
 double cartpole, rendezvous and belief-state pendulum paths at horizon 200
 (phase 12); phase 13 times K1 and K2 alone at every path's shape beside
-their bounds, K2(d) at the BNN iteration's for 1 and 64 solves. Each
+their bounds, K2(d) at the BNN iteration's for 1 and 64 solves, and K1's
+block kernel at the belief codecs' widths. Phase 14 drives the entry
+point, ``iLQRController.fit`` and three ``forward(mpc=True)`` ticks,
+through K1 and K2 on the four examples under the Cholesky codec and two
+under the full covariance, against the plain versions on the CPU. Each
 phase prints one JSON line; any failure raises and exits non-zero. The
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
+run's seconds, the card line, the kernels line and, last,
+``{"ok": true, "device": {...}}`` close it. Without a CUDA device it
 exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
 """
 
@@ -49,9 +54,38 @@ TOL = {("K1", "float64"): 1e-10, ("K1", "float32"): 1e-4,
        ("K2", "float64"): 1e-10, ("K2", "float32"): 1e-5}
 
 
+# K1's block kernel (every (nz, nu <= 4) without a warp instance): float64
+# 1e-10 at nu = 1 and 1e-8 at nu > 1, where both sides run the same Jacobi
+# and the eigenvector conditioning amplifies its rounding. float32: the
+# kernel against the float64 plain version within the larger of 1e-4 and
+# twice the float32 plain version's own error there; at these widths the
+# float32 recursion itself strays up to ~2e-4 from float64 over 200 steps
+# (nz = 42 on phase 1's inputs), past a kernel-versus-plain 1e-4.
+K1_BLOCK_TOL = {("float64", 1): 1e-10, ("float64", 4): 1e-8,
+                ("float32", 1): 1e-4}
+# The most the float32 check may widen to: the float32 plain version's own
+# error against float64 must stay below it (else the inputs, not the
+# kernel, are at fault and the case fails), and so must the kernel's
+# distance to the float32 plain version.
+K1_BLOCK_F32_CAP = 1e-3
+
+# (nz, nu) of the block kernel in phase 1: nu = 2, 3 at no bundled shape,
+# the belief codecs' widths (cartpole full covariance 20, double cartpole
+# Cholesky 27 and full 42, rendezvous Cholesky 44 and full 72), and one
+# past shared memory in float64 (100, 2), which runs on a scratch buffer.
+K1_BLOCK_SHAPES = [(3, 2), (10, 3), (20, 1), (27, 1), (42, 1), (44, 4),
+                   (72, 4)]
+K1_SCRATCH_SHAPE = (100, 2)
+
+
 # (B, N) of the batched kernel cases (phases 1, 2 and 10): one solve of
 # one step, a ragged block of three, a full batch at the bench horizon.
 BATCHES = [(1, 1), (3, 37), (64, 200)]
+
+
+def k1_block_tol(dtype_name, nu):
+    return K1_BLOCK_TOL[(dtype_name, 1 if nu == 1 or dtype_name ==
+                         "float32" else 4)]
 
 
 def emit(obj):
@@ -141,13 +175,19 @@ def raw_k1(derivs, reg):
     K = torch.empty((B, N, nu, nz), dtype=ins[0].dtype,
                     device=ins[0].device)
     ok = torch.empty((B,), dtype=torch.bool, device=ins[0].device)
-    fn = bk._function(ins[0].dtype)
+    outs = [k.data_ptr(), K.data_ptr(), ok.data_ptr()]
+    block = (nz, nu) not in bk.INSTANCES
+    if block:   # the block kernel, with its scratch where it needs one
+        elems = bk.launch_plan(nz, nu, ins[0].dtype)["scratch_elems"]
+        scratch = torch.empty((B, max(elems, 1)), dtype=ins[0].dtype,
+                              device=ins[0].device)
+        outs.append(scratch.data_ptr() if elems else None)
+    fn = bk._function(ins[0].dtype, block)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        check(fn(*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
-                 K.data_ptr(), ok.data_ptr(), B, N, nz, nu, stream) == 0,
-              "K1 launch")
+        check(fn(*(t.data_ptr() for t in ins), float(reg), *outs, B, N, nz,
+                 nu, stream) == 0, "K1 launch")
     return launch
 
 
@@ -265,11 +305,13 @@ LATENCY = {"float32": {"fma": 4, "div": 30, "sqrt": 30, "sincos": 44,
 def k1_chain_cycles(nz, nu, dtype_name):
     """Cycles of one K1 step's critical path: stage A's nz-long product and
     its add, stage B's nz-long product, its add and the symmetrization,
-    then stage C: for nu=1 the clamp (2) and the reciprocal, for nu=4 the
-    Jacobi's R rotations (each 3 divisions, 2 square roots and 9 dependent
-    adds and multiplies) and the inverse (a division and nu + 3), then a
-    gain column (nu), Q_uu K (nu), the quadratic form (nu), three adds and
-    the symmetrization (2)."""
+    then stage C: for nu=1 the clamp (2) and the reciprocal, for nu > 1
+    the Jacobi's R rotations (each 3 divisions, 2 square roots and 9
+    dependent adds and multiplies) and the inverse (a division and
+    nu + 3), then a gain column (nu), Q_uu K (nu), the quadratic form (nu),
+    three adds and the symmetrization (2). The same for the warp and the
+    block kernel: it counts what the function needs, not a design's
+    barriers."""
     lat = LATENCY[dtype_name]
     if nu == 1:
         return (2 * nz + 13) * lat["fma"] + lat["div"]
@@ -277,6 +319,22 @@ def k1_chain_cycles(nz, nu, dtype_name):
     return ((2 * nz + 12 + 4 * nu + 9 * rotations) * lat["fma"]
             + (3 * rotations + 1) * lat["div"]
             + 2 * rotations * lat["sqrt"])
+
+
+# Peak multiply-adds a cycle of one SM (4 sub-partitions; the H100's
+# published FP32 and FP64 rates over 132 SMs at 1980 MHz).
+SM_FMA_PER_CYCLE = {"float32": 128, "float64": 64}
+
+
+def one_sm_ms(flops, B, dtype_name):
+    """The least time of K1's block kernel at its design, one solve on one
+    SM: the operations of the busiest SM (ceil(B / 132) solves) at one
+    SM's peak rate. Not a bound of the card, which could split a solve
+    over several SMs; it says what holds the block kernel back."""
+    per_solve = flops / B / 2.0     # multiply-adds
+    waves = -(-B // 132)
+    return (1e3 * waves * per_solve
+            / (SM_FMA_PER_CYCLE[dtype_name] * max_sm_clock_mhz() * 1e6))
 
 
 def k2_chain_cycles(name, codec, nz, dtype_name, bounded=False):
@@ -517,7 +575,25 @@ def phase1_k1():
         ok_p = backward(*ins)[2].tolist()
         nan_rows.append({"dtype": str(dtype).replace("torch.", ""),
                          "ok_kernel": ok_k, "ok_plain": ok_p})
-    emit({"phase": 1, "kernel": "K1", "cases": rows, "nan_cases": nan_rows})
+    block_rows, block_nan = phase1_k1_block()
+    emit({"phase": 1, "kernel": "K1", "cases": rows, "nan_cases": nan_rows,
+          "block_cases": block_rows, "block_nan_cases": block_nan})
+    for row in block_nan:
+        check(row["ok_kernel"] == row["ok_plain"]
+              == [True, False, True, False, True],
+              "K1 block kernel's ok on NaN inputs: {}".format(row))
+    for row in block_rows:
+        check(row["finite"] and row["ok_equal"] and row["launched"],
+              "K1 block case gave non-finite gains, another ok or no "
+              "launch: {}".format(row))
+        check(row["k_rel"] <= row["tol"] and row["K_rel"] <= row["tol"],
+              "K1's block kernel disagrees with its plain version: "
+              "{}".format(row))
+        if row["dtype"] == "float32":
+            check(row["plain_float32_rel"] <= K1_BLOCK_F32_CAP
+                  and row["kernel_vs_plain_float32_rel"] <= K1_BLOCK_F32_CAP,
+                  "K1 block float32 case past K1_BLOCK_F32_CAP: "
+                  "{}".format(row))
     for row in nan_rows:
         check(row["ok_kernel"] == row["ok_plain"]
               == [True, False, True, False, True],
@@ -529,6 +605,70 @@ def phase1_k1():
               "K1 disagrees with its plain version: {}".format(row))
         check(row.get("Q_uu_min_eig_last_step", -1.0) < 0,
               "the clamp case has a positive definite Q_uu: {}".format(row))
+
+
+def phase1_k1_block():
+    """K1's block kernel against backward at every shape of
+    K1_BLOCK_SHAPES and B, N of BATCHES, in float64 and float32, and at
+    K1_SCRATCH_SHAPE in float64 (its workspace past shared memory), the
+    clamp acting in the last steps (L_uu shifted by 4 I, reg=10); float32
+    is held against the float64 plain version within the larger of
+    K1_BLOCK_TOL and twice the float32 plain version's own error, which
+    K1_BLOCK_F32_CAP bounds. Then ok on NaN inputs at nz = 27."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    rows = []
+    shapes = [(nz, nu, ("float64", "float32")) for nz, nu in K1_BLOCK_SHAPES]
+    shapes.append(K1_SCRATCH_SHAPE + (("float64",),))
+    for si, (nz, nu, dtypes) in enumerate(shapes):
+        for bi, (B, N) in enumerate(BATCHES):
+            seed = 1000 + 10 * si + bi
+            ins64 = k1_inputs(np.random.default_rng(seed), B, N, nz, nu,
+                              torch.float64, "cuda", True, shift=4.0)
+            k64, K64, ok64 = backward(*ins64, reg=10.0)
+            for dname in dtypes:
+                dtype = getattr(torch, dname)
+                ins = [t.to(dtype) for t in ins64]
+                plan = bk.launch_plan(nz, nu, dtype)
+                n = bk.block_launches
+                k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0)
+                torch.cuda.synchronize()
+                row = {"B": B, "N": N, "nz": nz, "nu": nu, "dtype": dname,
+                       "threads": plan["threads"],
+                       "scratch_elems": plan["scratch_elems"],
+                       "launched": bk.block_launches == n + 1,
+                       "ok_equal": ok_k.tolist() == ok64.tolist()}
+                ek, rk = rel_err(k_k.double(), k64)
+                eK, rK = rel_err(K_k.double(), K64)
+                row.update(k_abs=ek, k_rel=rk, K_abs=eK, K_rel=rK)
+                tol = k1_block_tol(dname, nu)
+                if dname == "float32":
+                    k_p, K_p, ok_p = backward(*ins, reg=10.0)
+                    plain = max(rel_err(k_p.double(), k64)[1],
+                                rel_err(K_p.double(), K64)[1])
+                    row["plain_float32_rel"] = plain
+                    row["kernel_vs_plain_float32_rel"] = max(
+                        rel_err(k_k, k_p)[1], rel_err(K_k, K_p)[1])
+                    tol = max(tol, 2.0 * plain)
+                row["tol"] = tol
+                row["finite"] = bool(ok_k.all()) and bool(ok64.all())
+                rows.append(row)
+    check(any(r["scratch_elems"] > 0 for r in rows)
+          and all((r["scratch_elems"] > 0) == ((r["nz"], r["nu"])
+                                               == K1_SCRATCH_SHAPE)
+                  for r in rows),
+          "only K1_SCRATCH_SHAPE runs on the scratch buffer")
+    nan_rows = []
+    for dtype in (torch.float32, torch.float64):
+        ins = k1_inputs(np.random.default_rng(98), 5, 20, 27, 1, dtype,
+                        "cuda")
+        ins[8][1, 7] = float("nan")
+        ins[1][3, 0, 2, 1] = float("nan")
+        nan_rows.append({"dtype": str(dtype).replace("torch.", ""),
+                         "ok_kernel": bk.kernel_backward(*ins)[2].tolist(),
+                         "ok_plain": backward(*ins)[2].tolist()})
+    return rows, nan_rows
 
 
 def phase2_k2():
@@ -1770,13 +1910,239 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
             rows[-2]["ms_A40"] = events_ms(raw_k2(
                 model, cost, p["Z"], p["U"], p["k"], p["K"], torch.logspace(
                     0.0, -3.0, 40, device="cuda"), enc), 200)
+    rows += k1_block_times()
     emit({"phase": 13, "card": card, "dtype": "float32", "A": A,
           "sm_clock_max_mhz": clock, "rows": rows,
           "seconds": time.perf_counter() - t0})
     return rows
 
 
-def phase6_kernels(res, bnn, bnn_model_, paths, times):
+# The block kernel's timed shapes: (label, nz, nu), the belief codecs'
+# widths of the bundled examples.
+K1_BLOCK_TIMED = (("cartpole_full", 20, 1), ("double_cartpole_chol", 27, 1),
+                  ("double_cartpole_full", 42, 1), ("rendezvous_chol", 44, 4),
+                  ("rendezvous_full", 72, 4))
+
+
+def k1_block_times():
+    """K1's block kernel alone at H=200 in float32, for 1 solve and 64, on
+    phase 1's kind of inputs (reg=10, the clamp acting in the last steps),
+    beside its bound (the larger of the roofline and the chain floor, the
+    same as the warp kernel's at that shape), the one-SM floor of its
+    design (not a bound: it says what holds this design back), and the
+    plain backward's time at B=1 (one call)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    rows = []
+    for label, nz, nu in K1_BLOCK_TIMED:
+        ins = k1_inputs(np.random.default_rng(nz), 1, 200, nz, nu,
+                        torch.float32, "cuda", True, shift=4.0)
+        plain_ms = events_ms(lambda: backward(*ins, reg=10.0), 1, warmup=1)
+        for B in (1, 64):
+            d = [t if B == 1 else t.expand((B,) + t.shape[1:]).contiguous()
+                 for t in ins]
+            ms = events_ms(raw_k1(d, 10.0), 200 if B == 1 else 50)
+            nbytes, flops = k1_work(B, 200, nz, nu, 4, sweeps=5)
+            bound, by, roof, chain = chain_bound_ms(
+                nbytes, flops, "float32",
+                k1_chain_cycles(nz, nu, "float32"), 200)
+            row = {"kernel": "K1 block", "path": label, "B": B, "N": 200,
+                   "nz": nz, "nu": nu, "ms": ms, "bound_ms": bound,
+                   "bound_by": by, "roofline_ms": roof,
+                   "chain_floor_ms": chain,
+                   "one_sm_ms": one_sm_ms(flops, B, "float32"),
+                   "plan": bk.launch_plan(nz, nu, torch.float32)}
+            if B == 1:
+                row["plain_ms"] = plain_ms
+            rows.append(row)
+    return rows
+
+
+# Phase 14's configurations, (label, example, codec): the four examples
+# under the default (Cholesky) codec, nz = 5, 14, 27, 44, and cartpole and
+# rendezvous under the full covariance, nz = 20, 72, the widest shapes of
+# the bundled examples; each at its golden case's horizon, start and U0.
+ENTRY_CASES = (
+    ("pendulum_chol", "pendulum", "UPPER_TRIANGULAR_CHOLESKY"),
+    ("cartpole_chol", "cartpole", "UPPER_TRIANGULAR_CHOLESKY"),
+    ("double_cartpole_chol", "double_cartpole", "UPPER_TRIANGULAR_CHOLESKY"),
+    ("rendezvous_chol", "rendezvous", "UPPER_TRIANGULAR_CHOLESKY"),
+    ("cartpole_full", "cartpole", "FULL_COVARIANCE_MATRIX"),
+    ("rendezvous_full", "rendezvous", "FULL_COVARIANCE_MATRIX"))
+ENTRY_ITERATIONS, ENTRY_TICKS = 4, 3
+# The card's kernels against the CPU's plain versions, both float64: the
+# golden tests' tolerances (J rtol 1e-6; Z, U and the ticks' controls
+# rtol 1e-5, atol 1e-7).
+ENTRY_TOL = {"J_rtol": 1e-6, "rtol": 1e-5, "atol": 1e-7}
+# The shapes timed through the kernels and through the plain backward.
+ENTRY_TIMED = ("rendezvous_chol", "rendezvous_full")
+
+
+def entry_point(ex, codec, device, dtype, riccati_mode, fused_rollout):
+    """The README's Quick start through the port: the example's env at its
+    golden start, ``iLQRController(env, model, cost, riccati_mode,
+    fused_rollout).fit(U0)`` for ENTRY_ITERATIONS iterations, then
+    ENTRY_TICKS ticks of ``forward(z, t, mpc=True)`` on the env's encoded
+    state, each control applied to the env. Returns the fit's Z, U, J and
+    end state, the controls, the env's end state, the evaluations of
+    every solve, the fit's wall and each tick's (host clock to
+    ``synchronize``), and the controller."""
+    import importlib
+
+    import torch
+    from pddp_tpu_torch.controllers import iLQRController
+    from pddp_tpu_torch.convert import golden_U0
+    from pddp_tpu_torch.encoding import StateEncoding
+    mod, _, cost_cls, x0, dt, _ = EXAMPLES[ex]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    env = getattr(m, cost_cls.replace("Cost", "Env"))(dt=dt, device=device,
+                                                      dtype=dtype)
+    env.set_state(x0)
+    cost = getattr(m, cost_cls)(device=device, dtype=dtype)
+    ctrl = iLQRController(env, env.model, cost, riccati_mode=riccati_mode,
+                          fused_rollout=fused_rollout)
+    enc = StateEncoding[codec]
+    U0 = torch.as_tensor(golden_U0(ex), dtype=dtype, device=device)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    Z, U, state = ctrl.fit(U0, encoding=enc, n_iterations=ENTRY_ITERATIONS)
+    sync()
+    out = {"fit_ms": 1e3 * (time.perf_counter() - t0),
+           "Z": Z.cpu(), "U": U.cpu(), "J": ctrl.last_result.J_opt,
+           "state": state.name, "evals": [ctrl.last_result.evals],
+           "u": [], "tick_ms": [], "tick_states": []}
+    for t in range(ENTRY_TICKS):
+        z = env.get_state().encode(enc)
+        t1 = time.perf_counter()
+        u = ctrl.forward(z, t, enc, mpc=True)
+        sync()
+        out["tick_ms"].append(1e3 * (time.perf_counter() - t1))
+        out["evals"].append(ctrl.last_result.evals)
+        out["tick_states"].append(ctrl.last_result.state.name)
+        out["u"].append(u.cpu())
+        env.apply(u)
+    out["u"] = torch.stack(out["u"])
+    out["x_end"] = env.get_state().mean().cpu()
+    out["ctrl"] = ctrl
+    return out
+
+
+def phase14_entry_point(card):
+    """The slice's path: ``entry_point`` on the card in float64 through K1
+    (``riccati_mode="kernel"``) and K2 (``fused_rollout=True``) at every
+    configuration of ENTRY_CASES, with the launch counts from zero, held
+    against the same calls through the plain versions on the CPU in
+    float64; K1 against its plain version at the fitted local model; then
+    in float32 the fit's and a tick's wall at ENTRY_TIMED, through the
+    kernels and through the plain backward (K2 kept), in alternating
+    turns."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward, local_model
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    t0 = time.perf_counter()
+    rows, counts_total = [], {"K1_warp": 0, "K1_block": 0, "K2": 0}
+    block_abs = 0.0
+    for label, ex, codec in ENTRY_CASES:
+        bk.launches = 0
+        bk.block_launches = 0
+        reset_counts(fr.launches)
+        card_run = entry_point(ex, codec, "cuda", torch.float64, "kernel",
+                               True)
+        counts = {"K1_warp": bk.launches, "K1_block": bk.block_launches,
+                  "K2": sum(fr.launches.values())}
+        cpu = entry_point(ex, codec, "cpu", torch.float64, "scan", False)
+        evals = sum(card_run["evals"])
+        nz = card_run["Z"].shape[-1]
+        nu = card_run["U"].shape[-1]
+        block = (nz, nu) not in bk.INSTANCES
+        # K1 at the fit's local model, against its plain version.
+        ctrl = card_run["ctrl"]
+        derivs = local_model(card_run["Z"].cuda(), card_run["U"].cuda(), (),
+                             ctrl.model, ctrl.cost, StateEncoding[codec])
+        reg = max(ctrl.last_result.mu, 1e-6)
+        n_b = (bk.launches, bk.block_launches)
+        k_k, K_k, _ = bk.kernel_backward(*derivs, reg=reg)
+        bk.launches, bk.block_launches = n_b
+        k_p, K_p, _ = backward(*derivs, reg=reg)
+        # Relative to the largest gain of k and K together: at a converged
+        # fit k is near zero and its own scale says nothing.
+        k1_abs = max(rel_err(k_k, k_p)[0], rel_err(K_k, K_p)[0])
+        k1_rel = k1_abs / max(float(k_p.abs().max()),
+                              float(K_p.abs().max()), 1e-300)
+        if block:
+            block_abs = max(block_abs, k1_abs)
+        row = {"path": label, "nz": nz, "nu": nu, "dtype": "float64",
+               "N": card_run["U"].shape[0], "K1": "block" if block
+               else "warp", "launches": counts, "evals": card_run["evals"],
+               "cpu_evals": cpu["evals"], "state": card_run["state"],
+               "cpu_state": cpu["state"],
+               "tick_states": card_run["tick_states"],
+               "cpu_tick_states": cpu["tick_states"],
+               "J": card_run["J"], "J_rel": abs(card_run["J"] - cpu["J"])
+               / abs(cpu["J"]),
+               "Z_abs": rel_err(card_run["Z"], cpu["Z"])[0],
+               "U_abs": rel_err(card_run["U"], cpu["U"])[0],
+               "u_abs": rel_err(card_run["u"], cpu["u"])[0],
+               "x_end_abs": rel_err(card_run["x_end"], cpu["x_end"])[0],
+               "K1_abs": k1_abs, "K1_rel": k1_rel, "K1_reg": reg,
+               "fit_ms": card_run["fit_ms"], "tick_ms": card_run["tick_ms"],
+               "cpu_fit_ms": cpu["fit_ms"]}
+        rows.append(row)
+        for key in counts_total:
+            counts_total[key] += counts[key]
+        check(counts["K1_warp"] + counts["K1_block"] == evals
+              and counts["K1_block" if block else "K1_warp"] == evals
+              and counts["K2"] == evals,
+              "{}: K1/K2 launches {} differ from the {} evaluations".format(
+                  label, counts, evals))
+        for key, a, b in (("Z", card_run["Z"], cpu["Z"]),
+                          ("U", card_run["U"], cpu["U"]),
+                          ("u", card_run["u"], cpu["u"]),
+                          ("x_end", card_run["x_end"], cpu["x_end"])):
+            check(bool(torch.isfinite(a).all()) and torch.allclose(
+                a, b, rtol=ENTRY_TOL["rtol"], atol=ENTRY_TOL["atol"]),
+                "{}: {} differs from the CPU's plain run: {}".format(
+                    label, key, row))
+        check(row["J_rel"] <= ENTRY_TOL["J_rtol"],
+              "{}: J differs from the CPU's: {}".format(label, row))
+        # Rendezvous is linear-quadratic: after its first step candidates
+        # tie within an ulp and the order of sums decides between
+        # CONVERGED and MAX_REG (ROADMAP C); elsewhere the ends agree.
+        check(ex == "rendezvous" or (
+            row["state"] == row["cpu_state"]
+            and row["tick_states"] == row["cpu_tick_states"]
+            and row["evals"] == row["cpu_evals"]),
+            "{}: end states differ from the CPU's: {}".format(label, row))
+        check(k1_rel <= 1e-8, "{}: K1 against plain at the fitted model: "
+              "{}".format(label, row))
+    timed = {}
+    for label, ex, codec in ENTRY_CASES:
+        if label not in ENTRY_TIMED:
+            continue
+        turns = {"kernels": [], "plain_backward": []}
+        for kernels in (True, False, False, True):
+            r = entry_point(ex, codec, "cuda", torch.float32,
+                            "kernel" if kernels else "scan", True)
+            turns["kernels" if kernels else "plain_backward"].append(
+                {"fit_ms": r["fit_ms"], "tick_ms": r["tick_ms"],
+                 "evals": r["evals"], "state": r["state"]})
+        timed[label] = turns
+    res = {"phase": 14, "card": card, "cases": rows,
+           "launches": counts_total, "K1_block_max_abs_err": block_abs,
+           "timed_float32": timed, "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def phase6_kernels(res, bnn, bnn_model_, paths, times, entry):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -1786,7 +2152,11 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times):
     (phase 12; the other paths' numbers ride along under "paths"). The
     latency-chain kernels K1 and K2(a)-(d) take their bounds, the larger of
     the roofline and the chain floor, and their times at 64 solves from
-    phase 13 (K2(d) also its cluster size and threads a CTA)."""
+    phase 13 (K2(d) also its cluster size and threads a CTA). K1's block
+    kernel is read on the entry point (phase 14: its launches and its
+    error at the fitted models) and timed at rendezvous under the
+    Cholesky codec (nz = 44) in phase 13, its other widths under
+    "shapes"."""
     kernels = [
         {"name": "K1 riccati_backward", "route": "cuda",
          "source": "pddp_tpu_torch/csrc/backward_kernel.cu",
@@ -1868,6 +2238,29 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times):
                               (kernels[-2], "K2(b)", "double_cartpole"),
                               (kernels[-1], "K2(c)", "pendulum_chol")):
         row.update(timed(kernel, path))
+    block = {(r["path"], r["B"]): r for r in times
+             if r["kernel"] == "K1 block"}
+    head = block[("rendezvous_chol", 1)]
+    kernels.append({
+        "name": "K1 riccati_backward_block", "route": "cuda",
+        "source": "pddp_tpu_torch/csrc/backward_kernel.cu",
+        "replaces": "pddp_tpu/ops/backward_kernel.py:45",
+        "launches": entry["launches"]["K1_block"],
+        "max_abs_err": entry["K1_block_max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "bound_note": "chain" if head["chain_floor_ms"]
+        >= head["roofline_ms"] else "roofline",
+        "library_ms": None,
+        "ms_B64": block[("rendezvous_chol", 64)]["ms"],
+        "bound_ms_B64": block[("rendezvous_chol", 64)]["bound_ms"],
+        "shapes": {label: {"nz": r["nz"], "nu": r["nu"], "ms": r["ms"],
+                           "ms_B64": block[(label, 64)]["ms"],
+                           "plain_ms": r["plain_ms"],
+                           "bound_ms": r["bound_ms"],
+                           "bound_by": r["bound_by"],
+                           "threads": r["plan"]["threads"]}
+                   for (label, B), r in block.items() if B == 1}})
     return {"kernels": kernels}
 
 
@@ -1881,6 +2274,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import pddp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     phase0_build(card)
@@ -1897,7 +2291,9 @@ def main():
     paths, path_inputs = phase12_example_paths(card)
     times = phase13_kernel_times(card, {"cartpole": main_inputs,
                                         **path_inputs}, bnn_k1)
-    kernels = phase6_kernels(res, bnn, bnn_model_, paths, times)
+    entry = phase14_entry_point(card)
+    kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry)
+    emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,8 @@ a batch of solves shares one call.
 ``solve`` can route the backward through K1 (``riccati_mode="kernel"``,
 ``ops/backward_kernel.py``) and the line search through K2
 (``fused_rollout=True``, ``ops/fused_rollout.py``); on CPU tensors those
-wrappers run the plain versions below.
+wrappers run the plain versions below. ``iLQRController`` is the stateful
+entry point over ``solve``: fit, a warm step, the feedback law and MPC.
 """
 
 from __future__ import annotations
@@ -25,17 +26,22 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..encoding import StateEncoding
+from ..encoding import StateEncoding, decode_mean
 from ..utils.constraint import boxqp, chol_solve, clamp
-from ..utils.evaluation import eval_cost, eval_dynamics
+from ..utils.evaluation import (_tree_map, eval_cost, linearize_dynamics,
+                                quadratize_cost)
 from ..utils.linalg import SMALL_EIGH_N, _cholesky_upper, small_eigh
+from .base import Controller
 
 __all__ = [
+    "iLQRController",
     "iLQRState",
     "ILQROptions",
     "ILQRResult",
     "rollout",
     "local_model",
+    "forward",
+    "linear_control_law",
     "Q",
     "backward",
     "control_law",
@@ -83,9 +89,8 @@ class ILQROptions:
 
     ``riccati_mode`` is "scan" (the Python-loop ``backward``) or "kernel"
     (K1). As in ``pddp_tpu``, constrained solves (``u_min`` and
-    ``u_max``) and ``v_zz_reg`` take the scan whatever the mode, and so
-    do the (nz, nu) that K1 has no instance for
-    (``ops.backward_kernel.INSTANCES``). ``fused_rollout`` runs the line
+    ``u_max``), ``v_zz_reg`` and action sizes past ``SMALL_EIGH_N`` (4)
+    take the scan whatever the mode. ``fused_rollout`` runs the line
     search in K2 where ``ops.fused_rollout.supports_fused_rollout`` admits
     the model. ``riccati_mode="parallel"`` is not ported yet and raises.
     """
@@ -128,15 +133,6 @@ def _mv(A, x):
 
 def _T(A):
     return A.transpose(-1, -2)
-
-
-def _tree_map(fn, tree):
-    """``fn`` over the tensors of a nest of tuples/lists/dicts (model aux)."""
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, t) for t in tree)
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _stack_tree(trees, dim):
@@ -190,34 +186,14 @@ def local_model(Z, U, AUX, model, cost,
     model_opts = model_opts or {}
     cost_opts = cost_opts or {}
     N = U.shape[0]
-    Z_run = Z[:-1]
     U_eff = U
     if u_min is not None and u_max is not None:
         U_eff = clamp(U, u_min, u_max)
-    idx = torch.arange(N, device=Z.device)
-
-    cost_batch = None
-    deriv_fn = getattr(cost, "eval_derivatives", None)
-    if deriv_fn is not None and not approximate_hessians:
-        cost_batch = deriv_fn(Z_run, U_eff, idx, terminal=False,
-                              encoding=encoding,
-                              approximate=approximate_hessians, **cost_opts)
-    if cost_batch is None:
-        def cost_one(z, u, i):
-            return eval_cost(cost, z, u, i, terminal=False,
-                             encoding=encoding,
-                             approximate=approximate_hessians, **cost_opts)
-
-        cost_batch = torch.func.vmap(cost_one)(Z_run, U_eff, idx)
-    L_run, L_z_run, L_u, L_zz_run, L_uz, L_uu = cost_batch
-
-    def dyn_one(z, u, i, aux):
-        return eval_dynamics(model, z, u, i, encoding=encoding, aux=aux,
-                             **model_opts)
-
-    aux_dims = _tree_map(lambda _: 0, AUX)
-    _, F_z, F_u = torch.func.vmap(dyn_one, in_dims=(0, 0, 0, aux_dims))(
-        Z_run, U_eff, idx, AUX)
+    L_run, L_z_run, L_u, L_zz_run, L_uz, L_uu = quadratize_cost(
+        cost, Z[:-1], U_eff, encoding, approximate=approximate_hessians,
+        **cost_opts)
+    _, F_z, F_u = linearize_dynamics(model, Z[:-1], U_eff, AUX, encoding,
+                                     **model_opts)
 
     l_T, l_z_T, _, l_zz_T, _, _ = eval_cost(
         cost, Z[-1], None, N, terminal=True, encoding=encoding,
@@ -228,6 +204,16 @@ def local_model(Z, U, AUX, model, cost,
     L_zz = torch.cat([L_zz_run, l_zz_T[None]])
     return tuple(t.contiguous() for t in
                  (Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu))
+
+
+def forward(z0, U, model, cost, encoding: StateEncoding = StateEncoding.DEFAULT,
+            model_opts=None, cost_opts=None, u_min=None, u_max=None,
+            approximate_hessians=False):
+    """Forward pass: rollout, then the full local quadratic model."""
+    Z, AUX = rollout(model, z0, U, encoding, u_min=u_min, u_max=u_max)
+    return local_model(Z, U, AUX, model, cost, encoding, model_opts,
+                       cost_opts, u_min=u_min, u_max=u_max,
+                       approximate_hessians=approximate_hessians)
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +400,38 @@ def control_law(model, Z, U, k, K, alphas,
     if with_aux:
         result = result + (_stack_tree(auxs, dim=0),)
     return result
+
+
+def linear_control_law(Z, U, F_z, F_u, k, K, alphas, u_min=None,
+                       u_max=None):
+    """Linearized line-search rollout: the deviations propagate through
+    the stored Jacobians instead of the model.
+
+    Args:
+        Z (..., N+1, nz), U (..., N, nu), F_z (..., N, nz, nz),
+        F_u (..., N, nz, nu), k (..., N, nu), K (..., N, nu, nz),
+        alphas (A,).
+
+    Returns:
+        (Z_new (..., N+1, A, nz), U_new (..., N, A, nu)).
+    """
+    A = alphas.shape[0]
+    N = U.shape[-2]
+    batch = Z.shape[:-2]
+    z = Z[..., 0, None, :].expand(batch + (A,) + Z.shape[-1:])
+    a_col = alphas[:, None]
+    Zs, Us = [z], []
+    for i in range(N):
+        u_i = U[..., i, None, :]
+        dz = z - Z[..., i, None, :]
+        du = a_col * k[..., i, None, :] + dz @ _T(K[..., i, :, :])
+        if u_min is not None and u_max is not None:
+            du = clamp(du, u_min - u_i, u_max - u_i)
+        dz_next = dz @ _T(F_z[..., i, :, :]) + du @ _T(F_u[..., i, :, :])
+        z = Z[..., i + 1, None, :] + dz_next
+        Zs.append(z)
+        Us.append(u_i + du)
+    return torch.stack(Zs, dim=-3), torch.stack(Us, dim=-3)
 
 
 def trajectory_cost(cost, Z, U, encoding: StateEncoding = StateEncoding.DEFAULT,
@@ -627,3 +645,174 @@ def step_once(model, cost, z0, U0, opts: ILQROptions,
     return solve(model, cost, z0, U0, opts, encoding=encoding,
                  model_opts=model_opts, cost_opts=cost_opts, mu0=mu0,
                  delta0=delta0, n_iterations=1)
+
+
+# ---------------------------------------------------------------------------
+# Stateful controller
+# ---------------------------------------------------------------------------
+
+
+class iLQRController(Controller):
+    """Iterative Linear Quadratic Regulator controller.
+
+    A stateful wrapper over the functional core above with ``pddp_tpu``'s
+    constructor and fit/step/forward surface: it holds the warm-start
+    state (the nominal Z, U and K, and mu/delta) between calls. The solve
+    runs on the device of the env's state.
+    """
+
+    def __init__(self, env, model, cost, model_opts=None, cost_opts=None,
+                 riccati_mode="scan", fused_rollout=False, scan_unroll=1,
+                 v_zz_reg=False, **kwargs):
+        """Args beyond (env, model, cost, model_opts, cost_opts):
+
+        riccati_mode, fused_rollout, v_zz_reg: threaded into every solve
+        (see ``ILQROptions``): "kernel" runs the backward in K1,
+        ``fused_rollout`` the line search in K2, ``v_zz_reg`` regularizes
+        V_zz instead of Q_uu. ``scan_unroll`` is accepted for
+        ``pddp_tpu``'s signature and ignored.
+        """
+        super().__init__()
+        del scan_unroll, kwargs
+        self.env = env
+        self.model = model
+        self.cost = cost
+        self._model_opts = model_opts or {}
+        self._cost_opts = cost_opts or {}
+        self._riccati_mode = riccati_mode
+        self._fused_rollout = fused_rollout
+        self._v_zz_reg = v_zz_reg
+
+        self._mu = 0.0
+        self._mu_min = 1e-6
+        self._delta_0 = 2.0
+        self._delta = self._delta_0
+
+        self._Z_nominal = None
+        self._U_nominal = None
+        self._K = None
+        #: the ILQRResult of the last solve (fit or step): its end state,
+        #: cost, iterations and evaluations.
+        self.last_result = None
+
+    def _make_opts(self, n_iterations, tol, max_reg, u_min, u_max, alphas,
+                   max_evals=None):
+        if max_evals is None:
+            max_evals = 2 * int(n_iterations) + 64
+        return ILQROptions(
+            n_iterations=n_iterations, tol=tol, max_reg=max_reg,
+            mu_min=self._mu_min, delta_0=self._delta_0, alphas=alphas,
+            u_min=u_min, u_max=u_max, max_evals=max_evals,
+            riccati_mode=self._riccati_mode,
+            fused_rollout=self._fused_rollout, v_zz_reg=self._v_zz_reg)
+
+    def _solve(self, z0, U, opts, encoding, on_iteration=None):
+        result = solve(self.model, self.cost, z0, U, opts, encoding=encoding,
+                       model_opts=self._model_opts,
+                       cost_opts=self._cost_opts, mu0=self._mu,
+                       delta0=self._delta, on_iteration=on_iteration)
+        self._store(result)
+        return result
+
+    def fit(self, U, encoding: StateEncoding = StateEncoding.DEFAULT,
+            n_iterations=50, tol=5e-6, max_reg=1e10, quiet=False,
+            on_iteration=None, u_min=None, u_max=None, **kwargs):
+        """Determines the optimal path from the env's current state.
+
+        Args:
+            U: initial actions (N, nu); a tensor keeps its dtype, numpy
+                arrays are taken on the env's device.
+            on_iteration: optional callback (iteration, state, Z, U, J),
+                called once per outer iteration.
+
+        Returns:
+            Tuple (Z (N+1, nz), U (N, nu), state (iLQRState)).
+        """
+        z0 = self.env.get_state().encode(encoding)
+        U = torch.as_tensor(U, device=z0.device)
+        z0 = z0.to(U.dtype)
+        self._reset_reg()
+        opts = self._make_opts(n_iterations, tol, max_reg, u_min, u_max,
+                               default_fit_alphas(U.dtype, U.device))
+        result = self._solve(z0, U, opts, encoding, on_iteration)
+        return self._Z_nominal, self._U_nominal, result.state
+
+    def step(self, z0, U=None, i=0,
+             encoding: StateEncoding = StateEncoding.DEFAULT, u_min=None,
+             u_max=None, tol=5e-6, max_reg=1e10, **kwargs):
+        """One warm-started optimization step from ``z0`` (at most 64
+        evaluations, the step alphas), from the nominal actions unless
+        ``U`` is given."""
+        U = self._U_nominal if U is None else torch.as_tensor(U)
+        z0 = torch.as_tensor(z0, dtype=U.dtype, device=U.device)
+        opts = self._make_opts(1, tol, max_reg, u_min, u_max,
+                               default_step_alphas(U.dtype, U.device),
+                               max_evals=64)
+        return self._solve(z0, U, opts, encoding).state
+
+    def forward(self, z, i, encoding: StateEncoding = StateEncoding.DEFAULT,
+                mpc=False, ignore_uncertainty=True, u_min=None, u_max=None,
+                warm_reg=False, **kwargs):
+        """The control at step ``i`` for the encoded state ``z``.
+
+        mpc=False: the feedback law around the fitted nominal trajectory,
+        on the mean's deviation (``ignore_uncertainty``) or on the whole
+        encoded state's.
+        mpc=True: one warm-started ``step`` from ``z``, then the nominal
+        actions shift left by one. The regularization restarts from zero
+        unless ``warm_reg`` carries mu and delta over from the last step.
+        """
+        if not mpc:
+            if self._U_nominal is None:
+                raise RuntimeError(
+                    "You need to either call fit or initialize _U_nominal")
+            if self._Z_nominal is None:
+                return self._U_nominal[i]
+            z = torch.as_tensor(z, dtype=self._Z_nominal.dtype,
+                                device=self._Z_nominal.device)
+            if ignore_uncertainty:
+                x = decode_mean(z, encoding)
+                dx = x - decode_mean(self._Z_nominal[i], encoding)
+                du = self._K[i, :, :x.shape[0]] @ dx
+            else:
+                du = self._K[i] @ (z - self._Z_nominal[i])
+            return self._U_nominal[i] + du
+
+        if not warm_reg:
+            self._reset_reg()
+        self.step(z, i=i, encoding=encoding, u_min=u_min, u_max=u_max,
+                  **kwargs)
+        u = self._U_nominal[0]
+        self._U_nominal = torch.cat([self._U_nominal[1:],
+                                     self._U_nominal[-1:]], dim=0)
+        return u
+
+    def state_dict(self):
+        """Warm-start state for checkpointing."""
+        return {"Z_nominal": self._Z_nominal, "U_nominal": self._U_nominal,
+                "K": self._K, "mu": torch.tensor(self._mu),
+                "delta": torch.tensor(self._delta)}
+
+    def load_state_dict(self, state):
+        """Restores warm-start state saved by :meth:`state_dict` (or made
+        from ``pddp_tpu``'s by ``convert.controller_state``)."""
+        self._Z_nominal = state.get("Z_nominal")
+        self._U_nominal = state.get("U_nominal")
+        self._K = state.get("K")
+        if "mu" in state:
+            self._mu = float(state["mu"])
+        if "delta" in state:
+            self._delta = float(state["delta"])
+        return self
+
+    def _store(self, result: ILQRResult):
+        self.last_result = result
+        self._Z_nominal = result.Z
+        self._U_nominal = result.U
+        self._K = result.K
+        self._mu = float(result.mu)
+        self._delta = float(result.delta)
+
+    def _reset_reg(self):
+        self._mu = 0.0
+        self._delta = self._delta_0

@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .examples import cartpole as _cp
 from .examples import double_cartpole as _dcp
 from .examples import pendulum as _pend
@@ -22,7 +23,8 @@ from .models.bnn import bnn_dynamics_model_factory
 
 __all__ = ["BNN_BUFFERS", "CARTPOLE_COST_FIELDS", "CARTPOLE_MODEL_FIELDS",
            "COST_FIELDS", "bnn", "cartpole", "double_cartpole",
-           "golden_U0", "golden_cartpole_U0", "pendulum", "rendezvous"]
+           "controller_state", "golden_U0", "golden_cartpole_U0",
+           "pendulum", "rendezvous"]
 
 _DATA = Path(__file__).resolve().parent / "data"
 
@@ -137,6 +139,29 @@ def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
             raise ValueError("{} has shape {}, expected {}".format(
                 k, tuple(v.shape), tuple(getattr(model, k).shape)))
     return model.replace(net=model.net.with_leaves(leaves), **fields)
+
+
+def controller_state(state, *, device=None, dtype=None):
+    """What ``iLQRController.load_state_dict`` takes, from ``pddp_tpu``'s
+    ``iLQRController.state_dict()`` read as numpy arrays.
+
+    Args:
+        state: mapping with ``Z_nominal``, ``U_nominal``, ``K`` (numpy
+            arrays or None) and ``mu``, ``delta`` (numpy scalars).
+        device: defaults to ``cuda`` (see ``device.resolve_device``).
+        dtype: of the tensors; the arrays' own by default.
+    """
+    device = resolve_device(device)
+    _check_numpy([(k, v) for k, v in state.items() if v is not None])
+    out = {}
+    for k in ("Z_nominal", "U_nominal", "K"):
+        v = state.get(k)
+        out[k] = None if v is None else torch.as_tensor(
+            np.array(v), dtype=dtype, device=device)
+    for k in ("mu", "delta"):
+        if k in state:
+            out[k] = float(np.asarray(state[k]))
+    return out
 
 
 def golden_cartpole_U0():

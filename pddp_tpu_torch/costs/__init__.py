@@ -1,4 +1,5 @@
 from .base import AggregateCost, Cost
-from .quadratic import QRCost, augmented_qr_derivatives
+from .quadratic import QRCost, SaturatingQRCost, augmented_qr_derivatives
 
-__all__ = ["AggregateCost", "Cost", "QRCost", "augmented_qr_derivatives"]
+__all__ = ["AggregateCost", "Cost", "QRCost", "SaturatingQRCost",
+           "augmented_qr_derivatives"]

@@ -1,9 +1,10 @@
-"""Quadratic expected cost (port of ``pddp_tpu/costs/quadratic.py``).
+"""Quadratic expected costs (port of ``pddp_tpu/costs/quadratic.py``).
 
+``QRCost``:
     E[L(x, u)] = tr(Q Sigma) + (mu - x*)^T Q (mu - x*) + (u - u*)^T R (u - u*)
-
-``SaturatingQRCost`` is not on the known-dynamics path and is not ported
-yet.
+``SaturatingQRCost``:
+    E[L(x, u)] = 1 - exp(-0.5 d^T S1 d) / sqrt(det(I + Sigma Q))
+                 + (u - u*)^T R (u - u*),   S1 = Q (I + Sigma Q)^-1
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from ..device import resolve_device
 from ..encoding import StateEncoding, decode_covar, decode_mean
 from .base import Cost
 
-__all__ = ["QRCost", "augmented_qr_derivatives"]
+__all__ = ["QRCost", "SaturatingQRCost", "augmented_qr_derivatives"]
 
 
 def augmented_qr_derivatives(Q, R, x_goal, u_goal, x, u, terminal,
@@ -91,6 +92,21 @@ def augmented_qr_derivatives(Q, R, x_goal, u_goal, x, u, terminal,
     return l, l_z, l_u, l_zz, l_uz, l_uu
 
 
+def _set_weights(cost, Q, R, Q_term, x_goal, u_goal, device, dtype):
+    """The weights and goals of a QR-type cost as tensors on ``device``
+    (default ``cuda``) in ``dtype``."""
+    device = resolve_device(device)
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    cost.Q = t(Q)
+    cost.R = t(R)
+    cost.Q_term = cost.Q if Q_term is None else t(Q_term)
+    cost.x_goal = t(x_goal)
+    cost.u_goal = t(u_goal)
+
+
 def _quad_form(d, M):
     """d^T M d batched over leading dims."""
     return ((d @ M) * d).sum(-1)
@@ -117,16 +133,7 @@ class QRCost(Cost):
 
     def __init__(self, Q, R, Q_term=None, x_goal=0.0, u_goal=0.0, *,
                  device=None, dtype=torch.float32):
-        device = resolve_device(device)
-
-        def t(v):
-            return torch.as_tensor(v, dtype=dtype, device=device)
-
-        self.Q = t(Q)
-        self.R = t(R)
-        self.Q_term = self.Q if Q_term is None else t(Q_term)
-        self.x_goal = t(x_goal)
-        self.u_goal = t(u_goal)
+        _set_weights(self, Q, R, Q_term, x_goal, u_goal, device, dtype)
 
     def __call__(self, z, u, i, terminal=False,
                  encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
@@ -156,3 +163,33 @@ class QRCost(Cost):
             Q, self.R, self.x_goal, self.u_goal, z, u, terminal,
             angular_indices=self.aug_angular_indices,
             non_angular_indices=self.aug_non_angular_indices)
+
+
+class SaturatingQRCost(Cost):
+    """Saturating quadratic cost: under a Gaussian state, the expectation
+    of 1 - exp(-0.5 (x - x*)^T Q (x - x*)) in closed form, plus the
+    quadratic action cost. Arguments as ``QRCost``'s."""
+
+    def __init__(self, Q, R, Q_term=None, x_goal=0.0, u_goal=0.0, *,
+                 device=None, dtype=torch.float32):
+        _set_weights(self, Q, R, Q_term, x_goal, u_goal, device, dtype)
+
+    def __call__(self, z, u, i, terminal=False,
+                 encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+        Q = (self.Q_term if terminal else self.Q).to(z.dtype)
+        dx = decode_mean(z, encoding) - self.x_goal
+        if encoding != StateEncoding.IGNORE_UNCERTAINTY:
+            C = decode_covar(z, encoding)
+            n = dx.shape[-1]
+            IpCQ = torch.eye(n, dtype=z.dtype, device=z.device) + C @ Q
+            # S1 = Q (I + CQ)^-1: solve (I + CQ)^T X^T = Q^T.
+            S1 = torch.linalg.solve(IpCQ.transpose(-1, -2),
+                                    Q.T.expand(IpCQ.shape)).transpose(-1, -2)
+            det = torch.sqrt(torch.linalg.det(IpCQ))
+            S1dx = (S1 @ dx[..., :, None])[..., 0]
+            cost = 1.0 - torch.exp(-0.5 * (dx * S1dx).sum(-1)) / det
+        else:
+            cost = 1.0 - torch.exp(-0.5 * _quad_form(dx, Q))
+        if not terminal:
+            cost = cost + _quad_form(u - self.u_goal, self.R.to(u.dtype))
+        return cost

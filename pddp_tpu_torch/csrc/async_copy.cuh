@@ -87,6 +87,11 @@ __device__ __forceinline__ void cp_async_wait_oldest() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
 }
 
+// Waits until none of this thread's groups is in flight.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Stages n steps of a per-step ROWS x COLS block (contiguous at src, step
 // after step) into dst, step j at dst + j * step, row r at + r * ld.
 template <int ROWS, int COLS, typename T>

@@ -1,2 +1,3 @@
 """Example problems of the port: cartpole, pendulum, double cartpole and
-rendezvous (their envs and ``problems.py`` are not ported yet)."""
+rendezvous, each with its model, cost and env (``problems.py`` is not
+ported yet)."""

@@ -1,4 +1,5 @@
 from .cost import CartpoleCost
+from .env import CartpoleEnv
 from .model import CartpoleDynamicsModel
 
-__all__ = ["CartpoleCost", "CartpoleDynamicsModel"]
+__all__ = ["CartpoleCost", "CartpoleEnv", "CartpoleDynamicsModel"]

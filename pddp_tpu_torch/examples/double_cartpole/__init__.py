@@ -1,4 +1,5 @@
 from .cost import DoubleCartpoleCost
+from .env import DoubleCartpoleEnv
 from .model import DoubleCartpoleDynamicsModel
 
-__all__ = ["DoubleCartpoleCost", "DoubleCartpoleDynamicsModel"]
+__all__ = ["DoubleCartpoleCost", "DoubleCartpoleEnv", "DoubleCartpoleDynamicsModel"]

@@ -1,4 +1,5 @@
 from .cost import RendezvousCost
+from .env import RendezvousEnv
 from .model import RendezvousDynamicsModel
 
-__all__ = ["RendezvousCost", "RendezvousDynamicsModel"]
+__all__ = ["RendezvousCost", "RendezvousEnv", "RendezvousDynamicsModel"]

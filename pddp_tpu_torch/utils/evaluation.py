@@ -13,7 +13,8 @@ from torch.func import grad, hessian, jacfwd
 
 from ..encoding import StateEncoding
 
-__all__ = ["eval_cost", "eval_dynamics"]
+__all__ = ["eval_cost", "eval_dynamics", "quadratize_cost",
+           "linearize_dynamics"]
 
 
 def eval_cost(cost, z, u, i, terminal=False,
@@ -88,3 +89,64 @@ def eval_dynamics(model, z, u, i, encoding: StateEncoding = StateEncoding.DEFAUL
     # state's dtype.
     J = J.to(z_next.dtype)
     return z_next, J[:, :nz], J[:, nz:]
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a nest of tuples/lists/dicts (model aux)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def quadratize_cost(cost, Z_run, U, encoding: StateEncoding,
+                    approximate=False, **kwargs):
+    """Running-cost Taylor coefficients along a whole trajectory.
+
+    A cost with a closed form (``eval_derivatives``) takes the whole
+    trajectory in one call; any other is vmapped autodiff.
+
+    Args:
+        Z_run (Tensor<N, nz>): encoded states z_0..z_{N-1}.
+        U (Tensor<N, nu>): actions.
+
+    Returns:
+        Tuple (L, L_z, L_u, L_zz, L_uz, L_uu) stacked over time.
+    """
+    idx = torch.arange(U.shape[0], device=Z_run.device)
+    deriv_fn = getattr(cost, "eval_derivatives", None)
+    if deriv_fn is not None and not approximate:
+        out = deriv_fn(Z_run, U, idx, terminal=False, encoding=encoding,
+                       approximate=approximate, **kwargs)
+        if out is not None:
+            return out
+
+    def one(z, u, i):
+        return eval_cost(cost, z, u, i, terminal=False, encoding=encoding,
+                         approximate=approximate, **kwargs)
+
+    return torch.func.vmap(one)(Z_run, U, idx)
+
+
+def linearize_dynamics(model, Z_run, U, AUX, encoding: StateEncoding,
+                       **kwargs):
+    """Dynamics Jacobians along a whole trajectory, vmapped over time.
+
+    Args:
+        Z_run (Tensor<N, nz>): encoded states z_0..z_{N-1}.
+        U (Tensor<N, nu>): actions.
+        AUX: per-step aux nest stacked over time (from the rollout).
+
+    Returns:
+        Tuple (Z_next, F_z, F_u) stacked over time.
+    """
+    idx = torch.arange(U.shape[0], device=Z_run.device)
+
+    def one(z, u, i, aux):
+        return eval_dynamics(model, z, u, i, encoding=encoding, aux=aux,
+                             **kwargs)
+
+    aux_dims = _tree_map(lambda _: 0, AUX)
+    return torch.func.vmap(one, in_dims=(0, 0, 0, aux_dims))(Z_run, U, idx,
+                                                             AUX)

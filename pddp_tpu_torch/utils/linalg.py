@@ -14,8 +14,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mm", "small_det", "small_inv", "small_solve", "small_eigh",
-           "small_cholesky", "safe_cholesky", "psd_clamp", "tria_solve",
-           "tria_solve_right", "JITTER_LEVELS", "SMALL_EIGH_N", "SMALL_N"]
+           "small_cholesky", "safe_cholesky", "psd_clamp",
+           "psd_inverse_clamped", "tria_solve", "tria_solve_right",
+           "JITTER_LEVELS", "SMALL_EIGH_N", "SMALL_N"]
 
 #: largest action size for which the Jacobi eigen-clamp (and so K1) is used.
 SMALL_EIGH_N = 4
@@ -205,6 +206,20 @@ def psd_clamp(Q, floor=1e-12, extra=0.0):
                                            device=e.device), e) + extra
     Qc = (E * e[..., None, :]) @ E.transpose(-1, -2)
     return _sym(Qc), e, E
+
+
+def psd_inverse_clamped(Q, floor=1e-12, extra=0.0):
+    """Inverse of the eigenvalue-clamped matrix, E diag(1/e) E^T with
+    eigenvalues below 0 set to ``floor``, plus ``extra``; the 1x1 case
+    without an eigendecomposition."""
+    if Q.shape[-1] == 1:
+        e = torch.where(Q < 0, torch.as_tensor(floor, dtype=Q.dtype,
+                                               device=Q.device), Q) + extra
+        return 1.0 / e
+    e, E = torch.linalg.eigh(_sym(Q))
+    e = torch.where(e < 0, torch.as_tensor(floor, dtype=e.dtype,
+                                           device=e.device), e) + extra
+    return (E / e[..., None, :]) @ E.transpose(-1, -2)
 
 
 def tria_solve(U, B, trans=False):

@@ -333,6 +333,75 @@ def test_k1_every_instance_on_card(cuda, dtype, tol, nz, nu):
             assert float((a - w).abs().max()) <= tol * float(w.abs().max())
 
 
+# (nz, nu, dtype) of K1's block kernel: shapes without a warp instance,
+# nu = 1-4, up to rendezvous under the full covariance (72, 4), in both
+# types; (100, 2) in float64 does not fit shared memory and runs on the
+# scratch buffer (in float32 these inputs overflow the recursion at
+# nz = 100, the plain version's too).
+K1_BLOCK_CASES = [(nz, nu, dtype) for nz, nu in [
+    (3, 2), (10, 3), (20, 1), (27, 1), (42, 1), (44, 4), (72, 4)]
+    for dtype in (torch.float64, torch.float32)] + [(100, 2, torch.float64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,nu,dtype", K1_BLOCK_CASES)
+def test_k1_block_kernel_on_card(cuda, dtype, nz, nu):
+    """K1's block kernel against backward at the B, N of BATCHES, with
+    Q_uu indefinite in the last three steps (reg=10), relative to the
+    largest gain. float64: 1e-10 at nu=1 (the closed-form clamp), 1e-8
+    at nu > 1 (the same Jacobi, whose rounding the eigenvector
+    conditioning amplifies). float32 against the float64 plain version,
+    within the larger of 1e-4 and twice the float32 plain version's own
+    error: at these widths the float32 recursion itself strays up to
+    ~3e-4 from float64 over 200 steps (nz = 42). That own error, and the
+    kernel's distance to the float32 plain version, must stay under 1e-3,
+    so the derived tolerance cannot widen past 2e-3."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-10 if nu == 1 else 1e-8
+    assert (nz, nu) not in bk.INSTANCES
+    plan = bk.launch_plan(nz, nu, dtype)
+    assert plan["kernel"] == "block"
+    assert (plan["scratch_elems"] > 0) == (nz == 100
+                                           and dtype == torch.float64)
+    for seed, (B, N) in enumerate(BATCHES):
+        solves = [_riccati_inputs(100 * seed + b, N, nz, nu, indefinite=True)
+                  for b in range(B)]
+        ins = [torch.as_tensor(np.stack(a), dtype=dtype, device=cuda)
+               for a in zip(*solves)]
+        n, nb = bk.launches, bk.block_launches
+        k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0)
+        k_p, K_p, ok_p = backward(*ins, reg=10.0)
+        torch.cuda.synchronize()
+        assert (bk.launches, bk.block_launches) == (n, nb + 1)
+        assert ok_k.shape == (B,) and bool(ok_k.all()) and bool(ok_p.all())
+        want = (k_p, K_p)
+        if dtype == torch.float32:
+            want = backward(*(t.double() for t in ins), reg=10.0)[:2]
+            plain = max(float((p.double() - w).abs().max() / w.abs().max())
+                        for p, w in zip((k_p, K_p), want))
+            assert plain <= 1e-3
+            for a, p in zip((k_k, K_k), (k_p, K_p)):
+                assert float((a - p).abs().max()) <= 1e-3 * float(
+                    p.abs().max())
+            tol = max(1e-4, 2.0 * plain)
+        for a, w in zip((k_k, K_k), want):
+            assert float((a.double() - w).abs().max()) <= tol * float(
+                w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_block_ok_false_on_nan_on_card(cuda, dtype):
+    """The block kernel's ok, as the warp kernel's, at nz = 27."""
+    ins = [torch.as_tensor(np.stack([a] * 5), dtype=dtype, device=cuda)
+           for a in _riccati_inputs(4, 20, 27, 1)]
+    ins[8][1, 7] = float("nan")     # L_uu of solve 1, step 7
+    ins[1][3, 0, 2, 1] = float("nan")   # F_z of solve 3, step 0
+    _, _, ok_k = bk.kernel_backward(*ins)
+    _, _, ok_p = backward(*ins)
+    assert ok_k.tolist() == ok_p.tolist() == [True, False, True, False,
+                                              True]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k1_ok_false_on_nan_on_card(cuda, dtype):
@@ -473,3 +542,41 @@ def test_k2_many_alphas_on_card(cuda, dtype, A):
         n_iterations=3, alphas=alphas, riccati_mode="kernel",
         fused_rollout=True), encoding=IGN)
     assert r.evals >= 1 and fr.launches["a"] - n == r.evals
+
+
+@pytest.mark.gpu
+def test_controller_fit_and_mpc_tick_on_card(cuda):
+    """iLQRController.fit and one forward(mpc=True) tick on rendezvous
+    under the Cholesky codec (nz = 44, K1's block kernel; K2 stage (c)),
+    float64 on the card through the kernels against the CPU's plain
+    versions, at the golden tests' tolerances (J rtol 1e-6, Z/U rtol 1e-5,
+    atol 1e-7). K1 and K2 launch on every evaluation."""
+    from pddp_tpu_torch.controllers import iLQRController
+    from pddp_tpu_torch.examples.rendezvous import (RendezvousCost,
+                                                    RendezvousEnv)
+    enc = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    x0 = [-10.0, -10.0, 10.0, 10.0, 0.0, -5.0, 5.0, 0.0]
+    U0 = 0.1 * np.random.default_rng(0).standard_normal((40, 4))
+    out = {}
+    for dev, kernels in ((cuda, True), ("cpu", False)):
+        env = RendezvousEnv(device=dev, dtype=torch.float64)
+        env.set_state(x0)
+        ctrl = iLQRController(env, env.model, RendezvousCost(
+            device=dev, dtype=torch.float64),
+            riccati_mode="kernel" if kernels else "scan",
+            fused_rollout=kernels)
+        n = (bk.block_launches, sum(fr.launches.values()))
+        Z, U, _ = ctrl.fit(torch.as_tensor(U0, device=dev), encoding=enc,
+                           n_iterations=3)
+        evals = ctrl.last_result.evals
+        u = ctrl.forward(env.get_state().encode(enc), 0, enc, mpc=True)
+        evals += ctrl.last_result.evals
+        if kernels:
+            assert Z.shape[-1] == 44
+            assert (bk.block_launches - n[0],
+                    sum(fr.launches.values()) - n[1]) == (evals, evals)
+        out[kernels] = (Z.cpu(), U.cpu(), u.cpu(), ctrl.last_result.J_opt)
+    for a, b in zip(out[True][:3], out[False][:3]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+    np.testing.assert_allclose(out[True][3], out[False][3], rtol=1e-6)

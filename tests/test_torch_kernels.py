@@ -41,14 +41,17 @@ def _min_eig_last_Q_uu(ins):
 # (nz, nu, indefinite L_uu, reg). Tolerances: 1e-10 for nu=1, where both
 # sides take the closed-form clamp and differ only in the order of sums;
 # 1e-8 for nu=4, where both run the same fixed-sweep Jacobi but rounding
-# in the rotations is amplified by the eigenvector conditioning.
+# in the rotations is amplified by the eigenvector conditioning. (27, 1)
+# and (44, 4) are the double cartpole and rendezvous under the Cholesky
+# codec, shapes of K1's block kernel on the card, at N=6.
 K1_CASES = [(4, 1, False, 0.0, 1e-10), (4, 1, True, 10.0, 1e-10),
-            (6, 4, False, 0.0, 1e-8), (6, 4, True, 10.0, 1e-8)]
+            (6, 4, False, 0.0, 1e-8), (6, 4, True, 10.0, 1e-8),
+            (27, 1, True, 10.0, 1e-10), (44, 4, True, 10.0, 1e-8)]
 
 
 @pytest.mark.parametrize("nz,nu,indefinite,reg,tol", K1_CASES)
 def test_k1_plain_matches_pallas(nz, nu, indefinite, reg, tol):
-    ins = _riccati_inputs(7, 12, nz, nu, indefinite)
+    ins = _riccati_inputs(7, 12 if nz < 16 else 6, nz, nu, indefinite)
     if indefinite:
         assert _min_eig_last_Q_uu(ins) < 0    # the clamp acts
     k_j, K_j, ok_j = pallas_backward(*map(jnp.asarray, ins), reg=reg,
@@ -117,12 +120,13 @@ def test_supports_gates():
     with pytest.raises(ValueError):
         fr.fused_control_law(Other(device="cpu"), None, None, None, None,
                              None, IGN, cost=cost)
+    # K1 takes pddp_tpu's shapes: any nz with nu <= 4.
     assert bk.supports_kernel_backward(torch.zeros(3, 4), torch.zeros(3, 16,
                                                                       16))
     assert not bk.supports_kernel_backward(torch.zeros(3, 5),
                                            torch.zeros(3, 4, 4))
-    assert not bk.supports_kernel_backward(torch.zeros(3, 1),
-                                           torch.zeros(3, 17, 17))
+    assert bk.supports_kernel_backward(torch.zeros(3, 1),
+                                       torch.zeros(3, 17, 17))
 
 
 def test_cpu_wrappers_launch_nothing():
@@ -137,18 +141,19 @@ def test_cpu_wrappers_launch_nothing():
 
 
 def test_k1_instances():
-    """The shapes K1 admits are exactly the CUDA source's dispatch table."""
+    """The warp kernel's instances are exactly the CUDA source's dispatch
+    table; K1 admits pddp_tpu's gate, any nz at nu <= 4 (the block kernel
+    takes the shapes without an instance), and refuses nu = 5."""
     src = (Path(bk.__file__).parent.parent / "csrc"
            / "backward_kernel.cu").read_text()
     table = re.search(r"#define PDDP_K1_SHAPES\(X\)(.*?)\n\n", src,
                       re.S).group(1)
     assert {(int(a), int(b)) for a, b in re.findall(
         r"X\((\d+), (\d+)\)", table)} == set(bk.INSTANCES)
-    for nz in range(1, 18):
+    for nz in list(range(1, 18)) + [27, 44, 72, 100]:
         for nu in range(1, 6):
             assert bk.supports_kernel_backward(
-                torch.zeros(2, nu), torch.zeros(2, nz, nz)) == (
-                    (nz, nu) in bk.INSTANCES)
+                torch.zeros(2, nu), torch.zeros(2, nz, nz)) == (nu <= 4)
 
 
 def _alphas(A):
@@ -208,3 +213,33 @@ def test_k1_ok_matches_pallas(nan):
     _, _, ok_j = pallas_backward(*map(jnp.asarray, ins), interpret=True)
     _, _, ok_t = bk.kernel_backward(*(torch.as_tensor(a) for a in ins))
     assert bool(ok_t) == bool(ok_j) == (not nan)
+
+
+def test_solve_sends_every_shape_to_k1(monkeypatch):
+    """solve(riccati_mode="kernel") on an unconstrained problem at nz=27
+    (the double cartpole under the Cholesky codec, a shape of the block
+    kernel) calls kernel_backward on every evaluation and never the scan
+    backward; on the CPU the wrapper runs its plain version."""
+    from pddp_tpu_torch.controllers import ilqr as tilqr
+    from pddp_tpu_torch.encoding import encode
+    from pddp_tpu_torch.examples import double_cartpole as tdcp
+    calls, scan = [], []
+
+    def counted(*args, **kwargs):
+        calls.append(args[1].shape)
+        return kernel(*args, **kwargs)
+
+    kernel = bk.kernel_backward
+    monkeypatch.setattr(bk, "kernel_backward", counted)
+    monkeypatch.setattr(tilqr, "backward", lambda *a, **k: scan.append(1))
+    f64 = dict(device="cpu", dtype=torch.float64)
+    model = tdcp.DoubleCartpoleDynamicsModel(dt=0.05, **f64)
+    cost = tdcp.DoubleCartpoleCost(**f64)
+    x0 = torch.tensor([0.0, 0.0, 0.05, 0.0, -0.05, 0.0], **f64)
+    enc = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    z0 = encode(x0, C=1e-2 * torch.eye(6, **f64), encoding=enc)
+    r = tilqr.solve(model, cost, z0, torch.full((3, 1), 0.1, **f64),
+                    ILQROptions(n_iterations=1, riccati_mode="kernel"),
+                    encoding=enc)
+    assert z0.shape == (27,) and r.evals >= 1
+    assert calls == [(3, 27, 27)] * r.evals and not scan
