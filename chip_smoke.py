@@ -76,6 +76,13 @@ K1_BLOCK_F32_CAP = 1e-3
 K1_BLOCK_SHAPES = [(3, 2), (10, 3), (20, 1), (27, 1), (42, 1), (44, 4),
                    (72, 4)]
 K1_SCRATCH_SHAPE = (100, 2)
+# (nz, nu, cluster) run with a plan other than the library's, so that every
+# nu runs both one CTA a solve and a cluster: the library takes a cluster
+# only where a step has enough work to split (``ops.backward_kernel.
+# launch_plan``), so the narrow shapes are asked for one here, and the
+# wide ones for a single CTA.
+K1_BLOCK_FORCED = [(20, 1, 2), (27, 1, 4), (42, 1, 1), (3, 2, 2),
+                   (10, 3, 2), (44, 4, 1), (72, 4, 1), (72, 4, 8)]
 
 
 # (B, N) of the batched kernel cases (phases 1, 2 and 10): one solve of
@@ -177,17 +184,19 @@ def raw_k1(derivs, reg):
     ok = torch.empty((B,), dtype=torch.bool, device=ins[0].device)
     outs = [k.data_ptr(), K.data_ptr(), ok.data_ptr()]
     block = (nz, nu) not in bk.INSTANCES
+    sizes = (B, N, nz, nu)
     if block:   # the block kernel, with its scratch where it needs one
-        elems = bk.launch_plan(nz, nu, ins[0].dtype)["scratch_elems"]
+        elems = bk.launch_plan(nz, nu, ins[0].dtype, B)["scratch_elems"]
         scratch = torch.empty((B, max(elems, 1)), dtype=ins[0].dtype,
                               device=ins[0].device)
         outs.append(scratch.data_ptr() if elems else None)
+        sizes += (0,)  # the library's plan
     fn = bk._function(ins[0].dtype, block)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        check(fn(*(t.data_ptr() for t in ins), float(reg), *outs, B, N, nz,
-                 nu, stream) == 0, "K1 launch")
+        check(fn(*(t.data_ptr() for t in ins), float(reg), *outs, *sizes,
+                 stream) == 0, "K1 launch")
     return launch
 
 
@@ -302,16 +311,42 @@ LATENCY = {"float32": {"fma": 4, "div": 30, "sqrt": 30, "sincos": 44,
                        "cluster_sync": 200}}
 
 
-def k1_chain_cycles(nz, nu, dtype_name):
+def k1_chain_cycles(nz, nu, dtype_name, sweeps=None):
     """Cycles of one K1 step's critical path: stage A's nz-long product and
     its add, stage B's nz-long product, its add and the symmetrization,
     then stage C: for nu=1 the clamp (2) and the reciprocal, for nu > 1
-    the Jacobi's R rotations (each 3 divisions, 2 square roots and 9
-    dependent adds and multiplies) and the inverse (a division and
-    nu + 3), then a gain column (nu), Q_uu K (nu), the quadratic form (nu),
-    three adds and the symmetrization (2). The same for the warp and the
-    block kernel: it counts what the function needs, not a design's
-    barriers."""
+    the clamp as csrc/backward_kernel.cu:clamped_inverse builds it: the
+    power-of-two scaling (9), ``sweeps`` sweeps (the mean this
+    run's data needs, ``k1_sweeps``; the fixed count when None) of the
+    round-robin pairs, whose two rotations of a round at nu = 4 run side
+    by side (3 rounds a sweep at nu = 3, 4; 1 at nu = 2; each rotation one
+    square root, one reciprocal and one reciprocal square root, in float32
+    each followed by its Newton step, and 10-19 dependent adds and
+    multiplies; at nu = 4 two more for the cross terms) and the exit test
+    (3), the eigenvalues' reciprocals and the inverse (a division and
+    nu + 3), M (2 nu), then a gain column (nu), Q_uu K (nu), the quadratic
+    form (nu), three adds and the symmetrization (2). The same for the
+    warp and the block kernel: it counts what the function needs, not a
+    design's barriers."""
+    lat = LATENCY[dtype_name]
+    fma, div, sqrt = lat["fma"], lat["div"], lat["sqrt"]
+    if nu == 1:
+        return (2 * nz + 13) * fma + div
+    f32 = dtype_name == "float32"
+    if sweeps is None:
+        sweeps = 5 if f32 else 8
+    rounds = 1 if nu == 2 else 3
+    rotation = (19 if f32 else 10) * fma + 2 * sqrt + div
+    round_ = rotation + (2 * fma if nu == 4 else 0)
+    clamp = (9 * fma + sweeps * (rounds * round_ + 3 * fma)
+             + div + (nu + 3 + (2 if f32 else 0)) * fma + 2 * nu * fma)
+    return (2 * nz + 12 + 3 * nu) * fma + clamp
+
+
+def k1_chain_cycles_cyclic(nz, nu, dtype_name):
+    """k1_chain_cycles of the clamp as first built (cyclic pairs, 5 or 8
+    full sweeps, 3 divisions and 2 square roots a rotation), for that bound
+    beside the current one."""
     lat = LATENCY[dtype_name]
     if nu == 1:
         return (2 * nz + 13) * lat["fma"] + lat["div"]
@@ -321,19 +356,102 @@ def k1_chain_cycles(nz, nu, dtype_name):
             + 2 * rotations * lat["sqrt"])
 
 
+# The kernels' Jacobi pair order (csrc/backward_kernel.cu:jacobi_pair).
+JACOBI_PAIRS = {2: [(0, 1)], 3: [(0, 1), (0, 2), (1, 2)],
+                4: [(0, 1), (2, 3), (0, 2), (1, 3), (0, 3), (1, 2)]}
+
+
+def clamp_sweeps(Q, dtype_name):
+    """Sweeps the kernels' Jacobi runs on each symmetric Q (n, nu, nu)
+    before its exit test passes: a numpy replica, over the batch, of
+    clamped_inverse's scaling, pair order, rotation and test."""
+    dt = np.float32 if dtype_name == "float32" else np.float64
+    f, one = np.finfo(dt), dt(1)
+    Q = np.asarray(Q, dt)
+    n, nu = Q.shape[0], Q.shape[-1]
+    full = 5 if dt == np.float32 else 8
+    max_exp = 120 if dt == np.float32 else 1000
+    m = np.abs(np.triu(Q)).max(axis=(-1, -2))
+    ex = np.where((m > 0) & np.isfinite(m), np.frexp(m)[1], 0)
+    a = Q * np.ldexp(one, -np.clip(ex, -max_exp, max_exp))[:, None, None]
+    a = a.astype(dt)
+    done = np.full(n, full)
+    active = np.ones(n, bool)
+    for sweep in range(1, full + 1):
+        for p, q in JACOBI_PAIRS[nu]:
+            app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]
+            live = apq != 0
+            d, h = aqq - app, dt(2) * np.where(live, apq, one)
+            x = np.maximum(d * d + h * h, f.tiny)
+            den = np.abs(d) + np.sqrt(x)
+            pos = (d == 0) | ((d > 0) == (h > 0))
+            t = np.where(pos, np.abs(h), -np.abs(h)) * (one / den)
+            c = one / np.sqrt(t * t + one)
+            s = t * c
+            t, c, s = (np.where(live, t, 0).astype(dt),
+                       np.where(live, c, 1).astype(dt),
+                       np.where(live, s, 0).astype(dt))
+            for k in range(nu):
+                if k not in (p, q):
+                    akp, akq = a[:, k, p].copy(), a[:, k, q].copy()
+                    a[:, k, p] = a[:, p, k] = c * akp - s * akq
+                    a[:, k, q] = a[:, q, k] = s * akp + c * akq
+            a[:, p, p], a[:, q, q] = app - t * apq, aqq + t * apq
+            a[:, p, q] = a[:, q, p] = 0
+        conv = np.ones(n, bool)
+        for p in range(nu):
+            for q in range(p + 1, nu):
+                conv &= (a[:, p, q] * a[:, p, q]
+                         <= f.eps * f.eps * np.abs(a[:, p, p] * a[:, q, q]))
+        done[active & conv] = sweep
+        active &= ~conv
+    return done
+
+
+def k1_sweeps(derivs, reg, dtype_name="float32"):
+    """The mean sweeps of the kernels' Jacobi over the steps of solve 0 of
+    these K1 inputs: Q_uu of every step from the plain recursion (float64,
+    numpy), then clamp_sweeps in the run's type. None at nu = 1."""
+    Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu = [
+        t.detach().double().cpu().numpy() for t in derivs]
+    if F_z.ndim == 4:
+        F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu = (
+            x[0] for x in (F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu))
+    nu = F_u.shape[-1]
+    if nu == 1:
+        return None
+    V, v, quu = L_zz[-1], L_z[-1], []
+    for i in reversed(range(F_z.shape[0])):
+        Fz, Fu = F_z[i], F_u[i]
+        Qz, Qu = L_z[i] + Fz.T @ v, L_u[i] + Fu.T @ v
+        Qzz = L_zz[i] + Fz.T @ V @ Fz
+        Quz = L_uz[i] + Fu.T @ V @ Fz
+        Quu = L_uu[i] + Fu.T @ V @ Fu
+        Qzz, Quu = (Qzz + Qzz.T) / 2, (Quu + Quu.T) / 2
+        quu.append(Quu)
+        e, E = np.linalg.eigh(Quu)
+        Qi = (E / (np.where(e < 0, 1e-12, e) + reg)) @ E.T
+        k, K = -Qi @ Qu, -Qi @ Quz
+        v = Qz + K.T @ Quu @ k + K.T @ Qu + Quz.T @ k
+        V = Qzz + K.T @ Quu @ K + K.T @ Quz + Quz.T @ K
+        V = (V + V.T) / 2
+    return float(clamp_sweeps(np.stack(quu), dtype_name).mean())
+
+
 # Peak multiply-adds a cycle of one SM (4 sub-partitions; the H100's
 # published FP32 and FP64 rates over 132 SMs at 1980 MHz).
 SM_FMA_PER_CYCLE = {"float32": 128, "float64": 64}
 
 
-def one_sm_ms(flops, B, dtype_name):
-    """The least time of K1's block kernel at its design, one solve on one
-    SM: the operations of the busiest SM (ceil(B / 132) solves) at one
-    SM's peak rate. Not a bound of the card, which could split a solve
-    over several SMs; it says what holds the block kernel back."""
+def c_sm_ms(flops, B, c, dtype_name):
+    """The least time of K1's block kernel at its plan, each solve on the c
+    SMs of its cluster (c = 1: one SM): the operations of the busiest SM
+    (ceil(B c / 132) waves of 1 / c of a solve) at one SM's peak rate. Not a
+    bound of the card, which could spread a solve wider; it says what holds
+    the plan back."""
     per_solve = flops / B / 2.0     # multiply-adds
-    waves = -(-B // 132)
-    return (1e3 * waves * per_solve
+    waves = -(-B * c // 132)
+    return (1e3 * waves * per_solve / c
             / (SM_FMA_PER_CYCLE[dtype_name] * max_sm_clock_mhz() * 1e6))
 
 
@@ -609,9 +727,11 @@ def phase1_k1():
 
 def phase1_k1_block():
     """K1's block kernel against backward at every shape of
-    K1_BLOCK_SHAPES and B, N of BATCHES, in float64 and float32, and at
-    K1_SCRATCH_SHAPE in float64 (its workspace past shared memory), the
-    clamp acting in the last steps (L_uu shifted by 4 I, reg=10); float32
+    K1_BLOCK_SHAPES and B, N of BATCHES, in float64 and float32, with the
+    library's plan, at K1_SCRATCH_SHAPE in float64 (its workspace past
+    shared memory), and at K1_BLOCK_FORCED with the cluster asked there
+    (every nu then runs both with and without a cluster), the clamp acting
+    in the last steps (L_uu shifted by 4 I, reg=10); float32
     is held against the float64 plain version within the larger of
     K1_BLOCK_TOL and twice the float32 plain version's own error, which
     K1_BLOCK_F32_CAP bounds. Then ok on NaN inputs at nz = 27."""
@@ -619,9 +739,14 @@ def phase1_k1_block():
     from pddp_tpu_torch.controllers.ilqr import backward
     from pddp_tpu_torch.ops import backward_kernel as bk
     rows = []
-    shapes = [(nz, nu, ("float64", "float32")) for nz, nu in K1_BLOCK_SHAPES]
+    both = ("float64", "float32")
+    shapes = [(nz, nu, both) for nz, nu in K1_BLOCK_SHAPES]
     shapes.append(K1_SCRATCH_SHAPE + (("float64",),))
     for si, (nz, nu, dtypes) in enumerate(shapes):
+        # The library's plan, then each cluster K1_BLOCK_FORCED asks for at
+        # this shape, on the same inputs and references.
+        clusters = [None] + [c for z, u, c in K1_BLOCK_FORCED
+                             if (z, u) == (nz, nu)]
         for bi, (B, N) in enumerate(BATCHES):
             seed = 1000 + 10 * si + bi
             ins64 = k1_inputs(np.random.default_rng(seed), B, N, nz, nu,
@@ -630,35 +755,44 @@ def phase1_k1_block():
             for dname in dtypes:
                 dtype = getattr(torch, dname)
                 ins = [t.to(dtype) for t in ins64]
-                plan = bk.launch_plan(nz, nu, dtype)
-                n = bk.block_launches
-                k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0)
-                torch.cuda.synchronize()
-                row = {"B": B, "N": N, "nz": nz, "nu": nu, "dtype": dname,
-                       "threads": plan["threads"],
-                       "scratch_elems": plan["scratch_elems"],
-                       "launched": bk.block_launches == n + 1,
-                       "ok_equal": ok_k.tolist() == ok64.tolist()}
-                ek, rk = rel_err(k_k.double(), k64)
-                eK, rK = rel_err(K_k.double(), K64)
-                row.update(k_abs=ek, k_rel=rk, K_abs=eK, K_rel=rK)
-                tol = k1_block_tol(dname, nu)
+                tol0 = k1_block_tol(dname, nu)
                 if dname == "float32":
                     k_p, K_p, ok_p = backward(*ins, reg=10.0)
                     plain = max(rel_err(k_p.double(), k64)[1],
                                 rel_err(K_p.double(), K64)[1])
-                    row["plain_float32_rel"] = plain
-                    row["kernel_vs_plain_float32_rel"] = max(
-                        rel_err(k_k, k_p)[1], rel_err(K_k, K_p)[1])
-                    tol = max(tol, 2.0 * plain)
-                row["tol"] = tol
-                row["finite"] = bool(ok_k.all()) and bool(ok64.all())
-                rows.append(row)
+                    tol0 = max(tol0, 2.0 * plain)
+                for cluster in clusters:
+                    plan = bk.launch_plan(nz, nu, dtype, B, cluster)
+                    n = bk.block_launches
+                    k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0,
+                                                        cluster=cluster)
+                    torch.cuda.synchronize()
+                    row = {"B": B, "N": N, "nz": nz, "nu": nu,
+                           "dtype": dname, "cluster_asked": cluster,
+                           "cluster": plan["cluster"], "tile": plan["tile"],
+                           "threads": plan["threads"],
+                           "scratch_elems": plan["scratch_elems"],
+                           "launched": bk.block_launches == n + 1,
+                           "ok_equal": ok_k.tolist() == ok64.tolist()}
+                    ek, rk = rel_err(k_k.double(), k64)
+                    eK, rK = rel_err(K_k.double(), K64)
+                    row.update(k_abs=ek, k_rel=rk, K_abs=eK, K_rel=rK)
+                    if dname == "float32":
+                        row["plain_float32_rel"] = plain
+                        row["kernel_vs_plain_float32_rel"] = max(
+                            rel_err(k_k, k_p)[1], rel_err(K_k, K_p)[1])
+                    row["tol"] = tol0
+                    row["finite"] = bool(ok_k.all()) and bool(ok64.all())
+                    rows.append(row)
     check(any(r["scratch_elems"] > 0 for r in rows)
           and all((r["scratch_elems"] > 0) == ((r["nz"], r["nu"])
                                                == K1_SCRATCH_SHAPE)
                   for r in rows),
           "only K1_SCRATCH_SHAPE runs on the scratch buffer")
+    for nu in range(1, 5):
+        plans = {r["cluster"] > 1 for r in rows if r["nu"] == nu}
+        check(plans == {False, True}, "nu={}: K1's block kernel ran only "
+              "with cluster > 1 = {}".format(nu, plans))
     nan_rows = []
     for dtype in (torch.float32, torch.float64):
         ins = k1_inputs(np.random.default_rng(98), 5, 20, 27, 1, dtype,
@@ -1758,10 +1892,12 @@ def example_path(card, label, ex, codec):
          "K2_plain_ms": events_ms(lambda: line_search(
              False, Z_n, U_n, k_p, K_p), 5, warmup=1)}
     n, nz = model.state_size, Z_n.shape[-1]
-    b1, f1 = k1_work(1, H, nz, nu, 4, sweeps=5)
+    sweeps = k1_sweeps(derivs, reg)
+    b1, f1 = k1_work(1, H, nz, nu, 4, sweeps=5 if sweeps is None else sweeps)
     b2, f2 = k2_work(1, H, A, 4, False, ex, int(enc))
     t["K1_bound_ms"], t["K1_bound_by"] = chain_bound_ms(
-        b1, f1, "float32", k1_chain_cycles(nz, nu, "float32"), H)[:2]
+        b1, f1, "float32", k1_chain_cycles(nz, nu, "float32", sweeps),
+        H)[:2]
     t["K2_bound_ms"], t["K2_bound_by"] = chain_bound_ms(
         b2, f2, "float32", k2_chain_cycles(ex, int(enc), nz, "float32"),
         H)[:2]
@@ -1849,9 +1985,10 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
         N, nz, nu = derivs[2].shape
         d = [rep(t, B) for t in derivs]
         ms = events_ms(raw_k1(d, reg), 200 if B == 1 else 50)
+        sweeps = k1_sweeps(derivs, reg)
         bound, by, roof, chain = chain_bound_ms(
-            *k1_work(B, N, nz, nu, 4, sweeps=5), "float32",
-            k1_chain_cycles(nz, nu, "float32"), N)
+            *k1_work(B, N, nz, nu, 4, sweeps=5 if sweeps is None else sweeps),
+            "float32", k1_chain_cycles(nz, nu, "float32", sweeps), N)
         return {"kernel": "K1", "path": label, "B": B, "N": N, "nz": nz,
                 "nu": nu, "ms": ms, "bound_ms": bound, "bound_by": by,
                 "roofline_ms": roof, "chain_floor_ms": chain}
@@ -1918,41 +2055,54 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
 
 
 # The block kernel's timed shapes: (label, nz, nu), the belief codecs'
-# widths of the bundled examples.
+# widths of the bundled examples; and the warp kernel's nu = 4 instances,
+# beside the bound of the block kernel's shorter clamp.
 K1_BLOCK_TIMED = (("cartpole_full", 20, 1), ("double_cartpole_chol", 27, 1),
                   ("double_cartpole_full", 42, 1), ("rendezvous_chol", 44, 4),
                   ("rendezvous_full", 72, 4))
+K1_WARP_NU4_TIMED = (("rendezvous", 8, 4), ("rendezvous_var", 16, 4))
 
 
 def k1_block_times():
     """K1's block kernel alone at H=200 in float32, for 1 solve and 64, on
     phase 1's kind of inputs (reg=10, the clamp acting in the last steps),
-    beside its bound (the larger of the roofline and the chain floor, the
-    same as the warp kernel's at that shape), the one-SM floor of its
-    design (not a bound: it says what holds this design back), and the
-    plain backward's time at B=1 (one call)."""
+    with its plan, beside its bound (the larger of the roofline and the
+    chain floor, the same as the warp kernel's at that shape; the clamp's
+    sweeps those its data needs, ``k1_sweeps``), the bound of the cyclic
+    clamp (``k1_chain_cycles_cyclic``),
+    the c-SM floor of its plan (not a bound: it says what holds the plan
+    back), and the plain backward's time at B=1 (one call); then the warp
+    kernel at K1_WARP_NU4_TIMED the same way."""
     import torch
     from pddp_tpu_torch.controllers.ilqr import backward
     from pddp_tpu_torch.ops import backward_kernel as bk
     rows = []
-    for label, nz, nu in K1_BLOCK_TIMED:
+    for label, nz, nu in K1_BLOCK_TIMED + K1_WARP_NU4_TIMED:
         ins = k1_inputs(np.random.default_rng(nz), 1, 200, nz, nu,
                         torch.float32, "cuda", True, shift=4.0)
         plain_ms = events_ms(lambda: backward(*ins, reg=10.0), 1, warmup=1)
+        sweeps = k1_sweeps(ins, 10.0)
         for B in (1, 64):
             d = [t if B == 1 else t.expand((B,) + t.shape[1:]).contiguous()
                  for t in ins]
             ms = events_ms(raw_k1(d, 10.0), 200 if B == 1 else 50)
-            nbytes, flops = k1_work(B, 200, nz, nu, 4, sweeps=5)
+            nbytes, flops = k1_work(B, 200, nz, nu, 4,
+                                    sweeps=5 if sweeps is None else sweeps)
             bound, by, roof, chain = chain_bound_ms(
                 nbytes, flops, "float32",
-                k1_chain_cycles(nz, nu, "float32"), 200)
-            row = {"kernel": "K1 block", "path": label, "B": B, "N": 200,
-                   "nz": nz, "nu": nu, "ms": ms, "bound_ms": bound,
-                   "bound_by": by, "roofline_ms": roof,
-                   "chain_floor_ms": chain,
-                   "one_sm_ms": one_sm_ms(flops, B, "float32"),
-                   "plan": bk.launch_plan(nz, nu, torch.float32)}
+                k1_chain_cycles(nz, nu, "float32", sweeps), 200)
+            plan = bk.launch_plan(nz, nu, torch.float32, B)
+            row = {"kernel": "K1 " + plan["kernel"], "path": label, "B": B,
+                   "N": 200, "nz": nz, "nu": nu, "ms": ms,
+                   "bound_ms": bound, "bound_by": by, "roofline_ms": roof,
+                   "chain_floor_ms": chain, "clamp_sweeps": sweeps,
+                   "chain_floor_cyclic_clamp_ms": chain_ms(
+                       k1_chain_cycles_cyclic(nz, nu, "float32"), 200,
+                       max_sm_clock_mhz()),
+                   "plan": plan}
+            if plan["kernel"] == "block":
+                row["c_sm_ms"] = c_sm_ms(flops, B, plan["cluster"],
+                                         "float32")
             if B == 1:
                 row["plain_ms"] = plain_ms
             rows.append(row)
@@ -2254,13 +2404,25 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry):
         "library_ms": None,
         "ms_B64": block[("rendezvous_chol", 64)]["ms"],
         "bound_ms_B64": block[("rendezvous_chol", 64)]["bound_ms"],
+        "cluster": head["plan"]["cluster"], "tile": head["plan"]["tile"],
+        "threads": head["plan"]["threads"],
         "shapes": {label: {"nz": r["nz"], "nu": r["nu"], "ms": r["ms"],
                            "ms_B64": block[(label, 64)]["ms"],
                            "plain_ms": r["plain_ms"],
                            "bound_ms": r["bound_ms"],
                            "bound_by": r["bound_by"],
-                           "threads": r["plan"]["threads"]}
+                           "chain_floor_cyclic_clamp_ms":
+                               r["chain_floor_cyclic_clamp_ms"],
+                           "c_sm_ms": r["c_sm_ms"],
+                           "plan": r["plan"],
+                           "plan_B64": block[(label, 64)]["plan"]}
                    for (label, B), r in block.items() if B == 1}})
+    # The warp kernel's nu = 4 instances, beside the shorter clamp's bound.
+    kernels[0]["nu4"] = {"{}_B{}".format(r["path"], r["B"]): {
+        "nz": r["nz"], "ms": r["ms"], "bound_ms": r["bound_ms"],
+        "chain_floor_cyclic_clamp_ms": r["chain_floor_cyclic_clamp_ms"],
+        "plain_ms": r.get("plain_ms")}
+        for r in times if r["kernel"] == "K1 warp"}
     return {"kernels": kernels}
 
 

@@ -11,14 +11,18 @@ N steps. Two kernels share the arithmetic:
    per-step inputs staged in shared memory ahead of use
    (``csrc/async_copy.cuh``; the library picks the chunk and the solves
    per block itself);
- * the block kernel, for every other nz with nu <= 4: one thread block
-   per solve, nz a run-time size, its workspace in shared memory or, past
-   it, in a device-memory scratch buffer this wrapper allocates (the
-   library says how large, ``launch_plan``).
+ * the block kernel, for every other nz with nu <= 4: one thread block,
+   or at the widest shapes a thread-block cluster, per solve, nz a
+   run-time size, its workspace in shared memory or, past it, in a
+   device-memory scratch buffer this wrapper allocates (the library plans
+   the cluster, the tile and the scratch, ``launch_plan``).
 
-The eigen clamp of Q_uu is the closed form for nu = 1 and the fixed-sweep
-Jacobi of ``utils.linalg.small_eigh`` for nu = 2-4. Both kernels write
-``ok``.
+The eigen clamp of Q_uu is the closed form for nu = 1 and, for nu = 2-4,
+the fixed-sweep Jacobi of ``utils.linalg.small_eigh``: as it is in the
+warp kernel, with a shorter chain in the block kernel (round-robin pairs,
+one square root and one reciprocal a rotation, an early exit once
+converged; ``csrc/backward_kernel.cu:clamped_inverse``). Both kernels
+write ``ok``.
 
 The plain version is ``controllers.ilqr.backward``. On CPU tensors the
 wrapper runs it; on CUDA tensors it launches a kernel or raises.
@@ -73,39 +77,51 @@ def _function(dtype, block=False):
         fn = getattr(lib, (_BLOCK_SYMBOLS if block else _SYMBOLS)[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
                        + [ctypes.c_void_p] * (4 if block else 3)
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * (5 if block else 4)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FUNCTIONS[(dtype, block)] = fn
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(nz, nu, dtype):
-    """The launch the library plans at (nz, nu): {"kernel": "warp" or
-    "block"}, and for the block kernel its threads a block and the
-    scratch elements a solve needs (0: the workspace is in shared
-    memory)."""
+def launch_plan(nz, nu, dtype, B=1, cluster=None):
+    """The launch the library plans for B solves at (nz, nu): {"kernel":
+    "warp" or "block"}, and for the block kernel its CTAs a solve
+    ("cluster", 1 without a cluster), its tile (a thread's "tile" x "tile"
+    outputs), "threads" a CTA, "smem_bytes" a CTA and the "scratch_elems"
+    a solve needs (0: the workspace is in shared memory), and "stage_l",
+    whether a step's L terms are staged in shared memory. ``cluster`` asks
+    for another cluster than the library's own (tests; the library refuses
+    one that does not fit). Asks the card (the cluster's occupancy)."""
     if (nz, nu) in INSTANCES:
         return {"kernel": "warp"}
     lib = load_library("backward_kernel")
-    lib.pddp_riccati_block_threads.argtypes = [ctypes.c_int] * 2
-    lib.pddp_riccati_block_threads.restype = ctypes.c_int
-    lib.pddp_riccati_block_scratch_elems.argtypes = [ctypes.c_int] * 3
-    lib.pddp_riccati_block_scratch_elems.restype = ctypes.c_long
+    lib.pddp_riccati_block_plan.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    lib.pddp_riccati_block_plan.restype = ctypes.c_int
+    out = (ctypes.c_long * 6)()
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return {"kernel": "block",
-            "threads": lib.pddp_riccati_block_threads(nz, nu),
-            "scratch_elems": lib.pddp_riccati_block_scratch_elems(
-                nz, nu, itemsize)}
+    err = lib.pddp_riccati_block_plan(nz, nu, itemsize, B, cluster or 0,
+                                      out)
+    if err != 0:
+        raise RuntimeError("K1 block kernel: no plan for nz={}, nu={}, "
+                           "B={}, cluster={}: CUDA error {}".format(
+                               nz, nu, B, cluster, err))
+    return {"kernel": "block", "cluster": out[0], "tile": out[1],
+            "threads": out[2], "smem_bytes": out[3],
+            "scratch_elems": out[4], "stage_l": bool(out[5])}
 
 
-def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
+def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
+                    cluster=None):
     """Riccati backward at any nz with nu <= 4; the interface and returns
     of ``controllers.ilqr.backward`` (unconstrained).
 
     Inputs may carry one leading batch dim B (a batch of solves: a warp
-    each at the shapes of ``INSTANCES``, else a block each). ``reg`` is a
-    host scalar.
+    each at the shapes of ``INSTANCES``, else a block or a cluster each).
+    ``reg`` is a host scalar. ``cluster`` overrides the block kernel's
+    plan (``launch_plan``); None takes the library's.
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool).
@@ -150,15 +166,17 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
     if block:
         # Freed on return: the caching allocator hands it out again only
         # on this stream, after the kernel.
-        elems = launch_plan(nz, nu, dtype)["scratch_elems"]
+        with torch.cuda.device(device):
+            elems = launch_plan(nz, nu, dtype, B, cluster)["scratch_elems"]
         scratch = (torch.empty((B, elems), dtype=dtype, device=device)
                    if elems else None)
         outs.append(None if scratch is None else scratch.data_ptr())
     fn = _function(dtype, block)
+    plan = (B, N, nz, nu) + ((cluster or 0,) if block else ())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ins), float(reg), *outs, B, N, nz,
-                 nu, stream)
+        err = fn(*(t.data_ptr() for t in ins), float(reg), *outs, *plan,
+                 stream)
     if err != 0:
         raise RuntimeError("K1 ({} kernel) launch failed: CUDA error "
                            "{}".format("block" if block else "warp", err))

@@ -36,7 +36,19 @@ saving K2(d)'s (Z, U, AUX) and F3's output on the same seeded inputs, so
 that the summary gives the largest difference between the parent's and
 the change's outputs. With ``--main-path-only`` a turn times the
 wrappers' host time and the cartpole main path alone, for many short
-turns; with ``--bnn-only`` K2(d) and F3 alone.
+turns; with ``--bnn-only`` K2(d) and F3 alone; with ``--k1-block`` K1's
+block kernel alone at the belief codecs' widths (``chip_smoke.
+K1_BLOCK_TIMED``: nz = 20, 27, 42 at nu = 1, 44 and 72 at nu = 4; phase
+13's inputs, H=200, reg=10) for one solve and for 64, each turn saving its
+gains at B=1 for the summary's largest parent-change difference, the warp
+kernel's nu = 4 instances (``chip_smoke.K1_WARP_NU4_TIMED``), and the
+entry point's float32 fit and MPC ticks at rendezvous under the full
+covariance (``chip_smoke.entry_point``, phase 14's configuration):
+
+    python3 scripts/torch_kernel_ab.py --parent build/parent --k1-block \
+        --order change,parent,parent,change,change,parent,parent,change
+
+The summary gives each side's median, quartiles and turns.
 The K1 of a checkout from before the kernels wrote ``ok`` takes no ``ok``
 pointer; the script launches either.
 """
@@ -282,6 +294,78 @@ def bnn_iteration(model, alphas):
             "iteration_launches": prof["kernel_launches"]}
 
 
+def raw_k1_block(ins, reg):
+    """K1's block kernel alone, launched as the tree's library takes it
+    (one from before the plan's arguments takes none)."""
+    import inspect
+    import torch
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    if "B" in inspect.signature(bk.launch_plan).parameters:
+        return CS.raw_k1(ins, reg)
+    d = ins[1:3] + ins[4:]
+    B, N, nz, nu = d[1].shape
+    k = torch.empty((B, N, nu), device="cuda")
+    K = torch.empty((B, N, nu, nz), device="cuda")
+    ok = torch.empty((B,), dtype=torch.bool, device="cuda")
+    fn = bk._function(torch.float32, True)
+    args = (*(t.data_ptr() for t in d), float(reg), k.data_ptr(),
+            K.data_ptr(), ok.data_ptr(), None, B, N, nz, nu,
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if fn(*args) != 0:
+            raise RuntimeError("K1 block launch failed")
+    return launch
+
+
+def k1_block_times(label, out_dir):
+    """K1's block kernel at chip_smoke.K1_BLOCK_TIMED for 1 and 64 solves
+    (CUDA events), its gains at B=1 saved to out_dir, and the entry
+    point's float32 fit and ticks at rendezvous under the full covariance
+    (host clock to synchronize; the second of two runs)."""
+    import torch
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    res, saved = {}, {}
+    for name, nz, nu in CS.K1_BLOCK_TIMED:
+        ins = CS.k1_inputs(np.random.default_rng(nz), 1, H, nz, nu,
+                           torch.float32, "cuda", True, shift=4.0)
+        for B in (1, BATCH):
+            d = [t if B == 1 else t.expand((B,) + t.shape[1:]).contiguous()
+                 for t in ins]
+            res["{}_B{}".format(name, B)] = CS.events_ms(
+                raw_k1_block(d, 10.0), 200 if B == 1 else 50)
+        k, K, _ = bk.kernel_backward(*ins, reg=10.0)
+        saved[name + "_k"], saved[name + "_K"] = k.cpu(), K.cpu()
+    for name, nz, nu in CS.K1_WARP_NU4_TIMED:
+        ins = CS.k1_inputs(np.random.default_rng(nz), 1, H, nz, nu,
+                           torch.float32, "cuda", True, shift=4.0)
+        for B in (1, BATCH):
+            d = [t if B == 1 else t.expand((B,) + t.shape[1:]).contiguous()
+                 for t in ins]
+            res["warp_{}_B{}".format(name, B)] = CS.events_ms(
+                CS.raw_k1(d, 10.0), 200 if B == 1 else 50)
+    for _ in range(2):  # the first call also warms the process up
+        r = CS.entry_point("rendezvous", "FULL_COVARIANCE_MATRIX", "cuda",
+                           torch.float32, "kernel", True)
+    res.update({"entry_fit_ms": r["fit_ms"],
+                "entry_tick_ms": statistics.median(r["tick_ms"]),
+                "entry_evals": sum(r["evals"])})
+    torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, label + "_k1.pt"))
+    return res
+
+
+def k1_output_differences(out_dir):
+    """The largest |parent - change| of each saved gain, relative to the
+    largest gain (the first turn of each side)."""
+    import torch
+    a = torch.load(os.path.join(out_dir, "parent_k1.pt"))
+    b = torch.load(os.path.join(out_dir, "change_k1.pt"))
+    return {k: float((a[k] - b[k]).abs().max() / a[k].abs().max())
+            for k in sorted(a)}
+
+
 def output_differences(out_dir):
     """The largest |parent - change| of each saved output (the first turn
     of each side), and of K2(d)'s first step alone: U and AUX of step 0,
@@ -300,7 +384,8 @@ def output_differences(out_dir):
     return out
 
 
-def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None):
+def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
+         k1_block=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import pddp_tpu_torch
@@ -316,7 +401,12 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None):
     _build.build_all()
     build_s = time.perf_counter() - t0
     out = {"tree": label, "build_s": build_s, "k1": {}, "k2": {},
-           "paths": {}, "bnn": {}}
+           "paths": {}, "bnn": {}, "k1_block": {}}
+    if k1_block:
+        out["k1_block"] = k1_block_times(label, out_dir)
+        out["seconds"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+        return
     if not main_path_only:
         out["bnn"] = bnn_times(label, out_dir)
     if bnn_only:
@@ -364,6 +454,8 @@ def main():
                     help="time the wrappers and the main path alone")
     ap.add_argument("--bnn-only", action="store_true",
                     help="time K2(d) and F3 alone")
+    ap.add_argument("--k1-block", action="store_true",
+                    help="time K1's block kernel and the entry point alone")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "ab"),
                     help="where the turns save their outputs")
     args = ap.parse_args()
@@ -373,7 +465,7 @@ def main():
         return 1
     if args.tree:
         turn(args.tree, args.label, args.main_path_only, args.bnn_only,
-             args.out)
+             args.out, args.k1_block)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -390,7 +482,8 @@ def main():
                                if first else os.path.join(
                                    os.path.abspath(args.out), "later")]
                               + ["--main-path-only"] * args.main_path_only
-                              + ["--bnn-only"] * args.bnn_only,
+                              + ["--bnn-only"] * args.bnn_only
+                              + ["--k1-block"] * args.k1_block,
                               capture_output=True, text=True,
                               cwd=trees[label])
         if proc.returncode != 0:
@@ -424,12 +517,17 @@ def main():
                         for s in first.get("host", {})},
                "bnn": {s: spread(lambda t: t["bnn"][s])
                        for s in first["bnn"]},
+               "k1_block": {s: spread(lambda t: t["k1_block"][s])
+                            for s in first["k1_block"]},
                "paths": {n: {s: spread(lambda t: t["paths"][n][s])
                              for s in ("iteration_ms", "solve_ms")
                              if s in first["paths"][n]}
                          for n in first["paths"]}}
     if first["bnn"]:
         summary["bnn_output_max_abs_diff"] = output_differences(args.out)
+    if first["k1_block"]:
+        summary["k1_block_gain_max_rel_diff"] = k1_output_differences(
+            args.out)
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

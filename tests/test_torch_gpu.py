@@ -388,6 +388,53 @@ def test_k1_block_kernel_on_card(cuda, dtype, nz, nu):
                 w.abs().max())
 
 
+# (nz, nu, cluster): K1's block kernel with a plan other than the
+# library's, so that every nu runs both one CTA a solve and a thread-block
+# cluster (chip_smoke.K1_BLOCK_FORCED).
+K1_BLOCK_PLANS = [(20, 1, 2), (27, 1, 4), (42, 1, 1), (3, 2, 2), (10, 3, 2),
+                  (44, 4, 1), (72, 4, 1), (72, 4, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nz,nu,cluster", K1_BLOCK_PLANS)
+def test_k1_block_kernel_plans_on_card(cuda, nz, nu, cluster, dtype):
+    """K1's block kernel with the cluster asked for, against backward as
+    test_k1_block_kernel_on_card holds the library's plan (the same
+    tolerances), and ok on a NaN in one solve."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-10 if nu == 1 else 1e-8
+    for seed, (B, N) in enumerate(BATCHES):
+        solves = [_riccati_inputs(100 * seed + b, N, nz, nu, indefinite=True)
+                  for b in range(B)]
+        ins = [torch.as_tensor(np.stack(a), dtype=dtype, device=cuda)
+               for a in zip(*solves)]
+        assert bk.launch_plan(nz, nu, dtype, B, cluster)["cluster"] == cluster
+        nb = bk.block_launches
+        k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0, cluster=cluster)
+        k_p, K_p, ok_p = backward(*ins, reg=10.0)
+        torch.cuda.synchronize()
+        assert bk.block_launches == nb + 1
+        assert bool(ok_k.all()) and bool(ok_p.all())
+        want = (k_p, K_p)
+        if dtype == torch.float32:
+            want = backward(*(t.double() for t in ins), reg=10.0)[:2]
+            plain = max(float((p.double() - w).abs().max() / w.abs().max())
+                        for p, w in zip((k_p, K_p), want))
+            assert plain <= 1e-3
+            for a, p in zip((k_k, K_k), (k_p, K_p)):
+                assert float((a - p).abs().max()) <= 1e-3 * float(
+                    p.abs().max())
+            tol = max(1e-4, 2.0 * plain)
+        for a, w in zip((k_k, K_k), want):
+            assert float((a.double() - w).abs().max()) <= tol * float(
+                w.abs().max())
+    ins = [torch.as_tensor(np.stack([a] * 3), dtype=dtype, device=cuda)
+           for a in _riccati_inputs(4, 20, nz, nu)]
+    ins[8][1, 7] = float("nan")
+    assert bk.kernel_backward(*ins, cluster=cluster)[2].tolist() == [
+        True, False, True]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k1_block_ok_false_on_nan_on_card(cuda, dtype):

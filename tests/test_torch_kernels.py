@@ -20,6 +20,7 @@ from pddp_tpu.examples.cartpole import CartpoleCost as JCost
 from pddp_tpu.examples.cartpole import CartpoleDynamicsModel as JModel
 from pddp_tpu.ops.backward_kernel import pallas_backward
 from pddp_tpu.ops.fused_rollout import fused_control_law as j_fused
+from pddp_tpu.utils.linalg import psd_inverse_clamped, small_eigh
 from pddp_tpu_torch.controllers.ilqr import (ILQROptions, control_law,
                                              default_fit_alphas, solve)
 from pddp_tpu_torch.encoding import StateEncoding, infer_encoded_state_size
@@ -243,3 +244,122 @@ def test_solve_sends_every_shape_to_k1(monkeypatch):
                     encoding=enc)
     assert z0.shape == (27,) and r.evals >= 1
     assert calls == [(3, 27, 27)] * r.evals and not scan
+
+
+# The Jacobi pair order of csrc/backward_kernel.cu:jacobi_pair (round robin).
+_JACOBI_PAIRS = {2: [(0, 1)], 3: [(0, 1), (0, 2), (1, 2)],
+                 4: [(0, 1), (2, 3), (0, 2), (1, 3), (0, 3), (1, 2)]}
+
+
+def _clamp_as_built(Q, dtype):
+    """csrc/backward_kernel.cu:clamped_inverse (nu = 2-4) in numpy at
+    dtype: Q scaled by a power of two to its largest entry in [0.5, 1), the
+    round-robin pairs, the rotation t = sgn(tau) |h| / (|d| + sqrt(d^2 + h^2))
+    with c = 1 / sqrt(1 + t^2), the exit after a sweep in which every
+    |a_pq| <= eps sqrt(|a_pp a_qq|), then E diag(1 / (max(e, 1e-12) + reg))
+    E^T. (The card's float32 reciprocal and reciprocal square root are
+    within an ulp of numpy's.) Returns (e, E, sweeps run); the clamp and
+    reg are ``_clamped_inverse``'s."""
+    nu = Q.shape[-1]
+    f = np.finfo(dtype)
+    one, zero = dtype(1), dtype(0)
+    max_exp = 120 if dtype == np.float32 else 1000
+    m = np.abs(np.triu(Q)).max()
+    ex = int(np.frexp(m)[1]) if 0 < m < np.inf else 0
+    ex = min(max(ex, -max_exp), max_exp)
+    a = (Q * np.ldexp(one, -ex)).astype(dtype)
+    v = np.eye(nu, dtype=dtype)
+    sweeps = 8 if dtype == np.float64 else 5
+    for sweep in range(1, sweeps + 1):
+        for p, q in _JACOBI_PAIRS[nu]:
+            app, aqq, apq = a[p, p], a[q, q], a[p, q]
+            live = apq != 0
+            d, h = aqq - app, dtype(2) * (apq if live else one)
+            x = max(d * d + h * h, f.tiny)
+            den = abs(d) + np.sqrt(x)
+            pos = d == 0 or (d > 0) == (h > 0)
+            t = (abs(h) if pos else -abs(h)) * (one / den)
+            c = one / np.sqrt(t * t + one)
+            s = t * c
+            if not live:
+                t, c, s = zero, one, zero
+            for k in range(nu):
+                if k not in (p, q):
+                    akp, akq = a[k, p], a[k, q]
+                    a[k, p] = a[p, k] = c * akp - s * akq
+                    a[k, q] = a[q, k] = s * akp + c * akq
+            a[p, p], a[q, q] = app - t * apq, aqq + t * apq
+            a[p, q] = a[q, p] = zero
+            vp, vq = v[:, p].copy(), v[:, q].copy()
+            v[:, p], v[:, q] = c * vp - s * vq, s * vp + c * vq
+        if all(a[p, q] * a[p, q] <= f.eps * f.eps * abs(a[p, p] * a[q, q])
+               for p in range(nu) for q in range(p + 1, nu)):
+            break
+    return np.diagonal(a) * np.ldexp(one, ex), v, sweep
+
+
+def _clamped_inverse(e, E, reg):
+    """E diag(1 / (max(e, 1e-12) + reg)) E^T over a batch, in e's type."""
+    w = e.dtype.type(1) / (np.where(e < 0, e.dtype.type(1e-12), e)
+                           + e.dtype.type(reg))
+    return (E * w[..., None, :]) @ np.swapaxes(E, -1, -2)
+
+
+def _clamp_inputs(nu, rng):
+    """Symmetric Q_uu of each kind, {kind: (n, nu, nu)}: positive definite
+    at three scales, indefinite, rank-deficient (of rank nu - 1, and with a
+    zero last row and column, whose zero eigenvalue is exact), and with
+    every eigenvalue within a few 1e-12 of zero (the floor decides), signs
+    mixed."""
+    def spectral(e):
+        E = np.linalg.qr(rng.standard_normal((len(e), nu, nu)))[0]
+        return (E * e[:, None, :]) @ np.swapaxes(E, -1, -2)
+    M = rng.standard_normal((6, nu, nu))
+    pd = M @ np.swapaxes(M, -1, -2) / nu + 0.1 * np.eye(nu)
+    sign = np.where(np.arange(nu) % 2 == 0, -1.0, 1.0)
+    R = rng.standard_normal((4, nu, nu - 1))
+    zero_row = pd[:3].copy()
+    zero_row[:, -1, :] = zero_row[:, :, -1] = 0.0
+    return {
+        "definite": np.concatenate([pd[:2], 1e6 * pd[2:4], 1e-6 * pd[4:]]),
+        "indefinite": spectral(sign * rng.uniform(0.1, 3.0, (4, nu))),
+        "rank_deficient": R @ np.swapaxes(R, -1, -2),
+        "zero_row": zero_row,
+        "near_floor": spectral(sign * rng.uniform(0.3e-12, 3e-12, (4, nu)))}
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-8), (np.float32, 1e-4)])
+@pytest.mark.parametrize("nu", [2, 3, 4])
+def test_k1_clamp_as_built_matches_pddp_tpu(nu, dtype, tol):
+    """The block kernel's clamped inverse of Q_uu, modelled in numpy,
+    against pddp_tpu's: psd_inverse_clamped (eigh) and the
+    small_eigh Jacobi, relative to the largest entry. reg in {0, 1e-6,
+    10}, but where the function itself is ill-posed: a zero eigenvalue
+    (rank-deficient) is computed as +-eps |Q| in either implementation, and
+    its sign moves the clamped value by 1e-12, so a rotated rank-deficient
+    Q_uu takes reg = 10 only (there 1e-13 relative) and the exact zero of
+    a zero row reg > 0 (1 / 0 at reg = 0)."""
+    inputs = _clamp_inputs(nu, np.random.default_rng(nu))
+    kinds = [k for k, Qs in inputs.items() for _ in Qs]
+    Qs = np.concatenate(list(inputs.values())).astype(dtype)
+    built = [_clamp_as_built(Q, dtype) for Q in Qs]
+    e, E = np.stack([b[0] for b in built]), np.stack([b[1] for b in built])
+    sweeps = [b[2] for b in built]
+    assert e.dtype == E.dtype == dtype
+    e_j, E_j = small_eigh(jnp.asarray(Qs), sort=False)
+    e_j, E_j = np.asarray(e_j, np.float64), np.asarray(E_j, np.float64)
+    for reg in (0.0, 1e-6, 10.0):
+        keep = np.array([not (k == "rank_deficient" and reg < 10.0
+                              or k == "zero_row" and reg == 0.0)
+                         for k in kinds])
+        got = _clamped_inverse(e, E, reg)[keep]
+        for ref in (np.asarray(psd_inverse_clamped(jnp.asarray(Qs),
+                                                   extra=reg)),
+                    _clamped_inverse(e_j, E_j, reg)):
+            ref = ref[keep]
+            scale = np.abs(ref).max(axis=(-1, -2), keepdims=True)
+            err = (np.abs(got - ref) / scale).max(axis=(-1, -2))
+            assert err.max() <= tol, (reg, kinds[int(np.argmax(err))],
+                                      float(err.max()))
+    # The exit takes effect: some inputs converge before the last sweep.
+    assert min(sweeps) < (8 if dtype == np.float64 else 5)
