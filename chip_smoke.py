@@ -356,15 +356,23 @@ def k1_chain_cycles_cyclic(nz, nu, dtype_name):
             + 2 * rotations * lat["sqrt"])
 
 
-# The kernels' Jacobi pair order (csrc/backward_kernel.cu:jacobi_pair).
+# The kernels' Jacobi pair order (csrc/backward_kernel.cu:jacobi_pair,
+# round robin: the two rotations of a round at nu = 4 are disjoint).
 JACOBI_PAIRS = {2: [(0, 1)], 3: [(0, 1), (0, 2), (1, 2)],
                 4: [(0, 1), (2, 3), (0, 2), (1, 3), (0, 3), (1, 2)]}
 
 
-def clamp_sweeps(Q, dtype_name):
-    """Sweeps the kernels' Jacobi runs on each symmetric Q (n, nu, nu)
-    before its exit test passes: a numpy replica, over the batch, of
-    clamped_inverse's scaling, pair order, rotation and test."""
+def clamp_as_built(Q, dtype_name):
+    """csrc/backward_kernel.cu:clamped_inverse (nu = 2-4) in numpy, over a
+    batch of symmetric Q (n, nu, nu) in the run's type: Q scaled by a power
+    of two to its largest entry in [0.5, 1), the round-robin pairs, the
+    rotation t = sgn(tau) |h| / (|d| + sqrt(d^2 + h^2)) with
+    c = 1 / sqrt(1 + t^2), and each Q's exit after a sweep in which every
+    |a_pq| <= eps sqrt(|a_pp a_qq|). (The card's float32 reciprocal and
+    reciprocal square root are within an ulp of numpy's.) Returns the
+    eigenvalues e (n, nu), the eigenvectors E (n, nu, nu) and the sweeps
+    each Q ran (n,); the clamped inverse is E diag(1 / (max(e, 1e-12) +
+    reg)) E^T."""
     dt = np.float32 if dtype_name == "float32" else np.float64
     f, one = np.finfo(dt), dt(1)
     Q = np.asarray(Q, dt)
@@ -373,8 +381,9 @@ def clamp_sweeps(Q, dtype_name):
     max_exp = 120 if dt == np.float32 else 1000
     m = np.abs(np.triu(Q)).max(axis=(-1, -2))
     ex = np.where((m > 0) & np.isfinite(m), np.frexp(m)[1], 0)
-    a = Q * np.ldexp(one, -np.clip(ex, -max_exp, max_exp))[:, None, None]
-    a = a.astype(dt)
+    ex = np.clip(ex, -max_exp, max_exp)
+    a = (Q * np.ldexp(one, -ex).astype(dt)[:, None, None]).astype(dt)
+    v = np.broadcast_to(np.eye(nu, dtype=dt), (n, nu, nu)).copy()
     done = np.full(n, full)
     active = np.ones(n, bool)
     for sweep in range(1, full + 1):
@@ -388,16 +397,21 @@ def clamp_sweeps(Q, dtype_name):
             t = np.where(pos, np.abs(h), -np.abs(h)) * (one / den)
             c = one / np.sqrt(t * t + one)
             s = t * c
-            t, c, s = (np.where(live, t, 0).astype(dt),
-                       np.where(live, c, 1).astype(dt),
-                       np.where(live, s, 0).astype(dt))
+            # A Q that has exited, or whose a_pq is zero, is left as it is.
+            turn = live & active
+            t, c, s = (np.where(turn, t, 0).astype(dt),
+                       np.where(turn, c, 1).astype(dt),
+                       np.where(turn, s, 0).astype(dt))
             for k in range(nu):
                 if k not in (p, q):
                     akp, akq = a[:, k, p].copy(), a[:, k, q].copy()
                     a[:, k, p] = a[:, p, k] = c * akp - s * akq
                     a[:, k, q] = a[:, q, k] = s * akp + c * akq
             a[:, p, p], a[:, q, q] = app - t * apq, aqq + t * apq
-            a[:, p, q] = a[:, q, p] = 0
+            a[:, p, q] = a[:, q, p] = np.where(active, 0, apq)
+            vp, vq = v[:, :, p].copy(), v[:, :, q].copy()
+            v[:, :, p] = c[:, None] * vp - s[:, None] * vq
+            v[:, :, q] = s[:, None] * vp + c[:, None] * vq
         conv = np.ones(n, bool)
         for p in range(nu):
             for q in range(p + 1, nu):
@@ -405,13 +419,15 @@ def clamp_sweeps(Q, dtype_name):
                          <= f.eps * f.eps * np.abs(a[:, p, p] * a[:, q, q]))
         done[active & conv] = sweep
         active &= ~conv
-    return done
+    e = (np.diagonal(a, axis1=-2, axis2=-1)
+         * np.ldexp(one, ex).astype(dt)[:, None]).astype(dt)
+    return e, v, done
 
 
 def k1_sweeps(derivs, reg, dtype_name="float32"):
     """The mean sweeps of the kernels' Jacobi over the steps of solve 0 of
     these K1 inputs: Q_uu of every step from the plain recursion (float64,
-    numpy), then clamp_sweeps in the run's type. None at nu = 1."""
+    numpy), then clamp_as_built in the run's type. None at nu = 1."""
     Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu = [
         t.detach().double().cpu().numpy() for t in derivs]
     if F_z.ndim == 4:
@@ -435,7 +451,7 @@ def k1_sweeps(derivs, reg, dtype_name="float32"):
         v = Qz + K.T @ Quu @ k + K.T @ Qu + Quz.T @ k
         V = Qzz + K.T @ Quu @ K + K.T @ Quz + Quz.T @ K
         V = (V + V.T) / 2
-    return float(clamp_sweeps(np.stack(quu), dtype_name).mean())
+    return float(clamp_as_built(np.stack(quu), dtype_name)[2].mean())
 
 
 # Peak multiply-adds a cycle of one SM (4 sub-partitions; the H100's
@@ -762,10 +778,10 @@ def phase1_k1_block():
                                 rel_err(K_p.double(), K64)[1])
                     tol0 = max(tol0, 2.0 * plain)
                 for cluster in clusters:
-                    plan = bk.launch_plan(nz, nu, dtype, B, cluster)
+                    plan = bk.launch_plan(nz, nu, dtype, B, _cluster=cluster)
                     n = bk.block_launches
                     k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0,
-                                                        cluster=cluster)
+                                                        _cluster=cluster)
                     torch.cuda.synchronize()
                     row = {"B": B, "N": N, "nz": nz, "nu": nu,
                            "dtype": dname, "cluster_asked": cluster,
@@ -2125,6 +2141,9 @@ ENTRY_ITERATIONS, ENTRY_TICKS = 4, 3
 # golden tests' tolerances (J rtol 1e-6; Z, U and the ticks' controls
 # rtol 1e-5, atol 1e-7).
 ENTRY_TOL = {"J_rtol": 1e-6, "rtol": 1e-5, "atol": 1e-7}
+# The float32 fits' J through the kernels against the plain backward's:
+# phase 4's float32 J tolerance.
+ENTRY_F32_J_RTOL = 1e-5
 # The shapes timed through the kernels and through the plain backward.
 ENTRY_TIMED = ("rendezvous_chol", "rendezvous_full")
 
@@ -2191,7 +2210,7 @@ def phase14_entry_point(card):
     float64; K1 against its plain version at the fitted local model; then
     in float32 the fit's and a tick's wall at ENTRY_TIMED, through the
     kernels and through the plain backward (K2 kept), in alternating
-    turns."""
+    turns, each fit's J held against the plain backward's."""
     import torch
     from pddp_tpu_torch.controllers.ilqr import backward, local_model
     from pddp_tpu_torch.encoding import StateEncoding
@@ -2283,8 +2302,17 @@ def phase14_entry_point(card):
                             "kernel" if kernels else "scan", True)
             turns["kernels" if kernels else "plain_backward"].append(
                 {"fit_ms": r["fit_ms"], "tick_ms": r["tick_ms"],
-                 "evals": r["evals"], "state": r["state"]})
+                 "evals": r["evals"], "state": r["state"],
+                 "J": float(r["J"])})
         timed[label] = turns
+        # Where the rendezvous tie ends the solve (MAX_REG or CONVERGED)
+        # may differ; the cost it ends at may not.
+        ref = turns["plain_backward"][0]["J"]
+        for r in turns["kernels"] + turns["plain_backward"]:
+            check(np.isfinite(r["J"]) and abs(r["J"] - ref)
+                  <= ENTRY_F32_J_RTOL * abs(ref),
+                  "{}: the float32 fit's J {} differs from the plain "
+                  "backward's {}".format(label, r, ref))
     res = {"phase": 14, "card": card, "cases": rows,
            "launches": counts_total, "K1_block_max_abs_err": block_abs,
            "timed_float32": timed, "seconds": time.perf_counter() - t0}
@@ -2411,16 +2439,12 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry):
                            "plain_ms": r["plain_ms"],
                            "bound_ms": r["bound_ms"],
                            "bound_by": r["bound_by"],
-                           "chain_floor_cyclic_clamp_ms":
-                               r["chain_floor_cyclic_clamp_ms"],
-                           "c_sm_ms": r["c_sm_ms"],
                            "plan": r["plan"],
                            "plan_B64": block[(label, 64)]["plan"]}
                    for (label, B), r in block.items() if B == 1}})
-    # The warp kernel's nu = 4 instances, beside the shorter clamp's bound.
+    # The warp kernel's nu = 4 instances.
     kernels[0]["nu4"] = {"{}_B{}".format(r["path"], r["B"]): {
         "nz": r["nz"], "ms": r["ms"], "bound_ms": r["bound_ms"],
-        "chain_floor_cyclic_clamp_ms": r["chain_floor_cyclic_clamp_ms"],
         "plain_ms": r.get("plain_ms")}
         for r in times if r["kernel"] == "K1 warp"}
     return {"kernels": kernels}

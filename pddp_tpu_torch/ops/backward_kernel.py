@@ -85,15 +85,16 @@ def _function(dtype, block=False):
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(nz, nu, dtype, B=1, cluster=None):
+def launch_plan(nz, nu, dtype, B=1, *, _cluster=None):
     """The launch the library plans for B solves at (nz, nu): {"kernel":
     "warp" or "block"}, and for the block kernel its CTAs a solve
     ("cluster", 1 without a cluster), its tile (a thread's "tile" x "tile"
     outputs), "threads" a CTA, "smem_bytes" a CTA and the "scratch_elems"
     a solve needs (0: the workspace is in shared memory), and "stage_l",
-    whether a step's L terms are staged in shared memory. ``cluster`` asks
-    for another cluster than the library's own (tests; the library refuses
-    one that does not fit). Asks the card (the cluster's occupancy)."""
+    whether a step's L terms are staged in shared memory. Asks the card
+    (the cluster's occupancy). ``_cluster`` is for the checks only (the card tests, chip_smoke.py): it
+    asks for another cluster than the library's (the library refuses one
+    that does not fit)."""
     if (nz, nu) in INSTANCES:
         return {"kernel": "warp"}
     lib = load_library("backward_kernel")
@@ -102,26 +103,26 @@ def launch_plan(nz, nu, dtype, B=1, cluster=None):
     lib.pddp_riccati_block_plan.restype = ctypes.c_int
     out = (ctypes.c_long * 6)()
     itemsize = torch.empty((), dtype=dtype).element_size()
-    err = lib.pddp_riccati_block_plan(nz, nu, itemsize, B, cluster or 0,
+    err = lib.pddp_riccati_block_plan(nz, nu, itemsize, B, _cluster or 0,
                                       out)
     if err != 0:
         raise RuntimeError("K1 block kernel: no plan for nz={}, nu={}, "
                            "B={}, cluster={}: CUDA error {}".format(
-                               nz, nu, B, cluster, err))
+                               nz, nu, B, _cluster, err))
     return {"kernel": "block", "cluster": out[0], "tile": out[1],
             "threads": out[2], "smem_bytes": out[3],
             "scratch_elems": out[4], "stage_l": bool(out[5])}
 
 
 def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
-                    cluster=None):
+                    _cluster=None):
     """Riccati backward at any nz with nu <= 4; the interface and returns
     of ``controllers.ilqr.backward`` (unconstrained).
 
     Inputs may carry one leading batch dim B (a batch of solves: a warp
     each at the shapes of ``INSTANCES``, else a block or a cluster each).
-    ``reg`` is a host scalar. ``cluster`` overrides the block kernel's
-    plan (``launch_plan``); None takes the library's.
+    ``reg`` is a host scalar. ``_cluster`` is for the checks only (the card tests, chip_smoke.py): it
+    overrides the block kernel's plan (``launch_plan``).
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool).
@@ -167,12 +168,13 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
         # Freed on return: the caching allocator hands it out again only
         # on this stream, after the kernel.
         with torch.cuda.device(device):
-            elems = launch_plan(nz, nu, dtype, B, cluster)["scratch_elems"]
+            elems = launch_plan(nz, nu, dtype, B,
+                                _cluster=_cluster)["scratch_elems"]
         scratch = (torch.empty((B, elems), dtype=dtype, device=device)
                    if elems else None)
         outs.append(None if scratch is None else scratch.data_ptr())
     fn = _function(dtype, block)
-    plan = (B, N, nz, nu) + ((cluster or 0,) if block else ())
+    plan = (B, N, nz, nu) + ((_cluster or 0,) if block else ())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(t.data_ptr() for t in ins), float(reg), *outs, *plan,

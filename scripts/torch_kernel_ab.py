@@ -41,9 +41,13 @@ block kernel alone at the belief codecs' widths (``chip_smoke.
 K1_BLOCK_TIMED``: nz = 20, 27, 42 at nu = 1, 44 and 72 at nu = 4; phase
 13's inputs, H=200, reg=10) for one solve and for 64, each turn saving its
 gains at B=1 for the summary's largest parent-change difference, the warp
-kernel's nu = 4 instances (``chip_smoke.K1_WARP_NU4_TIMED``), and the
+kernel's nu = 4 instances (``chip_smoke.K1_WARP_NU4_TIMED``), the
 entry point's float32 fit and MPC ticks at rendezvous under the full
-covariance (``chip_smoke.entry_point``, phase 14's configuration):
+covariance (``chip_smoke.entry_point``, phase 14's configuration), and
+where the entry point's rendezvous solves end (state, J, evaluations) in
+float64 and float32 through the kernels, the plain backward on the card
+and the plain versions on the CPU (``entry_ends``, each side's first
+turn):
 
     python3 scripts/torch_kernel_ab.py --parent build/parent --k1-block \
         --order change,parent,parent,change,change,parent,parent,change
@@ -356,6 +360,30 @@ def k1_block_times(label, out_dir):
     return res
 
 
+def entry_ends():
+    """Where the entry point's solves end at chip_smoke.ENTRY_TIMED
+    (rendezvous under both codecs), in float64 and float32: through the
+    kernels on the card, through the plain backward on the card (K2 kept)
+    and through the plain versions on the CPU. For each, the fit's end
+    state, J and evaluations, then the ticks' evaluations and states."""
+    import torch
+    out = {}
+    for label, ex, codec in CS.ENTRY_CASES:
+        if label not in CS.ENTRY_TIMED:
+            continue
+        for dname in ("float64", "float32"):
+            for run, device, mode, fused in (
+                    ("kernels", "cuda", "kernel", True),
+                    ("card_plain_backward", "cuda", "scan", True),
+                    ("cpu_plain", "cpu", "scan", False)):
+                r = CS.entry_point(ex, codec, device, getattr(torch, dname),
+                                   mode, fused)
+                out["{}_{}_{}".format(label, dname, run)] = {
+                    "state": r["state"], "J": float(r["J"]),
+                    "evals": r["evals"], "tick_states": r["tick_states"]}
+    return out
+
+
 def k1_output_differences(out_dir):
     """The largest |parent - change| of each saved gain, relative to the
     largest gain (the first turn of each side)."""
@@ -385,7 +413,7 @@ def output_differences(out_dir):
 
 
 def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
-         k1_block=False):
+         k1_block=False, ends=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import pddp_tpu_torch
@@ -404,6 +432,8 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
            "paths": {}, "bnn": {}, "k1_block": {}}
     if k1_block:
         out["k1_block"] = k1_block_times(label, out_dir)
+        if ends:
+            out["entry_ends"] = entry_ends()
         out["seconds"] = time.perf_counter() - t0
         print(json.dumps(out), flush=True)
         return
@@ -456,6 +486,9 @@ def main():
                     help="time K2(d) and F3 alone")
     ap.add_argument("--k1-block", action="store_true",
                     help="time K1's block kernel and the entry point alone")
+    ap.add_argument("--ends", action="store_true",
+                    help="with --k1-block: also where the entry point's "
+                    "rendezvous solves end (a side's first turn)")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "ab"),
                     help="where the turns save their outputs")
     args = ap.parse_args()
@@ -465,7 +498,7 @@ def main():
         return 1
     if args.tree:
         turn(args.tree, args.label, args.main_path_only, args.bnn_only,
-             args.out, args.k1_block)
+             args.out, args.k1_block, args.ends)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -483,7 +516,8 @@ def main():
                                    os.path.abspath(args.out), "later")]
                               + ["--main-path-only"] * args.main_path_only
                               + ["--bnn-only"] * args.bnn_only
-                              + ["--k1-block"] * args.k1_block,
+                              + ["--k1-block"] * args.k1_block
+                              + ["--ends"] * (args.k1_block and first),
                               capture_output=True, text=True,
                               cwd=trees[label])
         if proc.returncode != 0:
@@ -528,6 +562,8 @@ def main():
     if first["k1_block"]:
         summary["k1_block_gain_max_rel_diff"] = k1_output_differences(
             args.out)
+        summary["entry_ends"] = {t["tree"]: t["entry_ends"] for t in turns
+                                 if "entry_ends" in t}
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

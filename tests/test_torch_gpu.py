@@ -408,9 +408,9 @@ def test_k1_block_kernel_plans_on_card(cuda, nz, nu, cluster, dtype):
                   for b in range(B)]
         ins = [torch.as_tensor(np.stack(a), dtype=dtype, device=cuda)
                for a in zip(*solves)]
-        assert bk.launch_plan(nz, nu, dtype, B, cluster)["cluster"] == cluster
+        assert bk.launch_plan(nz, nu, dtype, B, _cluster=cluster)["cluster"] == cluster
         nb = bk.block_launches
-        k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0, cluster=cluster)
+        k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=10.0, _cluster=cluster)
         k_p, K_p, ok_p = backward(*ins, reg=10.0)
         torch.cuda.synchronize()
         assert bk.block_launches == nb + 1
@@ -431,7 +431,7 @@ def test_k1_block_kernel_plans_on_card(cuda, nz, nu, cluster, dtype):
     ins = [torch.as_tensor(np.stack([a] * 3), dtype=dtype, device=cuda)
            for a in _riccati_inputs(4, 20, nz, nu)]
     ins[8][1, 7] = float("nan")
-    assert bk.kernel_backward(*ins, cluster=cluster)[2].tolist() == [
+    assert bk.kernel_backward(*ins, _cluster=cluster)[2].tolist() == [
         True, False, True]
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import clamp_as_built
 from pddp_tpu.controllers.ilqr import default_fit_alphas as j_alphas
 from pddp_tpu.encoding import StateEncoding as JEnc
 from pddp_tpu.examples.cartpole import CartpoleCost as JCost
@@ -246,58 +247,6 @@ def test_solve_sends_every_shape_to_k1(monkeypatch):
     assert calls == [(3, 27, 27)] * r.evals and not scan
 
 
-# The Jacobi pair order of csrc/backward_kernel.cu:jacobi_pair (round robin).
-_JACOBI_PAIRS = {2: [(0, 1)], 3: [(0, 1), (0, 2), (1, 2)],
-                 4: [(0, 1), (2, 3), (0, 2), (1, 3), (0, 3), (1, 2)]}
-
-
-def _clamp_as_built(Q, dtype):
-    """csrc/backward_kernel.cu:clamped_inverse (nu = 2-4) in numpy at
-    dtype: Q scaled by a power of two to its largest entry in [0.5, 1), the
-    round-robin pairs, the rotation t = sgn(tau) |h| / (|d| + sqrt(d^2 + h^2))
-    with c = 1 / sqrt(1 + t^2), the exit after a sweep in which every
-    |a_pq| <= eps sqrt(|a_pp a_qq|), then E diag(1 / (max(e, 1e-12) + reg))
-    E^T. (The card's float32 reciprocal and reciprocal square root are
-    within an ulp of numpy's.) Returns (e, E, sweeps run); the clamp and
-    reg are ``_clamped_inverse``'s."""
-    nu = Q.shape[-1]
-    f = np.finfo(dtype)
-    one, zero = dtype(1), dtype(0)
-    max_exp = 120 if dtype == np.float32 else 1000
-    m = np.abs(np.triu(Q)).max()
-    ex = int(np.frexp(m)[1]) if 0 < m < np.inf else 0
-    ex = min(max(ex, -max_exp), max_exp)
-    a = (Q * np.ldexp(one, -ex)).astype(dtype)
-    v = np.eye(nu, dtype=dtype)
-    sweeps = 8 if dtype == np.float64 else 5
-    for sweep in range(1, sweeps + 1):
-        for p, q in _JACOBI_PAIRS[nu]:
-            app, aqq, apq = a[p, p], a[q, q], a[p, q]
-            live = apq != 0
-            d, h = aqq - app, dtype(2) * (apq if live else one)
-            x = max(d * d + h * h, f.tiny)
-            den = abs(d) + np.sqrt(x)
-            pos = d == 0 or (d > 0) == (h > 0)
-            t = (abs(h) if pos else -abs(h)) * (one / den)
-            c = one / np.sqrt(t * t + one)
-            s = t * c
-            if not live:
-                t, c, s = zero, one, zero
-            for k in range(nu):
-                if k not in (p, q):
-                    akp, akq = a[k, p], a[k, q]
-                    a[k, p] = a[p, k] = c * akp - s * akq
-                    a[k, q] = a[q, k] = s * akp + c * akq
-            a[p, p], a[q, q] = app - t * apq, aqq + t * apq
-            a[p, q] = a[q, p] = zero
-            vp, vq = v[:, p].copy(), v[:, q].copy()
-            v[:, p], v[:, q] = c * vp - s * vq, s * vp + c * vq
-        if all(a[p, q] * a[p, q] <= f.eps * f.eps * abs(a[p, p] * a[q, q])
-               for p in range(nu) for q in range(p + 1, nu)):
-            break
-    return np.diagonal(a) * np.ldexp(one, ex), v, sweep
-
-
 def _clamped_inverse(e, E, reg):
     """E diag(1 / (max(e, 1e-12) + reg)) E^T over a batch, in e's type."""
     w = e.dtype.type(1) / (np.where(e < 0, e.dtype.type(1e-12), e)
@@ -331,7 +280,8 @@ def _clamp_inputs(nu, rng):
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-8), (np.float32, 1e-4)])
 @pytest.mark.parametrize("nu", [2, 3, 4])
 def test_k1_clamp_as_built_matches_pddp_tpu(nu, dtype, tol):
-    """The block kernel's clamped inverse of Q_uu, modelled in numpy,
+    """The block kernel's clamped inverse of Q_uu, modelled in numpy
+    (chip_smoke.clamp_as_built, whose sweep counts set K1's bound there),
     against pddp_tpu's: psd_inverse_clamped (eigh) and the
     small_eigh Jacobi, relative to the largest entry. reg in {0, 1e-6,
     10}, but where the function itself is ill-posed: a zero eigenvalue
@@ -342,9 +292,7 @@ def test_k1_clamp_as_built_matches_pddp_tpu(nu, dtype, tol):
     inputs = _clamp_inputs(nu, np.random.default_rng(nu))
     kinds = [k for k, Qs in inputs.items() for _ in Qs]
     Qs = np.concatenate(list(inputs.values())).astype(dtype)
-    built = [_clamp_as_built(Q, dtype) for Q in Qs]
-    e, E = np.stack([b[0] for b in built]), np.stack([b[1] for b in built])
-    sweeps = [b[2] for b in built]
+    e, E, sweeps = clamp_as_built(Qs, np.dtype(dtype).name)
     assert e.dtype == E.dtype == dtype
     e_j, E_j = small_eigh(jnp.asarray(Qs), sort=False)
     e_j, E_j = np.asarray(e_j, np.float64), np.asarray(E_j, np.float64)
