@@ -21,8 +21,15 @@ their bounds, K2(d) at the BNN iteration's for 1 and 64 solves, and K1's
 block kernel at the belief codecs' widths. Phase 14 drives the entry
 point, ``iLQRController.fit`` and three ``forward(mpc=True)`` ticks,
 through K1 and K2 on the four examples under the Cholesky codec and two
-under the full covariance, against the plain versions on the CPU. Each
-phase prints one JSON line; any failure raises and exits non-zero. The
+under the full covariance, against the plain versions on the CPU. Phase
+15 runs the PDDP episodic loop (``PDDPController``: exploration, BNN
+training with ``fit_bnn``, the iLQR fit on the learned belief model, MPC
+collection) at the examples' full width: one trial on the card against
+the CPU in float64, examples/experiment.py's cartpole trial timed in
+float32 with K1 and K2(d) checked on the model it trained,
+scripts/make_trained_bnn.py's training recipe, and the learning test's
+pendulum run. The timed kernel-versus-plain comparisons take one turn
+each. Each phase prints one JSON line; any failure raises and exits non-zero. The
 run's seconds, the card line, the kernels line and, last,
 ``{"ok": true, "device": {...}}`` close it. Without a CUDA device it
 exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
@@ -85,6 +92,11 @@ K1_BLOCK_FORCED = [(20, 1, 2), (27, 1, 4), (42, 1, 1), (3, 2, 2),
                    (10, 3, 2), (44, 4, 1), (72, 4, 1), (72, 4, 8)]
 
 
+# The turns of the timed kernel-versus-plain comparisons (phases 5, 8, 12
+# and 14): one each, kernels first. The plain sides run 3-35x slower, far
+# past the spread of repeated turns.
+TURNS = (True, False)
+
 # (B, N) of the batched kernel cases (phases 1, 2 and 10): one solve of
 # one step, a ragged block of three, a full batch at the bench horizon.
 BATCHES = [(1, 1), (3, 37), (64, 200)]
@@ -141,16 +153,21 @@ def events_ms(fn, repeats, warmup=3):
     return start.elapsed_time(end) / repeats
 
 
-def device_profile(fn):
+def device_profile(fn, host_ops=True):
     """One call of ``fn`` under torch.profiler: the wall time, the device
     time summed over its kernels, the idle share, and the kernels that
-    took the most device time (names cut to 90 characters)."""
+    took the most device time (names cut to 90 characters). Without
+    ``host_ops`` the profiler records the device's activity alone: a call
+    of tens of thousands of launches then takes seconds, not tens of
+    seconds, to read back."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1032,11 +1049,12 @@ def phase5_main_path(card):
             cost_in_scan=True), 20),
     }
 
-    # End-to-end metrics, kernels and plain versions in alternating turns.
+    # End-to-end metrics, kernels and plain versions in turns (one each:
+    # the plain full solve takes ~25 s, and the two differ ~35x).
     turns = {"kernels": {"iteration_ms": [], "full_solve_ms": [ms_first]},
              "plain": {"iteration_ms": [], "full_solve_ms": []}}
     evals = {"kernels": r_main.evals}
-    for kernels in (True, False, False, True):
+    for kernels in TURNS:
         key = "kernels" if kernels else "plain"
         # The plain iteration takes ~0.3 s: ten of them make its mean.
         turns[key]["iteration_ms"].append(events_ms(
@@ -1452,7 +1470,7 @@ def phase8_bnn_iteration(card):
     }
 
     turns = {"kernels": [], "plain": []}
-    for kernels in (True, False, False, True):
+    for kernels in TURNS:
         turns["kernels" if kernels else "plain"].append(
             events_ms(lambda: iteration(kernels), 5, warmup=1))
     profile = device_profile(lambda: iteration(True))
@@ -1488,23 +1506,22 @@ def phase9_bnn_solve(card):
     cost = CartpoleCost(device="cuda", dtype=dtype)
     z0, U0 = bnn_start(torch, dtype, N)
     opts = ILQROptions(n_iterations=5, max_evals=15, riccati_mode="kernel")
-    runs = []
-    for _ in range(2):
-        bk.launches = 0
-        k2d = fb.launches["rollout"]
-        t0 = time.perf_counter()
-        r = solve(model, cost, z0, U0, opts,
-                  encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
-        torch.cuda.synchronize()
-        runs.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
-                     "state": r.state.name, "iterations": r.iterations,
-                     "evals": r.evals, "J": r.J_opt, "mu": r.mu,
-                     "K1_launches": bk.launches,
-                     "K2(d)_launches": fb.launches["rollout"] - k2d})
-        check(r.evals >= 1 and bk.launches == r.evals
-              and runs[-1]["K2(d)_launches"] == 0
-              and bool(torch.isfinite(r.Z).all())
-              and np.isfinite(r.J_opt), "BNN solve: {}".format(runs[-1]))
+    # One solve: a second one gave the same result to the bit.
+    bk.launches = 0
+    k2d = fb.launches["rollout"]
+    t0 = time.perf_counter()
+    r = solve(model, cost, z0, U0, opts,
+              encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
+    torch.cuda.synchronize()
+    runs = [{"wall_ms": 1e3 * (time.perf_counter() - t0),
+             "state": r.state.name, "iterations": r.iterations,
+             "evals": r.evals, "J": r.J_opt, "mu": r.mu,
+             "K1_launches": bk.launches,
+             "K2(d)_launches": fb.launches["rollout"] - k2d}]
+    check(r.evals >= 1 and bk.launches == r.evals
+          and runs[-1]["K2(d)_launches"] == 0
+          and bool(torch.isfinite(r.Z).all())
+          and np.isfinite(r.J_opt), "BNN solve: {}".format(runs[-1]))
     emit({"phase": 9, "card": card, "dtype": "float32", "N": N,
           "runs": runs})
     return runs
@@ -1919,7 +1936,7 @@ def example_path(card, label, ex, codec):
         H)[:2]
 
     turns = {"kernels": [], "plain": []}
-    for kernels in (True, False, False, True):
+    for kernels in TURNS:
         turns["kernels" if kernels else "plain"].append(events_ms(
             lambda: iteration(kernels), 10 if kernels else 1,
             warmup=2 if kernels else 0))
@@ -2011,6 +2028,11 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
 
     rows = [k1_row("bnn", bnn_k1["derivs"], bnn_k1["reg"], B)
             for B in (1, 64)]
+    # The plain backward at the BNN's shape: the scan the PDDP loop runs
+    # on every evaluation (pddp_tpu's loop keeps K1 off).
+    from pddp_tpu_torch.controllers.ilqr import backward
+    rows[0]["plain_ms"] = events_ms(
+        lambda: backward(*bnn_k1["derivs"], reg=bnn_k1["reg"]), 20)
     model = bnn_k1["model"]
     *ins, bnn_alphas = bnn_k1["rollout_args"]
     N, nz = ins[1].shape[1], ins[0].shape[-1]
@@ -2096,7 +2118,9 @@ def k1_block_times():
     for label, nz, nu in K1_BLOCK_TIMED + K1_WARP_NU4_TIMED:
         ins = k1_inputs(np.random.default_rng(nz), 1, 200, nz, nu,
                         torch.float32, "cuda", True, shift=4.0)
-        plain_ms = events_ms(lambda: backward(*ins, reg=10.0), 1, warmup=1)
+        # One call, no warm-up (the plain backward ran in phase 1; a
+        # warm-up call costs 6 s at nz = 44 and 72).
+        plain_ms = events_ms(lambda: backward(*ins, reg=10.0), 1, warmup=0)
         sweeps = k1_sweeps(ins, 10.0)
         for B in (1, 64):
             d = [t if B == 1 else t.expand((B,) + t.shape[1:]).contiguous()
@@ -2297,7 +2321,7 @@ def phase14_entry_point(card):
         if label not in ENTRY_TIMED:
             continue
         turns = {"kernels": [], "plain_backward": []}
-        for kernels in (True, False, False, True):
+        for kernels in TURNS:
             r = entry_point(ex, codec, "cuda", torch.float32,
                             "kernel" if kernels else "scan", True)
             turns["kernels" if kernels else "plain_backward"].append(
@@ -2320,7 +2344,502 @@ def phase14_entry_point(card):
     return res
 
 
-def phase6_kernels(res, bnn, bnn_model_, paths, times, entry):
+# ---------------------------------------------------------------------------
+# Phase 15: the PDDP episodic loop (PDDPController, BNN training)
+# ---------------------------------------------------------------------------
+
+# examples/experiment.py's configuration: dt, hidden widths, particles,
+# action bound of the cartpole, training recipe.
+PDDP_DT, PDDP_HIDDEN, PDDP_P, PDDP_UMAX = 0.1, [200, 200], 100, 10.0
+PDDP_TRAINING = {"n_iter": 500, "learning_rate": 1e-3}
+# 15a and 15b run the MPC trial's first 10 ticks of 2N (a tick takes
+# ~0.7 s in 15a's float64 and ~1.2 s in 15b's float32, host-bound).
+PDDP_MPC_TICKS = 10
+# 15a: one trial on the card and on the CPU, float64, the same numpy-made
+# draws; held within 1e-8 (max |card - CPU| / max |CPU| of each array):
+# both do the same arithmetic in another order of sums, through 20
+# optimizer steps, 3 iterations and 10 MPC ticks (the seventh takes 10
+# evaluations).
+PDDP_15A = {"N": 10, "n_iter": 20, "n_iterations": 3}
+PDDP_15A_TOL = 1e-8
+# 15b: the experiment at N=25, cut to one trial and 10 iterations a fit.
+PDDP_15B = {"N": 25, "n_iterations": 10}
+PDDP_15B_J_RTOL = 1e-5   # the kernel fit's J against the scan fit's
+# 15c: scripts/make_trained_bnn.py's recipe, and twice the held-out error
+# that pddp_tpu's run recorded in tests/golden/trained_bnn_cartpole.npz.
+PDDP_15C = {"n_data": 4096, "n_iter": 4000, "batch_size": 128,
+            "learning_rate": 1e-3, "n_val": 512, "seed": 42}
+PDDP_15C_MAE_CAP = 2 * 0.04357742890715599
+# 15d: tests/controllers/test_pddp_learning.py's configuration, cut to
+# one MPC trial (max_trials 3 of 4: two exploration trials, then MPC).
+PDDP_15D = {"N": 15, "P": 30, "hidden": [64, 64], "n_iter": 400,
+            "max_trials": 3, "n_iterations": 15, "umax": 2.5}
+
+
+def pddp_problem(problem, device, dtype, N, hidden, P, seed=0):
+    """(env, cost, BNN model) of a SampleProblems name: the registry's
+    env and cost, and an untrained BNN of the problem's sizes and angles
+    (numpy seed ``seed``) with a noise table of 2N + 1 steps."""
+    from pddp_tpu_torch.examples.problems import SampleProblems
+    from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory
+    sp = SampleProblems[problem]
+    env, cost, _ = sp.setup(PDDP_DT, seed=seed, device=device, dtype=dtype)
+    mc = sp.get_model_class()
+    cls = bnn_dynamics_model_factory(env.state_size, env.action_size,
+                                     hidden, mc.angular_indices,
+                                     mc.non_angular_indices)
+    model = cls.init(seed=seed, n_particles=P, horizon=2 * N + 1,
+                     dtype=dtype, device=device)
+    return env, cost, model
+
+
+def numpy_draws(rng, model, N, n_init, n_mpc_trials, training,
+                max_dataset_size=1000):
+    """Every draw of a PDDPController.fit, made by numpy, in the loop's
+    order (see controllers/pddp.py): the exploration actions, the first
+    fit's batches and noise, then each MPC trial's resample and fit."""
+    nu = model.action_size
+    widths = [layer.W.shape[1] for layer in model.net.layers[:-1]]
+    n_iter, batch = training["n_iter"], training.get("batch_size", 128)
+
+    def fit(n_valid):
+        return ("fit", {
+            "batch_idx": rng.integers(0, n_valid, (n_iter, batch)),
+            "noise": [rng.uniform(1e-5, 1.0 - 1e-5, (n_iter, batch, w))
+                      for w in widths]})
+
+    shape = tuple(model.eps_in.shape)
+    draws = [("explore", rng.random((N, nu))) for _ in range(n_init - 1)]
+    rows = n_init * N
+    draws.append(fit(min(rows, max_dataset_size)))
+    for _ in range(n_mpc_trials):
+        draws.append(("resample", {
+            "eps_out": rng.standard_normal(shape),
+            "eps_in": rng.standard_normal(shape),
+            "net": [rng.uniform(1e-5, 1.0 - 1e-5, (model.n_particles, w))
+                    for w in widths]}))
+        rows += 2 * N
+        draws.append(fit(min(rows, max_dataset_size)))
+    return draws
+
+
+def recorded_pddp_fit(ctrl, U0, enc, umax, sync, **fit_kwargs):
+    """``ctrl.fit`` with its parts recorded and timed (host clock to
+    ``sync``): each collected trial's data, cost and wall; each model
+    fit and its wall; each iLQR fit's result and wall; each MPC tick's
+    wall and evaluations. Each MPC trial is cut to its first
+    ``PDDP_MPC_TICKS`` ticks (a shorter trial, not a sample of a longer
+    one)."""
+    rec = {"trials": [], "fits": [], "solves": [], "ticks": []}
+    apply_controller, fit_model = ctrl._apply_controller, ctrl._fit_model
+    solve, forward = ctrl._solve, ctrl.forward
+    in_mpc = [False]
+
+    def timed(fn, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def rec_apply(controller, H, *args, **kwargs):
+        in_mpc[0] = bool(kwargs.get("mpc"))
+        if in_mpc[0]:
+            H = min(H, PDDP_MPC_TICKS)
+        (data, J), ms = timed(apply_controller, controller, H, *args,
+                              **kwargs)
+        in_mpc[0] = False
+        rec["trials"].append({"data": data, "J": float(J), "ms": ms,
+                              "mpc": bool(kwargs.get("mpc"))})
+        return data, J
+
+    def rec_fit_model(*args, **kwargs):
+        model, ms = timed(fit_model, *args, **kwargs)
+        rec["fits"].append({"model": model, "ms": ms})
+        return model
+
+    def rec_solve(*args, **kwargs):
+        if in_mpc[0]:
+            return solve(*args, **kwargs)
+        result, ms = timed(solve, *args, **kwargs)
+        rec["solves"].append({"result": result, "ms": ms})
+        return result
+
+    def rec_forward(*args, **kwargs):
+        u, ms = timed(forward, *args, **kwargs)
+        rec["ticks"].append({"ms": ms, "evals": ctrl.last_result.evals})
+        return u
+
+    ctrl._apply_controller, ctrl._fit_model = rec_apply, rec_fit_model
+    ctrl._solve, ctrl.forward = rec_solve, rec_forward
+    (Z, U, state), rec["ms"] = timed(
+        ctrl.fit, U0, encoding=enc, quiet=True, u_min=-umax, u_max=umax,
+        **fit_kwargs)
+    ctrl._apply_controller, ctrl._fit_model = apply_controller, fit_model
+    ctrl._solve, ctrl.forward = solve, forward
+    rec.update(Z=Z, U=U, state=state)
+    return rec
+
+
+def _model_arrays(model):
+    return model.net.leaves() + [getattr(model, k) for k in
+                                 ("X_mean", "X_std", "dX_mean", "dX_std")]
+
+
+def pddp_walls(rec, training):
+    """The trial's wall split: collection, training (ms per optimizer
+    step), the iLQR fit (ms per iteration) and MPC collection (ms per
+    tick), from ``recorded_pddp_fit``."""
+    init = [t["ms"] for t in rec["trials"] if not t["mpc"]]
+    mpc = [t["ms"] for t in rec["trials"] if t["mpc"]]
+    fit_ms = sum(s["ms"] for s in rec["solves"])
+    iters = sum(s["result"].iterations for s in rec["solves"])
+    train_ms = sum(f["ms"] for f in rec["fits"])
+    steps = training["n_iter"] * len(rec["fits"])
+    ticks = [t["ms"] for t in rec["ticks"]]
+    return {"total_ms": rec["ms"], "collection_ms": sum(init),
+            "training_ms": train_ms, "training_ms_per_step": train_ms / steps,
+            "fit_ms": fit_ms, "fit_iterations": iters,
+            "fit_ms_per_iteration": fit_ms / max(iters, 1),
+            "mpc_collection_ms": sum(mpc), "mpc_ticks": len(ticks),
+            "mpc_ms_per_tick": sum(ticks) / max(len(ticks), 1),
+            "tick_ms_min_max": [min(ticks), max(ticks)] if ticks else None,
+            "tick_evals": [t["evals"] for t in rec["ticks"]]}
+
+
+def phase15a_card_vs_cpu(card):
+    """One PDDP trial at full width (the cartpole BNN 6-200-200-8, P=100,
+    Cholesky codec, N=10, the MPC trial cut to its first 10 ticks) on the
+    card and on the CPU in float64 with the same numpy-made draws: every
+    dataset, trained model, iLQR fit and the MPC trial's cost alike."""
+    import torch
+    from pddp_tpu_torch.controllers import PDDPController
+    from pddp_tpu_torch.encoding import StateEncoding
+    t_start = time.perf_counter()
+    enc = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    N, dtype = PDDP_15A["N"], torch.float64
+    training = {**PDDP_TRAINING, "n_iter": PDDP_15A["n_iter"]}
+    rng = np.random.default_rng(15)
+    U0 = rng.uniform(-PDDP_UMAX, PDDP_UMAX, (N, 1))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        env, cost, model = pddp_problem("CARTPOLE", device, dtype, N,
+                                        PDDP_HIDDEN, PDDP_P)
+        draws = numpy_draws(np.random.default_rng(16), model, N, 2, 1,
+                            training)
+        ctrl = PDDPController(env, model, cost, training_opts=training,
+                              draws=draws)
+        umax = torch.full((1,), PDDP_UMAX, dtype=dtype, device=device)
+
+        def sync(device=device):
+            if device == "cuda":
+                torch.cuda.synchronize()
+        runs[device] = recorded_pddp_fit(
+            ctrl, torch.as_tensor(U0, dtype=dtype, device=device), enc,
+            umax, sync, max_trials=1, n_initial_sample_trajectories=2,
+            n_iterations=PDDP_15A["n_iterations"])
+        runs[device]["ctrl"] = ctrl
+    card_run, cpu = runs["cuda"], runs["cpu"]
+    errs = {}
+
+    def hold(name, a, b):
+        e = rel_err(a.detach().cpu(), b.detach())[1]
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    check(len(card_run["trials"]) == len(cpu["trials"]) == 3
+          and len(card_run["fits"]) == len(cpu["fits"]) == 2
+          and len(card_run["solves"]) == len(cpu["solves"]) == 1,
+          "15a: the loops differ in shape")
+    for a, b in zip(card_run["trials"], cpu["trials"]):
+        for name, x, y in zip(("X", "U", "dX"), a["data"], b["data"]):
+            hold("trial_" + name, x, y)
+        key = "mpc_J" if a["mpc"] else "trial_J"
+        errs[key] = max(errs.get(key, 0.0),
+                        abs(a["J"] - b["J"]) / abs(b["J"]))
+    for a, b in zip(card_run["fits"], cpu["fits"]):
+        for x, y in zip(_model_arrays(a["model"]), _model_arrays(b["model"])):
+            hold("model", x, y)
+    for a, b in zip(card_run["solves"], cpu["solves"]):
+        hold("fit_Z", a["result"].Z, b["result"].Z)
+        hold("fit_U", a["result"].U, b["result"].U)
+        errs["fit_J"] = abs(a["result"].J_opt - b["result"].J_opt) / abs(
+            b["result"].J_opt)
+    res = {"phase": "15a", "card": card, "dtype": "float64", "N": N,
+           "P": PDDP_P, "hidden": PDDP_HIDDEN, "training": training,
+           "cut": {"mpc_ticks": [PDDP_MPC_TICKS, 2 * N]},
+           "tol": PDDP_15A_TOL, "rel_err": errs,
+           "fit_state": [card_run["state"].name, cpu["state"].name],
+           "tick_evals": [[t["evals"] for t in r["ticks"]]
+                          for r in (card_run, cpu)],
+           "mpc_J": [card_run["trials"][-1]["J"], cpu["trials"][-1]["J"]],
+           "walls_card": pddp_walls(card_run, training),
+           "walls_cpu": pddp_walls(cpu, training),
+           "seconds": time.perf_counter() - t_start}
+    emit(res)
+    for name, e in errs.items():
+        check(np.isfinite(e) and e <= PDDP_15A_TOL,
+              "15a: {} differs between the card and the CPU: {}".format(
+                  name, errs))
+    return res
+
+
+def bnn_kernel_checks(model, cost, env, U, enc, dtype):
+    """On a trained BNN, float32: one iteration's backward through K1
+    against the plain backward and its line search through K2(d) against
+    the plain line search (phase 8's tolerances), and
+    ``iLQRController(riccati_mode="kernel").fit`` against the scan fit
+    from the env's state. Returns the errors, walls and launch counts
+    (the counts from zero)."""
+    import torch
+    from pddp_tpu_torch.controllers import iLQRController
+    from pddp_tpu_torch.controllers.ilqr import (backward, control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout)
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    x0 = env.get_state().mean().clone()
+    z0 = env.get_state().encode(enc)
+    bk.launches = 0
+    reset_counts(fb.launches)
+    Z, AUX = rollout(model, z0, U, enc)
+    derivs = local_model(Z, U, AUX, model, cost, enc)
+    k_k, K_k, ok_k = bk.kernel_backward(*derivs, reg=1.0)
+    k_p, K_p, ok_p = backward(*derivs, reg=1.0)
+    check(bool(ok_p) and bool(ok_k), "non-finite gains at the trained BNN")
+    alphas = default_fit_alphas(dtype, "cuda")
+    out_k = fr.fused_control_law(model, derivs[0], U, k_p, K_p, alphas, enc,
+                                 with_aux=True)
+    out_p = control_law(model, derivs[0], U, k_p, K_p, alphas, enc,
+                        with_aux=True)
+    from pddp_tpu_torch.controllers.ilqr import trajectory_cost
+    J_k = trajectory_cost(cost, out_k[0], out_k[1], enc)
+    J_p = trajectory_cost(cost, out_p[0], out_p[1], enc)
+    fits = {}
+    for mode in ("kernel", "scan"):
+        env.set_state(x0)
+        ctrl = iLQRController(env, model, cost, riccati_mode=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl.fit(U, encoding=enc, n_iterations=PDDP_15B["n_iterations"])
+        torch.cuda.synchronize()
+        fits[mode] = {"ms": 1e3 * (time.perf_counter() - t0),
+                      "J": ctrl.last_result.J_opt,
+                      "state": ctrl.last_result.state.name,
+                      "evals": ctrl.last_result.evals}
+        if mode == "kernel":
+            counts = {"K1": bk.launches, "K2(d)": fb.launches["rollout"]}
+    env.set_state(x0)
+    K1_rel = max(rel_err(k_k, k_p)[0], rel_err(K_k, K_p)[0]) / max(
+        float(k_p.abs().max()), float(K_p.abs().max()))
+    J_rel = ((J_k - J_p).abs() / J_p.abs())
+    res = {"launches": counts, "K1_rel": K1_rel,
+           "K2(d)_J_rel_max": float(J_rel.max()),
+           "K2(d)_Z_abs": rel_err(out_k[0], out_p[0])[0],
+           "fits": fits,
+           "fit_J_rel": abs(fits["kernel"]["J"] - fits["scan"]["J"])
+           / abs(fits["scan"]["J"])}
+    check(counts["K1"] == 1 + fits["kernel"]["evals"]
+          and counts["K2(d)"] == 1,
+          "15b: the trained model's checks did not launch K1 and K2(d): "
+          "{}".format(counts))
+    check(K1_rel <= TOL[("K1", "float32")],
+          "15b: K1 off the plain backward on the trained BNN: {}".format(res))
+    check(float(J_rel.max()) <= BNN_TOL["float32_J_N25"],
+          "15b: K2(d) off the plain line search on the trained BNN: "
+          "{}".format(res))
+    check(np.isfinite(res["fit_J_rel"])
+          and res["fit_J_rel"] <= PDDP_15B_J_RTOL,
+          "15b: the kernel fit's J off the scan fit's: {}".format(res))
+    return res
+
+
+def phase15b_experiment(card):
+    """examples/experiment.py's cartpole trial in float32 on the card
+    (N=25, dt=0.1, 6-200-200-8, P=100, 500 AMSGrad steps at lr 1e-3,
+    actions in +-10, U0 uniform in the bounds; cut to one trial and 10
+    iterations a fit, and the MPC trial to its first 10 ticks), timed part
+    by part, a profile of one MPC tick and one training step, then K1 and
+    K2(d) on the model it trained."""
+    import torch
+    from pddp_tpu_torch.controllers import PDDPController
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.models.bnn import fit_bnn
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    t_start = time.perf_counter()
+    enc = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    N, dtype = PDDP_15B["N"], torch.float32
+    env, cost, model = pddp_problem("CARTPOLE", "cuda", dtype, N,
+                                    PDDP_HIDDEN, PDDP_P)
+    umax = torch.full((1,), PDDP_UMAX, dtype=dtype, device="cuda")
+    U0 = torch.as_tensor(np.random.default_rng(1).uniform(
+        -PDDP_UMAX, PDDP_UMAX, (N, 1)), dtype=dtype, device="cuda")
+    ctrl = PDDPController(env, model, cost, training_opts=PDDP_TRAINING,
+                          seed=0)
+    bk.launches = 0
+    reset_counts(fb.launches)
+    rec = recorded_pddp_fit(ctrl, U0, enc, umax, torch.cuda.synchronize,
+                            max_trials=1, n_initial_sample_trajectories=2,
+                            n_iterations=PDDP_15B["n_iterations"])
+    loop_s = time.perf_counter() - t_start
+    loop_launches = {"K1": bk.launches, "K2(d)": fb.launches["rollout"]}
+    walls = pddp_walls(rec, PDDP_TRAINING)
+    check(bool(torch.isfinite(rec["Z"]).all())
+          and tuple(rec["Z"].shape) == (N + 1, 14)
+          and all(np.isfinite(t["J"]) for t in rec["trials"]),
+          "15b: the trial's output is not finite")
+    # Profiles: one MPC tick from the env's state, one optimizer step.
+    z = env.get_state().encode(enc)
+    tick = device_profile(lambda: ctrl.forward(z, 0, enc, mpc=True,
+                                               u_min=-umax, u_max=umax),
+                          host_ops=False)
+    X, U_, dX = (torch.cat([t["data"][k] for t in rec["trials"]])
+                 for k in range(3))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = device_profile(lambda: fit_bnn(
+        ctrl.model, X, U_, dX, generator=gen, n_iter=1,
+        learning_rate=1e-3), host_ops=False)
+    check(tick["kernel_launches"] > 0 and step["kernel_launches"] > 0,
+          "15b: the profiles saw no kernel: {} {}".format(tick, step))
+    profiles_s = time.perf_counter() - t_start - loop_s
+    env.reset()
+    checks = bnn_kernel_checks(ctrl.model, cost, env, rec["U"], enc, dtype)
+    res = {"phase": "15b", "card": card, "dtype": "float32", "N": N,
+           "P": PDDP_P, "hidden": PDDP_HIDDEN, "training": PDDP_TRAINING,
+           "cut": {"max_trials": [1, 5], "n_iterations": [10, 50],
+                   "mpc_ticks": [PDDP_MPC_TICKS, 2 * N]},
+           "walls": walls, "fit_state": rec["state"].name,
+           "trial_J": [t["J"] for t in rec["trials"]],
+           "loop_launches": loop_launches, "tick_profile": tick,
+           "train_step_profile": step, "trained_model": checks,
+           "seconds": time.perf_counter() - t_start,
+           "seconds_loop_profiles": [loop_s, profiles_s]}
+    emit(res)
+    return res
+
+
+def cartpole_transitions(rng, n, device, dtype):
+    """scripts/make_trained_bnn.py's data, drawn by numpy through the
+    port's analytic cartpole (dt=0.1): 3/4 uniform over the swing-up box,
+    1/4 from 8-step rollouts of 128 episodes from the start region."""
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleDynamicsModel
+    model = CartpoleDynamicsModel(dt=PDDP_DT, device=device, dtype=dtype)
+
+    def f(x, u):
+        return model.apply(x, u, 0, (), StateEncoding.IGNORE_UNCERTAINTY)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    n_box = 3 * n // 4
+    X_box = t(rng.uniform([-2.0, -6.0, -np.pi, -8.0],
+                          [2.0, 6.0, np.pi, 8.0], (n_box, 4)))
+    U_box = t(rng.uniform(-20.0, 20.0, (n_box, 1)))
+    x = t(0.1 * rng.standard_normal((128, 4)))
+    U_roll = t(rng.uniform(-10.0, 10.0, (8, 128, 1)))
+    Xs = []
+    for i in range(8):
+        Xs.append(x)
+        x = f(x, U_roll[i])
+    X = torch.cat([X_box, torch.cat(Xs)[:n - n_box]])
+    U = torch.cat([U_box, U_roll.reshape(-1, 1)[:n - n_box]])
+    return X, U, f(X, U) - X
+
+
+def phase15c_training(card):
+    """scripts/make_trained_bnn.py's recipe through the port on the card,
+    float32: 4096 transitions, 4000 AMSGrad steps of batch 128 at lr 1e-3
+    on the bench's net (6-200-200-8, P=100), then the mean prediction's
+    error on 512 fresh transitions."""
+    import torch
+    from pddp_tpu_torch.models.bnn import fit_bnn
+    c = PDDP_15C
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(c["seed"])
+    X, U, dX = cartpole_transitions(rng, c["n_data"], "cuda", torch.float32)
+    model = bnn_model(torch, torch.float32, 25, False)
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = fit_bnn(model, X, U, dX, generator=gen,
+                            n_iter=c["n_iter"], batch_size=c["batch_size"],
+                            learning_rate=c["learning_rate"],
+                            return_losses=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    Xv, Uv, dXv = (a[:c["n_val"]] for a in cartpole_transitions(
+        rng, c["n_data"], "cuda", torch.float32))
+    Xp = Xv[:, None, :].expand(-1, model.n_particles, -1)
+    pred = model.forward_particles(Xp, Uv, 0).mean(dim=-2) - Xv
+    mae = float((pred - dXv).abs().mean())
+    res = {"phase": "15c", "card": card, "dtype": "float32", **c,
+           "ms": ms, "ms_per_step": ms / c["n_iter"],
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "val_mean_abs_err": mae,
+           "val_mean_abs_dx": float(dXv.abs().mean()),
+           "mae_cap": PDDP_15C_MAE_CAP,
+           "seconds": time.perf_counter() - t_start}
+    emit(res)
+    check(bool(torch.isfinite(losses).all()) and mae <= PDDP_15C_MAE_CAP,
+          "15c: held-out error {} past {}".format(mae, PDDP_15C_MAE_CAP))
+    return res
+
+
+def phase15d_learning(card):
+    """tests/controllers/test_pddp_learning.py's run on the card, float64:
+    the pendulum, BNN [64, 64], P=30, N=15, 400 steps a fit at lr 1e-3,
+    15 iterations, actions in +-2.5, Cholesky codec, cut to 3 trials (of
+    4); the best MPC trial's env cost per step must beat the random
+    trial's."""
+    import torch
+    from pddp_tpu_torch.controllers import PDDPController
+    from pddp_tpu_torch.encoding import StateEncoding
+    c = PDDP_15D
+    t0 = time.perf_counter()
+    dtype = torch.float64
+    env, cost, model = pddp_problem("PENDULUM", "cuda", dtype, c["N"],
+                                    c["hidden"], c["P"])
+    ctrl = PDDPController(env, model, cost, training_opts={
+        "n_iter": c["n_iter"], "learning_rate": 1e-3})
+    ign = StateEncoding.IGNORE_UNCERTAINTY
+    per_step = []
+
+    def on_trial(trial, X, U):
+        J = float(cost(X, U, torch.arange(U.shape[0], device="cuda"),
+                       terminal=False, encoding=ign).sum())
+        per_step.append(J / U.shape[0])
+
+    umax = torch.full((1,), c["umax"], dtype=dtype, device="cuda")
+    ctrl.fit(0.1 * torch.ones((c["N"], 1), dtype=dtype, device="cuda"),
+             encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY,
+             max_trials=c["max_trials"], n_initial_sample_trajectories=2,
+             n_iterations=c["n_iterations"], on_trial=on_trial,
+             u_min=-umax, u_max=umax)
+    random_cost, best = per_step[1], min(per_step[2:])
+    res = {"phase": "15d", "card": card, "dtype": "float64", **c,
+           "cut": {"max_trials": [c["max_trials"], 4]},
+           "per_step_cost": per_step, "random_over_best_mpc":
+           random_cost / best, "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(len(per_step) == c["max_trials"] and best < random_cost,
+          "15d: trained MPC does not beat random exploration: {}".format(
+              per_step))
+    return res
+
+
+def phase15_pddp(card):
+    """Phase 15, the PDDP loop: 15a, 15b, 15c, 15d."""
+    t0 = time.perf_counter()
+    out = {"a": phase15a_card_vs_cpu(card), "b": phase15b_experiment(card),
+           "c": phase15c_training(card), "d": phase15d_learning(card)}
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": 15, "seconds": out["seconds"]})
+    return out
+
+
+def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -2334,7 +2853,9 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry):
     kernel is read on the entry point (phase 14: its launches and its
     error at the fitted models) and timed at rendezvous under the
     Cholesky codec (nz = 44) in phase 13, its other widths under
-    "shapes"."""
+    "shapes". K1 at the BNN's shape (nz = 14) and K2(d) also carry their
+    launches in the PDDP trial (phase 15b's loop, none: it runs the scan,
+    as pddp_tpu's does) and in the checks on the model it trained."""
     kernels = [
         {"name": "K1 riccati_backward", "route": "cuda",
          "source": "pddp_tpu_torch/csrc/backward_kernel.cu",
@@ -2442,6 +2963,18 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry):
                            "plan": r["plan"],
                            "plan_B64": block[(label, 64)]["plan"]}
                    for (label, B), r in block.items() if B == 1}})
+    # The PDDP loop (phase 15b): its own launches and its checks'.
+    b15 = pddp["b"]
+    k1_bnn = next(r for r in times if r["kernel"] == "K1"
+                  and r["path"] == "bnn" and r["B"] == 1)
+    kernels[0]["bnn_nz14"] = {
+        "ms": k1_bnn["ms"], "plain_ms": k1_bnn["plain_ms"],
+        "bound_ms": k1_bnn["bound_ms"],
+        "pddp_trial_launches": b15["loop_launches"]["K1"],
+        "trained_model_launches": b15["trained_model"]["launches"]["K1"]}
+    kernels[2].update(
+        pddp_trial_launches=b15["loop_launches"]["K2(d)"],
+        trained_model_launches=b15["trained_model"]["launches"]["K2(d)"])
     # The warp kernel's nu = 4 instances.
     kernels[0]["nu4"] = {"{}_B{}".format(r["path"], r["B"]): {
         "nz": r["nz"], "ms": r["ms"], "bound_ms": r["bound_ms"],
@@ -2463,22 +2996,33 @@ def main():
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
-    phase0_build(card)
-    phase1_k1()
-    phase2_k2()
-    phase3_golden_f64()
-    phase4_golden_f32()
-    res, main_inputs = phase5_main_path(card)
-    phase7_bnn_kernels()
-    bnn, bnn_model_, bnn_k1 = phase8_bnn_iteration(card)
-    phase9_bnn_solve(card)
-    phase10_k2bc()
-    phase11_golden_cases()
-    paths, path_inputs = phase12_example_paths(card)
-    times = phase13_kernel_times(card, {"cartpole": main_inputs,
-                                        **path_inputs}, bnn_k1)
-    entry = phase14_entry_point(card)
-    kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry)
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    run("0", phase0_build, card)
+    run("1", phase1_k1)
+    run("2", phase2_k2)
+    run("3", phase3_golden_f64)
+    run("4", phase4_golden_f32)
+    res, main_inputs = run("5", phase5_main_path, card)
+    run("7", phase7_bnn_kernels)
+    bnn, bnn_model_, bnn_k1 = run("8", phase8_bnn_iteration, card)
+    run("9", phase9_bnn_solve, card)
+    run("10", phase10_k2bc)
+    run("11", phase11_golden_cases)
+    paths, path_inputs = run("12", phase12_example_paths, card)
+    times = run("13", phase13_kernel_times, card,
+                {"cartpole": main_inputs, **path_inputs}, bnn_k1)
+    entry = run("14", phase14_entry_point, card)
+    pddp = run("15", phase15_pddp, card)
+    kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
+                             pddp)
+    emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit(kernels)

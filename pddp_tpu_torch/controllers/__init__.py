@@ -1,13 +1,15 @@
-"""Controllers of the port: the iLQR functional core and its stateful
-controller (``PDDPController`` is not ported yet)."""
+"""Controllers of the port: the iLQR functional core, its stateful
+controller and the PDDP episodic loop over it."""
 
 from .base import Controller
 from .ilqr import ILQROptions, ILQRResult, iLQRController, iLQRState
+from .pddp import PDDPController
 
 __all__ = [
     "Controller",
     "ILQROptions",
     "ILQRResult",
+    "PDDPController",
     "iLQRController",
     "iLQRState",
 ]

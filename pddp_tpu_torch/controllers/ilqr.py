@@ -624,8 +624,12 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
             retry = not accept and not reg_exceeded
 
         if accept:
-            derivs = local_fn(Z, U, AUX)
             accepted += 1
+            # The next iteration's local model, unless the loop ends here
+            # (nothing reads it after the loop).
+            if (not state.is_terminal() and accepted < n_iter
+                    and evals < opts.max_evals):
+                derivs = local_fn(Z, U, AUX)
         if on_iteration is not None:
             on_iteration(accepted - 1, state, Z, U, float(J_opt))
 

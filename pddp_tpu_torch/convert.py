@@ -19,7 +19,7 @@ from .examples import double_cartpole as _dcp
 from .examples import pendulum as _pend
 from .examples import rendezvous as _rdv
 from .examples.cartpole.model import PARAM_NAMES
-from .models.bnn import bnn_dynamics_model_factory
+from .models.bnn import bnn_dynamics_model_factory, trainable_mask
 
 __all__ = ["BNN_BUFFERS", "CARTPOLE_COST_FIELDS", "CARTPOLE_MODEL_FIELDS",
            "COST_FIELDS", "bnn", "cartpole", "double_cartpole",
@@ -98,20 +98,25 @@ def rendezvous(model_params, cost_params, *, device=None,
 def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
         angular_indices=None, non_angular_indices=None, constrain_min=None,
         constrain_max=None, device=None, dtype=torch.float32,
-        **init_kwargs):
-    """A ``BNNDynamicsModel`` from numpy arrays.
+        requires_grad=False, particles=False, **init_kwargs):
+    """A ``BNNDynamicsModel`` (a ``ParticlesBNNDynamicsModel`` with
+    ``particles``) from numpy arrays.
 
     Args:
         net_leaves: the net's arrays in the JAX package's flatten order
             (``jax.tree_util.tree_leaves(jax_model.net)``: each layer's W
             and b, then each dropout's fields, its noise last).
-        buffers: mapping with the keys of ``BNN_BUFFERS``.
+        buffers: mapping with the keys of ``BNN_BUFFERS`` (without
+            ``eps_in`` for ``particles``).
         state_size, action_size, hidden_features, angular_indices,
         non_angular_indices, constrain_min, constrain_max: the factory's
             configuration (``bnn_dynamics_model_factory``).
         init_kwargs: ``n_particles``, ``horizon``, ``use_predicted_std``
             and the other options of the factory's ``init``.
         device: defaults to ``cuda`` (see ``device.resolve_device``).
+        requires_grad: set ``requires_grad`` on the net's trainable leaves
+            (``models.bnn.trainable_mask``), for a caller's own autograd;
+            ``fit_bnn`` trains the same leaves either way.
     """
     _check_numpy([("net_{}".format(i), v) for i, v in enumerate(net_leaves)]
                  + list(buffers.items()))
@@ -119,21 +124,25 @@ def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
         state_size, action_size, hidden_features,
         angular_indices=angular_indices,
         non_angular_indices=non_angular_indices,
-        constrain_min=constrain_min, constrain_max=constrain_max)
+        constrain_min=constrain_min, constrain_max=constrain_max,
+        particles=particles)
     model = cls.init(dtype=dtype, device=device, **init_kwargs)
     old = model.net.leaves()
     if len(net_leaves) != len(old):
         raise ValueError("expected {} net leaves, got {}".format(
             len(old), len(net_leaves)))
     leaves = []
-    for i, (a, ref) in enumerate(zip(net_leaves, old)):
+    for i, (a, ref, train) in enumerate(zip(net_leaves, old,
+                                            trainable_mask(model.net))):
         if tuple(np.shape(a)) != tuple(ref.shape):
             raise ValueError("net leaf {} has shape {}, expected {}".format(
                 i, np.shape(a), tuple(ref.shape)))
         leaves.append(torch.as_tensor(np.array(a), dtype=dtype,
-                                      device=ref.device))
+                                      device=ref.device).requires_grad_(
+                                          requires_grad and train))
     fields = {k: torch.as_tensor(np.array(buffers[k]), dtype=dtype,
-                                 device=ref.device) for k in BNN_BUFFERS}
+                                 device=ref.device) for k in BNN_BUFFERS
+              if not (particles and k == "eps_in")}
     for k, v in fields.items():
         if tuple(v.shape) != tuple(getattr(model, k).shape):
             raise ValueError("{} has shape {}, expected {}".format(

@@ -17,16 +17,9 @@ import torch
 
 from .encoding import (StateEncoding, decode_covar, decode_mean, decode_std,
                        decode_var, encode)
+from .utils.draws import normal
 
 __all__ = ["GaussianVariable"]
-
-
-def _randn(generator, shape, dtype, device):
-    """Standard normal noise from ``generator`` (or torch's default one),
-    drawn on the generator's device, on ``device``."""
-    where = device if generator is None else generator.device
-    return torch.randn(shape, generator=generator, dtype=dtype,
-                       device=where).to(device)
 
 
 class GaussianVariable:
@@ -93,7 +86,7 @@ class GaussianVariable:
         Returns:
             Tensor<*sample_shape, n>.
         """
-        eps = _randn(generator, tuple(sample_shape) + tuple(self.shape),
+        eps = normal(generator, tuple(sample_shape) + tuple(self.shape),
                      self.dtype, self.device)
         if self._covar is not None:
             from .utils.linalg import safe_cholesky
@@ -144,7 +137,7 @@ class GaussianVariable:
         mean and covariance L^T L + reg I, L standard normal."""
         from .device import resolve_device
         device = resolve_device(device)
-        mean = _randn(generator, (n,), dtype, device)
-        L = _randn(generator, (n, n), dtype, device)
+        mean = normal(generator, (n,), dtype, device)
+        L = normal(generator, (n, n), dtype, device)
         covar = L.T @ L + reg * torch.eye(n, dtype=dtype, device=device)
         return cls(mean, _covar=covar)

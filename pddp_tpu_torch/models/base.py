@@ -11,6 +11,10 @@ A model exposes two levels:
    replays the recorded aux.
 
 Deterministic models carry nothing: their state and aux are ``()``.
+
+Learning: ``fit``, ``resample`` and ``reset_parameters`` return the
+updated model (``PDDPController`` replaces its model with the result);
+for analytic models each is the identity.
 """
 
 from __future__ import annotations
@@ -55,3 +59,17 @@ class DynamicsModel:
                  **kwargs):
         """Single stateless step."""
         return self.step(z, u, i, self.init_state(), encoding)[0]
+
+    def fit(self, X, U, dX, **kwargs):
+        """Fits the model to state transitions; returns the updated model.
+        Analytic models are exact: the identity."""
+        return self
+
+    def resample(self, generator=None, noise=None):
+        """A model with fresh episode noise (stochastic models)."""
+        return self
+
+    def reset_parameters(self, generator=None):
+        """A freshly initialized copy; analytic models carry fixed
+        physical parameters: the identity."""
+        return self

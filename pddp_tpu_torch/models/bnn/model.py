@@ -15,12 +15,19 @@ not finite. The noise used is the step's aux, replayed as a constant by
 ``apply`` and ``jacobians``. Every method takes leading batch dims: z is
 (..., nz), the state (..., P, n).
 
-Training (``fit_bnn``, ``losses.py``) is not ported yet.
+Learning: ``resample`` draws new episode noise (the dropout masks and
+``eps_out``/``eps_in``), ``fit`` trains the net with ``fit_bnn``, and
+``reset_parameters`` redraws the weights; each returns a new model. The
+draws come from a ``torch.Generator``, or are passed as explicit arrays
+(``pddp_tpu``'s draws, in tests). ``save_bnn_npz`` writes the learned
+state in ``pddp_tpu``'s file layout.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,16 +36,18 @@ from torch.func import jvp, vmap
 
 from ...encoding import (StateEncoding, decode_covar_sqrt, decode_mean,
                          encode)
+from ...utils import draws
 from ...utils.angular import augment_state, infer_augmented_state_size
 from ...utils.constraint import constrain
 from ...utils.linalg import tria_solve_right
 from ...utils.particles import particles_covar, standardize
 from ..base import DynamicsModel
-from .network import bayesian_mlp
+from .losses import gaussian_log_likelihood
+from .network import BayesianMLP, Linear, bayesian_mlp, trainable_mask
 
 __all__ = ["ParticlesBNNDynamicsModel", "BNNDynamicsModel", "BNNState",
-           "bnn_dynamics_model_factory", "infer_eps", "load_bnn_npz",
-           "moment_match"]
+           "bnn_dynamics_model_factory", "fit_bnn", "infer_eps",
+           "load_bnn_npz", "moment_match", "save_bnn_npz"]
 
 
 def infer_eps(U_chol, deltas, eps0, first):
@@ -78,10 +87,25 @@ class BNNState:
     prev_output: torch.Tensor
 
 
+def _episode_noise(generator, raw, like):
+    """Standardized (over particles, ddof=1) episode noise of ``like``'s
+    shape (horizon, P, n): ``raw`` standard normal draws if given, else
+    drawn from ``generator``."""
+    if raw is None:
+        eps = draws.normal(generator, like.shape, like.dtype, like.device)
+    else:
+        eps = draws.explicit(raw, like.dtype, like.device, like.shape)
+    return standardize(eps, dim=1)
+
+
 class ParticlesBNNDynamicsModel(DynamicsModel):
     """BNN dynamics over raw particles: ``forward_particles(X, u, i)``
     maps (..., P, state_size) particles through one sampled network per
     particle."""
+
+    #: ``fit`` takes datasets padded past ``n_valid`` rows
+    #: (``PDDPController`` pads only for models that say so).
+    supports_n_valid = True
 
     def __init__(self, net, X_mean, X_std, dX_mean, dX_std, eps_out,
                  state_size, action_size, angular_indices=(),
@@ -163,6 +187,40 @@ class ParticlesBNNDynamicsModel(DynamicsModel):
         """Particles in, particles out."""
         return self.forward_particles(X, u, i)
 
+    # -- learning ------------------------------------------------------------
+
+    def resample(self, generator=None, noise=None):
+        """Fresh episode noise: ``eps_out``, then each layer's dropout
+        noise, from ``generator``; or explicit draws, ``noise`` a mapping
+        with ``eps_out`` (raw standard normal, standardized here) and
+        ``net`` (one array per hidden layer)."""
+        noise = noise or {}
+        eps_out = _episode_noise(generator, noise.get("eps_out"),
+                                 self.eps_out)
+        return self.replace(net=self.net.resample(generator, noise.get("net")),
+                            eps_out=eps_out)
+
+    def fit(self, X, U, dX, generator=None, n_valid=None, **kwargs):
+        """Trains the net (see ``fit_bnn``); returns the updated model.
+        Rows past ``n_valid`` are padding."""
+        return fit_bnn(self, X, U, dX, generator=generator, n_valid=n_valid,
+                       **kwargs)
+
+    def reset_parameters(self, generator=None):
+        """Fresh weights (Xavier-normal with the ReLU gain, biases uniform
+        in [-0.1, 0.1]) and episode noise, drawn from ``generator``."""
+        layers = []
+        for layer in self.net.layers:
+            W, b = layer.W, layer.b
+            fan_in, fan_out = W.shape
+            std = math.sqrt(2.0) * math.sqrt(2.0 / (fan_in + fan_out))
+            layers.append(Linear(
+                std * draws.normal(generator, W.shape, W.dtype, W.device),
+                draws.uniform(generator, b.shape, b.dtype, b.device, -0.1,
+                              0.1)))
+        net = BayesianMLP(layers, self.net.dropouts, self.net.activation)
+        return self.replace(net=net).resample(generator)
+
 
 class BNNDynamicsModel(ParticlesBNNDynamicsModel):
     """BNN dynamics on an encoded Gaussian belief.
@@ -187,6 +245,15 @@ class BNNDynamicsModel(ParticlesBNNDynamicsModel):
 
     def _moment_match(self, output, encoding):
         return moment_match(output, encoding, self.chol_jitter)
+
+    def resample(self, generator=None, noise=None):
+        """As ``ParticlesBNNDynamicsModel.resample``, then ``eps_in``
+        (``noise["eps_in"]`` where given)."""
+        noise = noise or {}
+        m = super().resample(generator, noise)
+        return m.replace(eps_in=_episode_noise(generator,
+                                               noise.get("eps_in"),
+                                               self.eps_in))
 
     def _particles(self, z, aux, encoding):
         mean = decode_mean(z, encoding, self.state_size)
@@ -265,6 +332,140 @@ class BNNDynamicsModel(ParticlesBNNDynamicsModel):
         # utils/evaluation.eval_dynamics); the Jacobian keeps z's dtype.
         J = J.T.to(dtype)
         return z_next, J[:, :nz], J[:, nz:]
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+#: optax.amsgrad's constants (b1, b2, eps; eps_root is 0).
+AMSGRAD = (0.9, 0.999, 1e-8)
+
+
+def fit_bnn(model, X, U, dX, generator=None, n_iter=500, batch_size=128,
+            reg_scale=1.0, learning_rate=1e-4,
+            likelihood=gaussian_log_likelihood, normalize=True, quiet=True,
+            return_losses=False, n_valid=None, batch_idx=None, noise=None,
+            **kwargs):
+    """Trains the net on transitions (X, U) -> dX; returns the updated
+    model, and the loss of every step with ``return_losses``.
+
+    The loss of a minibatch is the negative Gaussian log likelihood of
+    the de-normalized outputs plus ``reg_scale`` times the dropout
+    regularizer over the number of rows. The optimizer is
+    ``optax.amsgrad``'s, written out: the maximum is taken of the
+    bias-corrected second moment (``torch.optim.Adam(amsgrad=True)``
+    keeps that of the raw one), on the leaves of ``trainable_mask``.
+    The normalizers are the mean and the ddof=0 std (floored at 1e-8 to
+    1) of the first ``n_valid`` rows, the augmented and constrained
+    inputs' and dX's; rows past ``n_valid`` (padding) are never drawn.
+
+    Draws: ``batch_idx`` (n_iter, batch_size) in [0, n_valid), then each
+    step's noise per hidden layer, from ``generator``; or explicit,
+    ``batch_idx`` and ``noise`` (one array (n_iter, batch_size, width) per
+    hidden layer, None where a layer has no dropout). Without both, a
+    ``generator`` is required, as ``pddp_tpu``'s takes a key. ``quiet`` is accepted for ``pddp_tpu``'s
+    signature.
+    """
+    del quiet, kwargs
+    if model.angular_indices:
+        X = augment_state(X, model.angular_indices,
+                          model.non_angular_indices)
+    X_ = torch.cat([X, model._constrain(U)], dim=-1)
+    N = X_.shape[0] if n_valid is None else int(n_valid)
+    dtype, device = X_.dtype, X_.device
+    if normalize:
+        X_std = X_[:N].std(dim=0, correction=0)
+        dX_std = dX[:N].std(dim=0, correction=0)
+        model = model.replace(
+            X_mean=X_[:N].mean(dim=0),
+            X_std=torch.where(X_std < 1e-8, 1.0, X_std),
+            dX_mean=dX[:N].mean(dim=0),
+            dX_std=torch.where(dX_std < 1e-8, 1.0, dX_std))
+    if generator is None and (batch_idx is None or noise is None):
+        raise ValueError("fit_bnn draws its batches and dropout noise "
+                         "from a generator: pass one, or both batch_idx "
+                         "and noise")
+    if batch_idx is None:
+        batch_idx = draws.randint(generator, 0, N, (n_iter, batch_size),
+                                  device)
+    else:
+        batch_idx = torch.as_tensor(batch_idx, dtype=torch.long,
+                                    device=device)
+    if noise is not None:
+        noise = [None if n is None else draws.explicit(n, dtype, device)
+                 for n in noise]
+    x_norm = model._normalize_input(X_)
+    dX_mean, dX_std = model.dX_mean, model.dX_std
+    log_dX_std = torch.log(dX_std)
+    n_data = torch.as_tensor(N, dtype=dtype, device=device)
+
+    leaves = [t.detach() for t in model.net.leaves()]
+    train = [i for i, m in enumerate(trainable_mask(model.net)) if m]
+    b1, b2, eps = AMSGRAD
+    # The first moment, the second and the running maximum of its
+    # bias-corrected value, one list each over the trainable leaves (the
+    # update runs as one foreach op a term, each rounded as optax's).
+    m, v, v_max = ([torch.zeros_like(leaves[i]) for i in train]
+                   for _ in range(3))
+    losses = []
+    for t in range(n_iter):
+        for i in train:
+            leaves[i].requires_grad_(True)
+        net = model.net.with_leaves(leaves)
+        idx = batch_idx[t]
+        step_noise = (net.draw_noise(generator, (idx.shape[0],))
+                      if noise is None else
+                      [None if n is None else n[t] for n in noise])
+        with torch.enable_grad():
+            out = net(x_norm[idx], noise=step_noise)
+            mean, log_std = out.split(out.shape[-1] // 2, dim=-1)
+            nll = -likelihood(dX[idx], mean * dX_std + dX_mean,
+                              torch.exp(log_std + log_dX_std)).mean()
+            loss = nll + reg_scale * (net.regularization() / n_data)
+            grads = torch.autograd.grad(loss, [leaves[i] for i in train])
+        losses.append(loss.detach())
+        c1, c2 = 1.0 - b1**(t + 1), 1.0 - b2**(t + 1)
+        # m = (1 - b1) g + b1 m; v = (1 - b2) g^2 + b2 v
+        m = torch._foreach_add(torch._foreach_mul(grads, 1.0 - b1),
+                               torch._foreach_mul(m, b1))
+        v = torch._foreach_add(torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1.0 - b2),
+            torch._foreach_mul(v, b2))
+        v_max = torch._foreach_maximum(v_max, torch._foreach_div(v, c2))
+        # leaf + (-lr) (m / c1) / (sqrt(v_max) + eps)
+        step = torch._foreach_div(torch._foreach_div(m, c1),
+                                  torch._foreach_add(
+                                      torch._foreach_sqrt(v_max), eps))
+        new = torch._foreach_add([leaves[i].detach() for i in train],
+                                 torch._foreach_mul(step, -learning_rate))
+        for i, p in zip(train, new):
+            leaves[i] = p
+    model = model.replace(net=model.net.with_leaves(
+        [t.detach() for t in leaves]))
+    if return_losses:
+        return model, (torch.stack(losses) if losses else
+                       x_norm.new_zeros((0,)))
+    return model
+
+
+def save_bnn_npz(model, path, meta=None):
+    """Writes a BNN model's learned state to one ``.npz`` in
+    ``pddp_tpu``'s layout: the net's leaves as ``net_<i>`` in flatten
+    order, ``X_mean``, ``X_std``, ``dX_mean``, ``dX_std``, and ``meta`` (a
+    JSON-able dict) as the bytes of ``meta_json``. Both packages'
+    ``load_bnn_npz`` read it into a model of the same configuration."""
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    arrs = {"net_{}".format(i): a(t)
+            for i, t in enumerate(model.net.leaves())}
+    for k in ("X_mean", "X_std", "dX_mean", "dX_std"):
+        arrs[k] = a(getattr(model, k))
+    if meta is not None:
+        arrs["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                          dtype=np.uint8)
+    np.savez(path, **arrs)
 
 
 def _standardized_normal(rng, shape, dtype, device):

@@ -627,3 +627,98 @@ def test_controller_fit_and_mpc_tick_on_card(cuda):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-7)
     np.testing.assert_allclose(out[True][3], out[False][3], rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_fit_bnn_on_card(cuda):
+    """fit_bnn on the card against the CPU, float64, on the same numpy
+    draws (5 AMSGrad steps of batch 8 on 64 rows, 24 of them padding):
+    the losses, every leaf and the normalizers within 1e-10."""
+    from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory, fit_bnn
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((64, 4))
+    U = 3.0 * rng.standard_normal((64, 1))
+    dX = 0.1 * rng.standard_normal((64, 4)) + 0.05 * X
+    draws = {"batch_idx": rng.integers(0, 40, (5, 8)),
+             "noise": [rng.uniform(1e-5, 1.0 - 1e-5, (5, 8, 32))
+                       for _ in range(2)]}
+    cls = bnn_dynamics_model_factory(4, 1, [32, 32], angular_indices=(2,),
+                                     non_angular_indices=(0, 1, 3))
+    out = []
+    for dev in (cuda, "cpu"):
+        model = cls.init(seed=0, n_particles=8, horizon=3,
+                         dtype=torch.float64, device=dev)
+        out.append(fit_bnn(
+            model, *(torch.as_tensor(a, device=dev) for a in (X, U, dX)),
+            n_iter=5, batch_size=8, learning_rate=1e-2, return_losses=True,
+            n_valid=40, **draws))
+    (m_card, l_card), (m_cpu, l_cpu) = out
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_cpu.numpy(),
+                               rtol=1e-10, atol=1e-10)
+    for a, b in zip(m_card.net.leaves() + [m_card.X_std, m_card.dX_mean],
+                    m_cpu.net.leaves() + [m_cpu.X_std, m_cpu.dX_mean]):
+        assert a.device.type == torch.device(cuda).type
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.gpu
+def test_pddp_loop_on_card(cuda):
+    """The loop of tests/golden/pddp_trace.npz (pendulum, BNN [16, 16],
+    P=8, N=6, Cholesky codec, float64, pddp_tpu's draws) on the card
+    against the CPU: the initial trials, the first model fit and the iLQR
+    fit within 1e-9; the MPC trial within the spread that a 1e-14 change
+    of its start gives the port itself on the CPU (X 1.1e-7, U 8.2e-5,
+    dX 2.5e-5, J 8.5e-6 relative, rounded up here): some of its ticks
+    turn a 1e-14 change of their state into a 1e-8 change of their
+    control."""
+    from pddp_tpu_torch import convert
+    from pddp_tpu_torch.controllers import PDDPController
+    from pddp_tpu_torch.examples.pendulum import PendulumCost, PendulumEnv
+    from tests.golden import pddp_trace as tr
+    trace = tr.load()
+    runs = []
+    for dev in (cuda, "cpu"):
+        leaves = [trace["init_net_{}".format(i)] for i in range(14)]
+        model = convert.bnn(
+            leaves, {k: trace["init_" + k] for k in convert.BNN_BUFFERS},
+            tr.STATE, tr.ACTION, tr.HIDDEN, angular_indices=tr.ANGULAR,
+            non_angular_indices=tr.NON_ANGULAR, n_particles=tr.P,
+            horizon=2 * tr.N + 1, device=dev, dtype=torch.float64)
+        env = PendulumEnv(dt=tr.DT, device=dev, dtype=torch.float64)
+        resets = iter(trace["resets"])
+        env.reset = lambda env=env: env.set_state(next(resets))
+        ctrl = PDDPController(env, model, PendulumCost(
+            device=dev, dtype=torch.float64), training_opts=tr.TRAINING,
+            draws=trace["draws"])
+        trials, fits = [], []
+        apply_controller, fit_model = ctrl._apply_controller, ctrl._fit_model
+
+        def rec_apply(*args, apply_controller=apply_controller,
+                      trials=trials, **kwargs):
+            data, J = apply_controller(*args, **kwargs)
+            trials.append([a.cpu() for a in data] + [float(J)])
+            return data, J
+
+        def rec_fit(*args, fit_model=fit_model, fits=fits, **kwargs):
+            m = fit_model(*args, **kwargs)
+            fits.append([a.cpu() for a in m.net.leaves()])
+            return m
+        ctrl._apply_controller, ctrl._fit_model = rec_apply, rec_fit
+        umax = torch.tensor([tr.UMAX], dtype=torch.float64, device=dev)
+        Z, U, _ = ctrl.fit(torch.as_tensor(tr.U0(), device=dev),
+                           encoding=StateEncoding[tr.ENCODING], quiet=True,
+                           u_min=-umax, u_max=umax, **tr.FIT)
+        runs.append((trials, fits, Z.cpu(), U.cpu()))
+    (t_card, f_card, Z_card, U_card), (t_cpu, f_cpu, Z_cpu, U_cpu) = runs
+    tight = dict(rtol=1e-9, atol=1e-9)
+    for a, b in zip(t_card[:2], t_cpu[:2]):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(np.asarray(x), np.asarray(y), **tight)
+    for x, y in zip(f_card[0], f_cpu[0]):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), **tight)
+    np.testing.assert_allclose(Z_card.numpy(), Z_cpu.numpy(), **tight)
+    np.testing.assert_allclose(U_card.numpy(), U_cpu.numpy(), **tight)
+    for x, y, atol in zip(t_card[2][:3], t_cpu[2][:3], (2e-7, 1e-4, 5e-5)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=atol)
+    np.testing.assert_allclose(t_card[2][3], t_cpu[2][3], rtol=1e-5)

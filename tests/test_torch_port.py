@@ -65,6 +65,9 @@ def test_port_imports_neither_jax_nor_pddp_tpu():
         assert not any(k == "jax" or k.startswith("jax.") or
                        k == "pddp_tpu" or k.startswith("pddp_tpu.")
                        for k, v in sys.modules.items() if v is not None)
+        for new in ("controllers.pddp", "models.bnn.losses",
+                    "examples.problems", "utils.trajectory", "utils.draws"):
+            assert "pddp_tpu_torch." + new in names, new
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
