@@ -19,7 +19,7 @@ double cartpole, rendezvous and belief-state pendulum paths at horizon 200
 (phase 12); phase 13 times K1 and K2 alone at every path's shape beside
 their bounds, K2(d) at the BNN iteration's for 1 and 64 solves, and K1's
 block kernel at the belief codecs' widths. Phase 14 drives the entry
-point, ``iLQRController.fit`` and three ``forward(mpc=True)`` ticks,
+point, ``iLQRController.fit`` and two ``forward(mpc=True)`` ticks,
 through K1 and K2 on the four examples under the Cholesky codec and two
 under the full covariance, against the plain versions on the CPU. Phase
 15 runs the PDDP episodic loop (``PDDPController``: exploration, BNN
@@ -37,6 +37,7 @@ exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import os
@@ -153,20 +154,18 @@ def events_ms(fn, repeats, warmup=3):
     return start.elapsed_time(end) / repeats
 
 
-def device_profile(fn, host_ops=True):
+def device_profile(fn):
     """One call of ``fn`` under torch.profiler: the wall time, the device
     time summed over its kernels, the idle share, and the kernels that
-    took the most device time (names cut to 90 characters). Without
-    ``host_ops`` the profiler records the device's activity alone: a call
-    of tens of thousands of launches then takes seconds, not tens of
-    seconds, to read back."""
+    took the most device time (names cut to 90 characters). The profiler
+    records the device's activity alone (the host's ops would add nothing
+    read here and cost tens of seconds to read back at tens of thousands
+    of launches); reading back still takes ~0.2 ms a launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.insert(0, ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
@@ -188,7 +187,8 @@ def device_profile(fn, host_ops=True):
 
 def raw_k1(derivs, reg):
     """A closure launching K1 alone on preallocated outputs (no checks),
-    for the kernel's own device time; derivs of one solve or of a batch."""
+    for the kernel's own device time; derivs of one solve or of a batch,
+    ``reg`` a float or a tensor (B,) on the card, a reg per solve."""
     import torch
     from pddp_tpu_torch.ops import backward_kernel as bk
     ins = derivs[1:3] + derivs[4:]
@@ -210,9 +210,11 @@ def raw_k1(derivs, reg):
         sizes += (0,)  # the library's plan
     fn = bk._function(ins[0].dtype, block)
     stream = torch.cuda.current_stream().cuda_stream
+    regs = reg.data_ptr() if isinstance(reg, torch.Tensor) else None
+    reg = 0.0 if regs is not None else float(reg)
 
     def launch():
-        check(fn(*(t.data_ptr() for t in ins), float(reg), *outs, *sizes,
+        check(fn(*(t.data_ptr() for t in ins), reg, regs, *outs, *sizes,
                  stream) == 0, "K1 launch")
     return launch
 
@@ -444,7 +446,10 @@ def clamp_as_built(Q, dtype_name):
 def k1_sweeps(derivs, reg, dtype_name="float32"):
     """The mean sweeps of the kernels' Jacobi over the steps of solve 0 of
     these K1 inputs: Q_uu of every step from the plain recursion (float64,
-    numpy), then clamp_as_built in the run's type. None at nu = 1."""
+    numpy), then clamp_as_built in the run's type. None at nu = 1. ``reg``
+    a float, or a reg per solve (solve 0's is taken)."""
+    if not isinstance(reg, float):
+        reg = float(np.asarray(reg.detach().cpu()).reshape(-1)[0])
     Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu = [
         t.detach().double().cpu().numpy() for t in derivs]
     if F_z.ndim == 4:
@@ -727,8 +732,10 @@ def phase1_k1():
         nan_rows.append({"dtype": str(dtype).replace("torch.", ""),
                          "ok_kernel": ok_k, "ok_plain": ok_p})
     block_rows, block_nan = phase1_k1_block()
+    lane_rows = phase1_k1_lane_regs()
     emit({"phase": 1, "kernel": "K1", "cases": rows, "nan_cases": nan_rows,
-          "block_cases": block_rows, "block_nan_cases": block_nan})
+          "block_cases": block_rows, "block_nan_cases": block_nan,
+          "lane_reg_cases": lane_rows})
     for row in block_nan:
         check(row["ok_kernel"] == row["ok_plain"]
               == [True, False, True, False, True],
@@ -836,6 +843,83 @@ def phase1_k1_block():
                          "ok_kernel": bk.kernel_backward(*ins)[2].tolist(),
                          "ok_plain": backward(*ins)[2].tolist()})
     return rows, nan_rows
+
+
+# K1 with a reg per solve (the batched solve's per-lane mu): (nz, nu) of
+# the warp kernel at the main path's shape and its Jacobi clamp (8, 4), and
+# of the block kernel at nz = 20; 64 lanes, regs 10^U(-6, 2), N=200.
+K1_LANE_REG_SHAPES = [(4, 1), (8, 4), (20, 1)]
+
+
+def phase1_k1_lane_regs():
+    """K1 at K1_LANE_REG_SHAPES with a reg per lane against the plain
+    backward's broadcast of the same (B,) reg, in float64 and float32 under
+    phase 1's tolerances (the warp kernel's TOL against the plain version
+    of its type; the block kernel's K1_BLOCK_TOL against float64, widened
+    to twice the float32 plain version's own error within
+    K1_BLOCK_F32_CAP); and three lanes each the bits of a launch where
+    every lane takes that lane's reg as a float."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    rows = []
+    B, N = 64, 200
+    for si, (nz, nu) in enumerate(K1_LANE_REG_SHAPES):
+        rng = np.random.default_rng(2000 + si)
+        ins64 = k1_inputs(rng, B, N, nz, nu, torch.float64, "cuda")
+        regs64 = torch.as_tensor(10.0**rng.uniform(-6.0, 2.0, B),
+                                 device="cuda")
+        k64, K64, ok64 = backward(*ins64, reg=regs64)
+        block = (nz, nu) not in bk.INSTANCES
+        for dname in ("float64", "float32"):
+            dtype = getattr(torch, dname)
+            ins, regs = [t.to(dtype) for t in ins64], regs64.to(dtype)
+            k_p, K_p, ok_p = backward(*ins, reg=regs)
+            n = bk.launches + bk.block_launches
+            k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=regs)
+            torch.cuda.synchronize()
+            row = {"B": B, "N": N, "nz": nz, "nu": nu, "dtype": dname,
+                   "kernel": "block" if block else "warp",
+                   "reg_min": float(regs64.min()),
+                   "reg_max": float(regs64.max()),
+                   "launched": bk.launches + bk.block_launches == n + 1,
+                   "ok_equal": ok_k.tolist() == ok_p.tolist(),
+                   "finite": bool(ok_k.all()) and bool(ok_p.all())}
+            if block:
+                tol = k1_block_tol(dname, nu)
+                ref = (k64, K64)
+                if dname == "float32":
+                    plain = max(rel_err(k_p.double(), k64)[1],
+                                rel_err(K_p.double(), K64)[1])
+                    row["plain_float32_rel"] = plain
+                    row["kernel_vs_plain_float32_rel"] = max(
+                        rel_err(k_k, k_p)[1], rel_err(K_k, K_p)[1])
+                    tol = max(tol, 2.0 * plain)
+            else:
+                tol, ref = TOL[("K1", dname)], (k_p, K_p)
+            row["k_rel"] = rel_err(k_k.to(ref[0].dtype), ref[0])[1]
+            row["K_rel"] = rel_err(K_k.to(ref[1].dtype), ref[1])[1]
+            row["tol"] = tol
+            row["lanes_as_floats"] = True
+            for b in (0, 31, 63):
+                k1, K1, _ = bk.kernel_backward(*ins, reg=float(regs[b]))
+                row["lanes_as_floats"] &= (torch.equal(k1[b], k_k[b])
+                                           and torch.equal(K1[b], K_k[b]))
+            rows.append(row)
+    for row in rows:
+        check(row["launched"] and row["ok_equal"] and row["finite"]
+              and row["lanes_as_floats"],
+              "K1 with a reg per lane: no launch, another ok, non-finite "
+              "gains or a lane off its float launch: {}".format(row))
+        check(row["k_rel"] <= row["tol"] and row["K_rel"] <= row["tol"],
+              "K1 with a reg per lane disagrees with its plain version: "
+              "{}".format(row))
+        if "plain_float32_rel" in row:
+            check(row["plain_float32_rel"] <= K1_BLOCK_F32_CAP
+                  and row["kernel_vs_plain_float32_rel"] <= K1_BLOCK_F32_CAP,
+                  "K1 block float32 lane-reg case past K1_BLOCK_F32_CAP: "
+                  "{}".format(row))
+    return rows
 
 
 def phase2_k2():
@@ -1106,17 +1190,20 @@ BNN_TOL = {"float64": 1e-10, "float32": 1e-4, "float32_J_N25": 1e-3,
            "F_float32": 1e-5}
 
 
-def bnn_model(torch, dtype, N, trained, P=100, hidden=(200, 200)):
+def bnn_model(torch, dtype, N, trained, P=100, hidden=(200, 200),
+              device="cuda", **network_kwargs):
     """The bench.py:280 configuration: 4 states, 1 action, net 6-200-200-8,
     100 particles, horizon N + 1, the 2-rung ladder; the trained cartpole
     weights or an untrained net from seed 0 (of another particle count P
-    or hidden widths where given)."""
+    or hidden widths where given; ``network_kwargs`` the net's
+    ``compute_dtype`` or ``matmul_dtype``)."""
     from pddp_tpu_torch.models.bnn import (bnn_dynamics_model_factory,
                                            load_bnn_npz)
     cls = bnn_dynamics_model_factory(4, 1, list(hidden), angular_indices=(2,),
-                                     non_angular_indices=(0, 1, 3))
+                                     non_angular_indices=(0, 1, 3),
+                                     **network_kwargs)
     model = cls.init(seed=0, n_particles=P, horizon=N + 1, dtype=dtype,
-                     device="cuda", chol_jitter=BNN_JITTER)
+                     device=device, chol_jitter=BNN_JITTER)
     return load_bnn_npz(model, TRAINED) if trained else model
 
 
@@ -2160,7 +2247,7 @@ ENTRY_CASES = (
     ("rendezvous_chol", "rendezvous", "UPPER_TRIANGULAR_CHOLESKY"),
     ("cartpole_full", "cartpole", "FULL_COVARIANCE_MATRIX"),
     ("rendezvous_full", "rendezvous", "FULL_COVARIANCE_MATRIX"))
-ENTRY_ITERATIONS, ENTRY_TICKS = 4, 3
+ENTRY_ITERATIONS, ENTRY_TICKS = 4, 2
 # The card's kernels against the CPU's plain versions, both float64: the
 # golden tests' tolerances (J rtol 1e-6; Z, U and the ticks' controls
 # rtol 1e-5, atol 1e-7).
@@ -2226,12 +2313,13 @@ def entry_point(ex, codec, device, dtype, riccati_mode, fused_rollout):
     return out
 
 
-def phase14_entry_point(card):
+def phase14_entry_point(card, cpu_runs):
     """The slice's path: ``entry_point`` on the card in float64 through K1
     (``riccati_mode="kernel"``) and K2 (``fused_rollout=True``) at every
     configuration of ENTRY_CASES, with the launch counts from zero, held
     against the same calls through the plain versions on the CPU in
-    float64; K1 against its plain version at the fitted local model; then
+    float64 (``cpu_runs``, made by ``cpu_references`` beside the build);
+    K1 against its plain version at the fitted local model; then
     in float32 the fit's and a tick's wall at ENTRY_TIMED, through the
     kernels and through the plain backward (K2 kept), in alternating
     turns, each fit's J held against the plain backward's."""
@@ -2251,7 +2339,7 @@ def phase14_entry_point(card):
                                True)
         counts = {"K1_warp": bk.launches, "K1_block": bk.block_launches,
                   "K2": sum(fr.launches.values())}
-        cpu = entry_point(ex, codec, "cpu", torch.float64, "scan", False)
+        cpu = cpu_runs[label]
         evals = sum(card_run["evals"])
         nz = card_run["Z"].shape[-1]
         nu = card_run["U"].shape[-1]
@@ -2352,13 +2440,14 @@ def phase14_entry_point(card):
 # action bound of the cartpole, training recipe.
 PDDP_DT, PDDP_HIDDEN, PDDP_P, PDDP_UMAX = 0.1, [200, 200], 100, 10.0
 PDDP_TRAINING = {"n_iter": 500, "learning_rate": 1e-3}
-# 15a and 15b run the MPC trial's first 10 ticks of 2N (a tick takes
-# ~0.7 s in 15a's float64 and ~1.2 s in 15b's float32, host-bound).
-PDDP_MPC_TICKS = 10
+# 15a and 15b run the MPC trial's first 7 ticks of 2N (a tick takes
+# ~0.7 s in 15a's float64 and ~1.2 s in 15b's float32, host-bound; 15a's
+# seventh takes 10 evaluations).
+PDDP_MPC_TICKS = 7
 # 15a: one trial on the card and on the CPU, float64, the same numpy-made
 # draws; held within 1e-8 (max |card - CPU| / max |CPU| of each array):
 # both do the same arithmetic in another order of sums, through 20
-# optimizer steps, 3 iterations and 10 MPC ticks (the seventh takes 10
+# optimizer steps, 3 iterations and 7 MPC ticks (the seventh takes 10
 # evaluations).
 PDDP_15A = {"N": 10, "n_iter": 20, "n_iterations": 3}
 PDDP_15A_TOL = 1e-8
@@ -2509,7 +2598,7 @@ def pddp_walls(rec, training):
 
 def phase15a_card_vs_cpu(card):
     """One PDDP trial at full width (the cartpole BNN 6-200-200-8, P=100,
-    Cholesky codec, N=10, the MPC trial cut to its first 10 ticks) on the
+    Cholesky codec, N=10, the MPC trial cut to its first 7 ticks) on the
     card and on the CPU in float64 with the same numpy-made draws: every
     dataset, trained model, iLQR fit and the MPC trial's cost alike."""
     import torch
@@ -2658,7 +2747,7 @@ def phase15b_experiment(card):
     """examples/experiment.py's cartpole trial in float32 on the card
     (N=25, dt=0.1, 6-200-200-8, P=100, 500 AMSGrad steps at lr 1e-3,
     actions in +-10, U0 uniform in the bounds; cut to one trial and 10
-    iterations a fit, and the MPC trial to its first 10 ticks), timed part
+    iterations a fit, and the MPC trial to its first 7 ticks), timed part
     by part, a profile of one MPC tick and one training step, then K1 and
     K2(d) on the model it trained."""
     import torch
@@ -2692,14 +2781,13 @@ def phase15b_experiment(card):
     # Profiles: one MPC tick from the env's state, one optimizer step.
     z = env.get_state().encode(enc)
     tick = device_profile(lambda: ctrl.forward(z, 0, enc, mpc=True,
-                                               u_min=-umax, u_max=umax),
-                          host_ops=False)
+                                               u_min=-umax, u_max=umax))
     X, U_, dX = (torch.cat([t["data"][k] for t in rec["trials"]])
                  for k in range(3))
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = device_profile(lambda: fit_bnn(
         ctrl.model, X, U_, dX, generator=gen, n_iter=1,
-        learning_rate=1e-3), host_ops=False)
+        learning_rate=1e-3))
     check(tick["kernel_launches"] > 0 and step["kernel_launches"] > 0,
           "15b: the profiles saw no kernel: {} {}".format(tick, step))
     profiles_s = time.perf_counter() - t_start - loop_s
@@ -2839,7 +2927,506 @@ def phase15_pddp(card):
     return out
 
 
-def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp):
+# ---------------------------------------------------------------------------
+# Phase 16: batched solves at bench.py's width
+# ---------------------------------------------------------------------------
+
+# bench.py:187-208: B cartpole solves of horizon H, 5 iterations, 15
+# evaluations at most, the cost summed inside the line search's loop.
+BATCHED_B, BATCHED_H = 1024, 200
+BATCHED_OPTS = {"n_iterations": 5, "max_evals": 15}
+# Lanes of 16a held against the CPU's unbatched solve, spread over B.
+BATCHED_CPU_LANES = 8
+# bench.py:375-430: the BNN of phase 8 at B=1024 in chunks of 256, N=25.
+BNN_BATCH = {"B": 1024, "chunk": 256, "N": 25}
+# bench.py's BNN rows: (name, trained weights, the net's precision option,
+# solves). The bf16 rows run one chunk of the batch (its first 256 lanes),
+# and carry that batch in their names, so that phase 16 fits the run's
+# time; bench.py runs them at B=1024.
+BNN_BATCH_ROWS = (
+    ("pddp_bnn_solves_per_sec_b1024_trained", True, None, 1024),
+    ("pddp_bnn_solves_per_sec_b1024_h25_p100_5iter", False, None, 1024),
+    ("pddp_bnn_solves_per_sec_b256_bf16_mlp", False, "compute_dtype", 256),
+    ("pddp_bnn_solves_per_sec_b256_bf16_matmul", False, "matmul_dtype",
+     256))
+# Lane-by-lane limits: float64 J relative (16a 1e-10; the BNN against the
+# CPU 1e-8, its local model summing over 100 particles and 200 widths in
+# another order), and the bf16 rows' J against float32 (pddp_tpu's
+# tests/parallel/test_batch.py:141-170).
+BATCHED_J_RTOL = {"cartpole": 1e-10, "bnn": 1e-8, "bf16": 0.05}
+
+
+def _lane_ends(r):
+    """The lanes' count of each end state, their mean evaluations and
+    iterations, and whether every J is finite."""
+    import torch
+    names = {int(s): s.name for s in _ilqr().iLQRState}
+    states = r.state.tolist()
+    return {"states": {n: states.count(c) for c, n in names.items()
+                       if c in states},
+            "mean_evals": float(r.evals.double().mean()),
+            "mean_iterations": float(r.iterations.double().mean()),
+            "J_finite": bool(torch.isfinite(r.J_opt).all())}
+
+
+def _ilqr():
+    from pddp_tpu_torch.controllers import ilqr
+    return ilqr
+
+
+def _same_ends(a, b):
+    import torch
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("state", "iterations", "evals"))
+
+
+def _J_rel(a, b):
+    """max over lanes of |J_a - J_b| / |J_b|."""
+    Ja, Jb = a.J_opt.double().cpu(), b.J_opt.double().cpu()
+    return float(((Ja - Jb).abs() / Jb.abs()).max())
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cartpole_batch(torch, dtype, device, B, N, seed=0):
+    """bench.py's batch: z0 = 0.05 N(0, 1) per lane (numpy, ``seed``),
+    U0 = 0.1, the cartpole at dt = 0.05."""
+    model, cost, _ = cartpole_problem(torch, dtype, device, N)
+    z0s = torch.as_tensor(
+        0.05 * np.random.default_rng(seed).standard_normal((B, 4)),
+        dtype=dtype, device=device)
+    U0s = torch.full((B, N, 1), 0.1, dtype=dtype, device=device)
+    return model, cost, z0s, U0s
+
+
+def bnn_batch(torch, dtype, device, B, N, seed=7):
+    """bench.py's BNN batch: the encoded start of phase 8, each lane
+    offset by 0.01 N(0, 1) (numpy, ``seed``), U0 = 0.1."""
+    from pddp_tpu_torch.encoding import StateEncoding, encode
+    z0 = encode(torch.zeros(4, dtype=dtype, device=device),
+                V=1e-2 * torch.ones(4, dtype=dtype, device=device),
+                encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
+    off = np.random.default_rng(seed).standard_normal((B, z0.shape[-1]))
+    z0s = z0 + torch.as_tensor(0.01 * off, dtype=dtype, device=device)
+    return z0s, torch.full((B, N, 1), 0.1, dtype=dtype, device=device)
+
+
+def evaluation_profile(model, cost, z0s, U0s, enc, cost_in_scan):
+    """The device's activity (``device_profile``) over one batched
+    evaluation of the scan path, the unit a batched solve repeats 11-15
+    times: the plain backward and the line search over every lane, at the
+    batch's first iterate (reg 10, the values do not change the work). A
+    whole solve's hundreds of thousands of launches take minutes to read
+    back from the profiler; one evaluation's take seconds."""
+    from pddp_tpu_torch.controllers.ilqr import (backward, control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout)
+    Z, AUX = rollout(model, z0s, U0s, enc)
+    derivs = local_model(Z, U0s, AUX, model, cost, enc)
+    alphas = default_fit_alphas(z0s.dtype, z0s.device)
+
+    def evaluation():
+        k, K, _ = backward(*derivs, reg=10.0)
+        return control_law(model, derivs[0], U0s, k, K, alphas, enc,
+                           cost=cost, with_aux=True,
+                           cost_in_scan=cost_in_scan)
+    return device_profile(evaluation)
+
+
+def ends_and_J(a, b, lanes):
+    """Lanes of ``a`` against the first ``lanes`` of ``b``: how many end
+    otherwise (state, iterations or evaluations), and the largest J
+    relative difference over the lanes that end the same and over the
+    others (None where there are none)."""
+    import torch
+    same = ((a.state == b.state[:lanes]) & (a.iterations
+            == b.iterations[:lanes]) & (a.evals == b.evals[:lanes]))
+    rel = (a.J_opt - b.J_opt[:lanes]).abs() / b.J_opt[:lanes].abs()
+
+    def most(mask):
+        return float(rel[mask].max()) if bool(mask.any()) else None
+    return {"lanes": lanes, "other_ends": int((~same).sum()),
+            "J_rel_same_ends": most(same), "J_rel_other_ends": most(~same),
+            "J_finite": bool(torch.isfinite(a.J_opt).all())}
+
+
+def batched_k1_row(derivs, regs, label, launches):
+    """K1 alone at a batch's shape and a reg per lane (CUDA events over
+    raw launches) beside its bound and the plain backward's time, and its
+    largest difference from the plain backward on these inputs over the
+    lanes whose plain gains are finite (with ``ok`` equal in every
+    lane)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    B, N, nz, nu = derivs[2].shape
+    ms = events_ms(raw_k1(derivs, regs), 20)
+    sweeps = k1_sweeps(derivs, regs)
+    bound, by, roof, chain = chain_bound_ms(
+        *k1_work(B, N, nz, nu, 4, sweeps=5 if sweeps is None else sweeps),
+        "float32", k1_chain_cycles(nz, nu, "float32", sweeps), N)
+    k_k, K_k, ok_k = bk.kernel_backward(*derivs, reg=regs)
+    k_p, K_p, ok_p = backward(*derivs, reg=regs)
+    errs = [rel_err(a[ok_p], b[ok_p]) for a, b in ((k_k, k_p), (K_k, K_p))]
+    return {"kernel": "K1", "path": label, "B": B, "N": N, "nz": nz,
+            "nu": nu, "ms": ms,
+            "plain_ms": events_ms(lambda: backward(*derivs, reg=regs), 1,
+                                  warmup=0),
+            "bound_ms": bound, "bound_by": by, "roofline_ms": roof,
+            "chain_floor_ms": chain, "launches": launches,
+            "finite_lanes": int(ok_p.sum()),
+            "ok_equal": bool(torch.equal(ok_k, ok_p)),
+            "max_abs_err": max(e[0] for e in errs),
+            "rel_err": max(e[1] for e in errs)}, (k_k, K_k, ok_p)
+
+
+def cpu_references():
+    """The CPU's side of the float64 checks of phases 14 and 16, all on the
+    CPU, so that it runs beside the build (phase 0) while the card is
+    idle: phase 14's ``entry_point`` through the plain versions at every
+    configuration of ENTRY_CASES, the unbatched ``solve`` of
+    BATCHED_CPU_LANES lanes of 16a's batch, and 16b's four BNN lanes (in
+    chunks of two, 3 iterations)."""
+    import torch
+    entry = {label: entry_point(ex, codec, "cpu", torch.float64, "scan",
+                                False) for label, ex, codec in ENTRY_CASES}
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.parallel import batched_solve
+    B, N = BATCHED_B, BATCHED_H
+    lanes = np.linspace(0, B - 1, BATCHED_CPU_LANES).astype(int).tolist()
+    model, cost, z0s, U0s = cartpole_batch(torch, torch.float64, "cpu", B, N)
+    opts = ILQROptions(**BATCHED_OPTS, cost_in_scan=True)
+    cartpole = [(b, solve(model, cost, z0s[b], U0s[b], opts,
+                          encoding=StateEncoding.IGNORE_UNCERTAINTY))
+                for b in lanes]
+    N = BNN_BATCH["N"]
+    z, u = bnn_batch(torch, torch.float64, "cpu", 4, N)
+    bnn = batched_solve(
+        bnn_model(torch, torch.float64, N, True, device="cpu"),
+        CartpoleCost(device="cpu", dtype=torch.float64), z, u,
+        ILQROptions(n_iterations=3, max_evals=BATCHED_OPTS["max_evals"]),
+        encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY, chunk=2)
+    return {"entry": entry, "cartpole": cartpole, "bnn": bnn}
+
+
+def phase16a_cartpole(card, cpu):
+    """16a: bench.py's batched cartpole solves (B=1024, H=200, 5
+    iterations, 15 evaluations, the cost in the line search's loop) in
+    float32, (i) with the bench's options (the scan backward and line
+    search) and (ii) through K1 (a reg per lane) and K2(a); each timed
+    once ((ii) after a warm-up and with every count from zero; the scan's
+    launches ran in earlier phases, so it takes none, which saves 7 s).
+    Then K1 and K2(a) alone at the batch's shape, the device's idle share
+    of each run, and in float64 (ii) against (i) lane by lane and eight
+    lanes against the CPU's unbatched ``solve`` (``cpu``, from
+    ``cpu_references``)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.parallel import batched_solve
+    ilqr = _ilqr()
+    failed = []
+
+    def want(cond, what):
+        """A check, made after the phase's line is printed."""
+        if not cond:
+            failed.append(what)
+    ign = StateEncoding.IGNORE_UNCERTAINTY
+    B, N = BATCHED_B, BATCHED_H
+    opts = {"scan": ILQROptions(**BATCHED_OPTS, cost_in_scan=True),
+            "kernels": ILQROptions(**BATCHED_OPTS, cost_in_scan=True,
+                                   riccati_mode="kernel",
+                                   fused_rollout=True)}
+    res = {"phase": "16a", "card": card, "B": B, "N": N, **BATCHED_OPTS}
+    model, cost, z0s, U0s = cartpole_batch(torch, torch.float32, "cuda", B,
+                                           N)
+
+    def run(label):
+        return batched_solve(model, cost, z0s, U0s, opts[label],
+                             encoding=ign)
+
+    t0 = time.perf_counter()
+    out = {}
+    for label in ("scan", "kernels"):
+        if label == "kernels":
+            run(label)  # warm-up
+            bk.launches = bk.block_launches = 0
+            reset_counts(fr.launches)
+            ilqr.lane_evaluations = 0
+        out[label], wall = _timed(lambda: run(label))
+        if label == "kernels":
+            counts = {"K1": bk.launches, "K1_block": bk.block_launches,
+                      "K2(a)": fr.launches["a"],
+                      "evaluations": ilqr.lane_evaluations}
+        res[label] = {"wall_s": wall, **_lane_ends(out[label])}
+    # Where the time goes: (i) one batched evaluation, (ii) a whole solve.
+    res["scan"]["evaluation_profile"] = evaluation_profile(
+        model, cost, z0s, U0s, ign, True)
+    res["kernels"]["profile"] = device_profile(lambda: run("kernels"))
+    res["batched_solves_per_sec_b1024_h200_5iter"] = B / res["scan"]["wall_s"]
+    res["batched_solves_per_sec_b1024_h200_5iter_kernels"] = (
+        B / res["kernels"]["wall_s"])
+    res["launches"] = counts
+    want(counts["K1"] >= 1 and counts["K1"] == counts["K2(a)"]
+          == counts["evaluations"] and counts["K1_block"] == 0,
+          "16a(ii) did not launch K1 and K2(a) once an evaluation: "
+          "{}".format(counts))
+    for label in ("scan", "kernels"):
+        want(res[label]["J_finite"], "16a {}: non-finite J".format(label))
+
+    # The kernels alone at the batch's shape, on the local model of its
+    # first iterate, each lane's reg 10^U(1, 2): at this iterate Q_uu is
+    # indefinite and a reg <= 1 gives non-finite gains (k2_inputs), and
+    # later iterates' rollouts at the lanes' own mu leave float32's range
+    # in some lanes.
+    Z0, AUX0 = rollout(model, z0s, U0s, ign)
+    derivs = local_model(Z0, U0s, AUX0, model, cost, ign)
+    regs = torch.as_tensor(10.0**np.random.default_rng(16).uniform(
+        1.0, 2.0, B), dtype=torch.float32, device="cuda")
+    k1, (k, K, fin) = batched_k1_row(derivs, regs, "cartpole_b1024",
+                                     counts["K1"])
+    alphas = default_fit_alphas(torch.float32, "cuda")
+    A = alphas.shape[0]
+    Z_k, U_k, J_k = (t[fin] for t in fr.fused_control_law(
+        model, derivs[0], U0s, k, K, alphas, ign, cost=cost))
+    Z_p, U_p, J_p = (t[fin] for t in control_law(
+        model, derivs[0], U0s, k, K, alphas, ign, cost=cost,
+        cost_in_scan=True))
+    bound, by, roof, chain = chain_bound_ms(
+        *k2_work(B, N, A, 4, False), "float32",
+        k2_chain_cycles("cartpole", 4, 4, "float32"), N)
+    k2 = {"kernel": "K2(a)", "path": "cartpole_b1024", "B": B, "N": N,
+          "A": A, "ms": events_ms(raw_k2(model, cost, derivs[0], U0s, k, K,
+                                         alphas), 20),
+          "plain_ms": events_ms(lambda: control_law(
+              model, derivs[0], U0s, k, K, alphas, ign, cost=cost,
+              cost_in_scan=True), 1, warmup=0),
+          "bound_ms": bound, "bound_by": by, "roofline_ms": roof,
+          "chain_floor_ms": chain, "launches": counts["K2(a)"],
+          "max_abs_err": max(rel_err(Z_k, Z_p)[0], rel_err(U_k, U_p)[0],
+                             rel_err(J_k, J_p)[0]),
+          "rel_err": max(rel_err(Z_k, Z_p)[1], rel_err(U_k, U_p)[1],
+                         rel_err(J_k, J_p)[1])}
+    res["kernel_rows"] = [k1, k2]
+    want(k1["ok_equal"] and k1["finite_lanes"] == B
+         and k1["rel_err"] <= TOL[("K1", "float32")]
+         and k2["rel_err"] <= TOL[("K2", "float32")],
+         "16a: K1 or K2(a) off its plain version at the batch: {} {}"
+         .format(k1, k2))
+
+    # float64: (ii) against (i) lane by lane, and lanes against the CPU.
+    model, cost, z0s, U0s = cartpole_batch(torch, torch.float64, "cuda", B,
+                                           N)
+    f64 = {label: run(label) for label in ("scan", "kernels")}
+    k64 = f64["kernels"]
+    cpu_rows = [{"lane": b, "state": int(s.state), "iterations": s.iterations,
+                 "evals": s.evals,
+                 "card": [int(k64.state[b]), int(k64.iterations[b]),
+                          int(k64.evals[b])],
+                 "J_rel": abs(float(k64.J_opt[b]) - s.J_opt) / abs(s.J_opt)}
+                for b, s in cpu["cartpole"]]
+    res["float64"] = {"kernels_vs_scan_same_ends": _same_ends(
+        f64["kernels"], f64["scan"]),
+        "kernels_vs_scan_J_rel": _J_rel(f64["kernels"], f64["scan"]),
+        "scan": _lane_ends(f64["scan"]), "cpu_lanes": cpu_rows}
+    want(res["float64"]["kernels_vs_scan_same_ends"]
+          and res["float64"]["kernels_vs_scan_J_rel"]
+          <= BATCHED_J_RTOL["cartpole"],
+          "16a float64: kernels and scan lanes part: {}".format(
+              res["float64"]))
+    for row in cpu_rows:
+        want(row["card"] == [row["state"], row["iterations"], row["evals"]]
+              and row["J_rel"] <= BATCHED_J_RTOL["cartpole"],
+              "16a float64: a lane off the CPU's solve: {}".format(row))
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    check(not failed, "; ".join(failed))
+    return res
+
+
+def phase16b_bnn(card, cpu):
+    """16b: bench.py's batched BNN solves (6-200-200-8, P=100, the
+    Cholesky codec, N=25, B=1024 in chunks of 256, 5 iterations, 15
+    evaluations) in float32, the rows of BNN_BATCH_ROWS each timed once,
+    with its lanes' mean evaluations and iterations, the device's idle
+    share of one batched evaluation of its first chunk and the peak memory
+    of its run. Checks: K2(d) is launched by no row (pddp_tpu's gate keeps
+    the stateful model on the scan); one chunk under
+    riccati_mode="kernel" launches K1 at nz=14, B=256 once an evaluation,
+    and on one batched evaluation its gains and the line search's J on
+    them are within phase 8's float32 tolerances of the plain backward's;
+    the bf16 rows' J within 5 % of float32's on the lanes that end alike;
+    four lanes in float64 (in chunks of two, 3 iterations) through K1 on
+    the card against the scan on the CPU (``cpu``, from
+    ``cpu_references``). Lanes whose float32 or bfloat16 solves end
+    otherwise (another number of accepted steps, where rounding tips an
+    accept) are counted, with their J gap, for ROADMAP.md's C."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, backward,
+                                                 control_law,
+                                                 default_fit_alphas,
+                                                 local_model)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.parallel import batched_solve
+    ilqr = _ilqr()
+    failed = []
+
+    def want(cond, what):
+        """A check, made after the phase's line is printed."""
+        if not cond:
+            failed.append(what)
+    t0 = time.perf_counter()
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    B, C, N = BNN_BATCH["B"], BNN_BATCH["chunk"], BNN_BATCH["N"]
+    opts = ILQROptions(**BATCHED_OPTS)
+    res = {"phase": "16b", "card": card, **BNN_BATCH, **BATCHED_OPTS,
+           "rows": {}}
+    cost = CartpoleCost(device="cuda", dtype=torch.float32)
+    z0s, U0s = bnn_batch(torch, torch.float32, "cuda", B, N)
+    k2d = fb.launches["rollout"]
+    runs = {}
+    for name, trained, knob, Bn in BNN_BATCH_ROWS:
+        kw = {} if knob is None else {knob: torch.bfloat16}
+        model = bnn_model(torch, torch.float32, N, trained, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs[name], wall = _timed(lambda: batched_solve(
+            model, cost, z0s[:Bn], U0s[:Bn], opts, encoding=ch, chunk=C))
+        row = {"B": Bn, "wall_s": wall, name: Bn / wall,
+               **_lane_ends(runs[name]),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+               "evaluation_profile": evaluation_profile(
+                   model, cost, z0s[:C], U0s[:C], ch, False)}
+        res["rows"][name] = row
+        res[name] = row[name]
+        want(row["J_finite"], "16b {}: non-finite J".format(name))
+        if trained:
+            trained_model = model
+    res["K2(d)_launches"] = fb.launches["rollout"] - k2d
+    want(res["K2(d)_launches"] == 0,
+          "a batched BNN solve launched K2(d): {}".format(
+              res["K2(d)_launches"]))
+    f32 = runs[BNN_BATCH_ROWS[1][0]]
+    for name, _, _, Bn in BNN_BATCH_ROWS[2:]:
+        cmp = ends_and_J(runs[name], f32, Bn)
+        res["rows"][name]["against_float32"] = cmp
+        want(cmp["J_finite"] and cmp["J_rel_same_ends"] is not None
+             and cmp["J_rel_same_ends"] <= BATCHED_J_RTOL["bf16"],
+             "16b {}: J off float32's: {}".format(name, cmp))
+
+    # matmul_dtype's product on the card: one cuBLAS call of bfloat16
+    # operands with a float32 out (torch.mm(..., out_dtype=)), the operands
+    # cast first, at the line search's widest product (a chunk's 256 lanes
+    # x 10 candidates x 100 particles, 200 x 200), beside float32's.
+    from pddp_tpu_torch.models.bnn.network import _low_precision_mm
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((C * 10 * 100, 200), device="cuda", generator=gen)
+    W = torch.randn((200, 200), device="cuda", generator=gen)
+    res["matmul_dtype_product"] = {
+        "shape": [C * 10 * 100, 200, 200],
+        "bf16_operands_float32_out_ms": events_ms(
+            lambda: _low_precision_mm(x, W, torch.bfloat16), 20),
+        "float32_ms": events_ms(lambda: x @ W, 20),
+        "out_dtype": str(_low_precision_mm(x, W, torch.bfloat16).dtype)}
+    want(res["matmul_dtype_product"]["out_dtype"] == "torch.float32",
+         "16b: matmul_dtype's product is not float32")
+
+    # One chunk through K1 at nz=14, B=256 against the scan chunk. Over a
+    # whole float32 solve a lane's path may part from the scan's (an
+    # accept tipped by rounding; ROADMAP.md C), so the check is made on
+    # one batched evaluation, state-free: K1's gains and the line
+    # search's J per candidate on them, against the plain backward's, at
+    # the chunk's first iterate with a reg per lane 10^U(0, 1) (the
+    # tolerances of phase 8, which makes the same comparison at B=1).
+    scan = runs[BNN_BATCH_ROWS[0][0]]
+    bk.launches = bk.block_launches = 0
+    ilqr.lane_evaluations = 0
+    kern = batched_solve(trained_model, cost, z0s[:C], U0s[:C],
+                         ILQROptions(**BATCHED_OPTS, riccati_mode="kernel"),
+                         encoding=ch)
+    torch.cuda.synchronize()
+    counts = {"K1": bk.launches, "K1_block": bk.block_launches,
+              "evaluations": ilqr.lane_evaluations}
+    Z, AUX = ilqr.rollout(trained_model, z0s[:C], U0s[:C], ch)
+    derivs = local_model(Z, U0s[:C], AUX, trained_model, cost, ch)
+    regs = torch.as_tensor(10.0**np.random.default_rng(17).uniform(
+        0.0, 1.0, C), dtype=torch.float32, device="cuda")
+    k1, (k, K, fin) = batched_k1_row(derivs, regs, "bnn_chunk_b256",
+                                     counts["K1"])
+    kp, Kp, _ = backward(*derivs, reg=regs)
+    alphas = default_fit_alphas(torch.float32, "cuda")
+    J_k, J_p = (control_law(trained_model, derivs[0], U0s[:C], a, b, alphas,
+                            ch, cost=cost)[2][fin] for a, b in
+                ((k, K), (kp, Kp)))
+    J_rel = float(((J_k - J_p).abs() / J_p.abs()).max())
+    res["kernel_chunk"] = {"launches": counts,
+                           "evaluation_J_rel": J_rel,
+                           "solve_against_scan": ends_and_J(kern, scan, C),
+                           **_lane_ends(kern)}
+    res["kernel_rows"] = [k1]
+    want(counts["K1"] >= 1 and counts["K1"] == counts["evaluations"]
+         and counts["K1_block"] == 0 and k1["nz"] == 14 and k1["B"] == C,
+         "16b: the kernel chunk's K1 launches: {}".format(counts))
+    want(k1["ok_equal"] and k1["finite_lanes"] == C
+         and k1["rel_err"] <= TOL[("K1", "float32")]
+         and J_rel <= BNN_TOL["float32_J_N25"]
+         and res["kernel_chunk"]["J_finite"],
+         "16b: the kernel chunk off the plain backward: {} {}".format(
+             k1, res["kernel_chunk"]))
+
+    # float64: four lanes in chunks of two, 3 iterations, through K1 on
+    # the card against the scan on the CPU.
+    z, u = bnn_batch(torch, torch.float64, "cuda", 4, N)
+    n = bk.launches
+    ends = [batched_solve(
+        bnn_model(torch, torch.float64, N, True),
+        CartpoleCost(device="cuda", dtype=torch.float64), z, u,
+        ILQROptions(n_iterations=3, max_evals=BATCHED_OPTS["max_evals"],
+                    riccati_mode="kernel"),
+        encoding=ch, chunk=2), cpu["bnn"]]
+    res["float64_lanes"] = {"same_ends": _same_ends(*ends),
+                            "J_rel": _J_rel(*ends),
+                            "K1_launches": bk.launches - n,
+                            **_lane_ends(ends[1])}
+    want(res["float64_lanes"]["same_ends"]
+         and res["float64_lanes"]["K1_launches"] >= 1
+         and res["float64_lanes"]["J_rel"] <= BATCHED_J_RTOL["bnn"],
+         "16b float64: the card's lanes off the CPU's: {}".format(
+             res["float64_lanes"]))
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    check(not failed, "; ".join(failed))
+    return res
+
+
+def phase16_batched(card, cpu):
+    """Phase 16, batched solves: 16a, 16b; ``cpu`` the CPU's side of
+    their float64 checks (``cpu_references``)."""
+    t0 = time.perf_counter()
+    out = {"a": phase16a_cartpole(card, cpu), "b": phase16b_bnn(card, cpu)}
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": 16, "seconds": out["seconds"]})
+    return out
+
+
+def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
+                   batched):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -2980,6 +3567,27 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp):
         "nz": r["nz"], "ms": r["ms"], "bound_ms": r["bound_ms"],
         "plain_ms": r.get("plain_ms")}
         for r in times if r["kernel"] == "K1 warp"}
+    # The batched solves (phase 16): K1 with a reg per lane and K2(a) at
+    # bench.py's B=1024 cartpole batch, K1 at one BNN chunk (B=256,
+    # nz=14); launches per batched solve (16a(ii)) or chunk (16b).
+    sources = {"K1": ("pddp_tpu_torch/csrc/backward_kernel.cu",
+                      "pddp_tpu/ops/backward_kernel.py:45",
+                      "K1 riccati_backward"),
+               "K2(a)": ("pddp_tpu_torch/csrc/fused_rollout.cu",
+                         "pddp_tpu/ops/fused_rollout.py:114",
+                         "K2(a) fused_rollout_cartpole")}
+    for row in batched["a"]["kernel_rows"] + batched["b"]["kernel_rows"]:
+        src, replaces, name = sources[row["kernel"]]
+        kernels.append({
+            "name": "{} batched {} B={}".format(name, row["path"], row["B"]),
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_note": "chain" if row["chain_floor_ms"]
+            >= row["roofline_ms"] else "roofline",
+            "library_ms": None, "B": row["B"], "N": row["N"],
+            "nz": row["nz"] if "nz" in row else 4})
     return {"kernels": kernels}
 
 
@@ -3004,7 +3612,22 @@ def main():
         seconds[name] = time.perf_counter() - t0
         return out
 
-    run("0", phase0_build, card)
+    try:
+        return _run_phases(card, run, seconds, t_start)
+    except BaseException:
+        # Where the time went, also when a phase failed.
+        emit({"phase_seconds": seconds})
+        raise
+
+
+def _run_phases(card, run, seconds, t_start):
+    import torch
+    # The CPU's side of the float64 checks of phases 14 and 16 runs beside
+    # the build; "0_cpu" is the wait for it after the build.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_refs = pool.submit(cpu_references)
+        run("0", phase0_build, card)
+        cpu_refs = run("0_cpu", cpu_refs.result)
     run("1", phase1_k1)
     run("2", phase2_k2)
     run("3", phase3_golden_f64)
@@ -3018,10 +3641,11 @@ def main():
     paths, path_inputs = run("12", phase12_example_paths, card)
     times = run("13", phase13_kernel_times, card,
                 {"cartpole": main_inputs, **path_inputs}, bnn_k1)
-    entry = run("14", phase14_entry_point, card)
+    entry = run("14", phase14_entry_point, card, cpu_refs["entry"])
     pddp = run("15", phase15_pddp, card)
+    batched = run("16", phase16_batched, card, cpu_refs)
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
-                             pddp)
+                             pddp, batched)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -12,8 +12,10 @@ a batch of solves shares one call.
 ``solve`` can route the backward through K1 (``riccati_mode="kernel"``,
 ``ops/backward_kernel.py``) and the line search through K2
 (``fused_rollout=True``, ``ops/fused_rollout.py``); on CPU tensors those
-wrappers run the plain versions below. ``iLQRController`` is the stateful
-entry point over ``solve``: fit, a warm step, the feedback law and MPC.
+wrappers run the plain versions below. ``solve_lanes`` runs a batch of
+independent solves as lanes of one loop (``parallel.batched_solve``).
+``iLQRController`` is the stateful entry point over ``solve``: fit, a
+warm step, the feedback law and MPC.
 """
 
 from __future__ import annotations
@@ -87,12 +89,13 @@ def default_step_alphas(dtype=torch.float32, device=None):
 class ILQROptions:
     """Solver options (``pddp_tpu``'s fields and defaults).
 
-    ``riccati_mode`` is "scan" (the Python-loop ``backward``) or "kernel"
-    (K1). As in ``pddp_tpu``, constrained solves (``u_min`` and
-    ``u_max``), ``v_zz_reg`` and action sizes past ``SMALL_EIGH_N`` (4)
-    take the scan whatever the mode. ``fused_rollout`` runs the line
-    search in K2 where ``ops.fused_rollout.supports_fused_rollout`` admits
-    the model. ``riccati_mode="parallel"`` is not ported yet and raises.
+    ``riccati_mode`` is "scan" (the Python-loop ``backward``),
+    "parallel" (the associative scan of ``ops.riccati``) or "kernel" (K1).
+    As in ``pddp_tpu``, constrained solves (``u_min`` and ``u_max``) and
+    ``v_zz_reg`` take the scan whatever the mode, and so do action sizes
+    past ``SMALL_EIGH_N`` (4) in kernel mode. ``fused_rollout`` runs the
+    line search in K2 where ``ops.fused_rollout.supports_fused_rollout``
+    admits the model.
     """
 
     n_iterations: int = 50
@@ -113,7 +116,8 @@ class ILQROptions:
 
 @dataclass
 class ILQRResult:
-    """Solution and warm-start state of one solve."""
+    """Solution and warm-start state of one solve (of ``solve_lanes``: each
+    field a tensor with a leading lane axis, ``state`` the codes)."""
 
     Z: torch.Tensor          # (N+1, nz) encoded state path
     U: torch.Tensor          # (N, nu) action path
@@ -177,7 +181,10 @@ def local_model(Z, U, AUX, model, cost,
     """Local quadratic model of an already-rolled-out trajectory.
 
     No sequential loop: the cost's closed form (or vmapped autodiff)
-    and the vmapped dynamics Jacobians cover all N steps at once.
+    and the vmapped dynamics Jacobians cover all N steps at once. Z and U
+    may carry leading lane dims (a batch of solves, AUX's leaves then
+    (N, *lanes, ...)): the steps of every lane go through one call, the
+    terminal cost through one call over the lanes.
 
     Returns:
         (Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu), contiguous, with
@@ -185,23 +192,34 @@ def local_model(Z, U, AUX, model, cost,
     """
     model_opts = model_opts or {}
     cost_opts = cost_opts or {}
-    N = U.shape[0]
+    N = U.shape[-2]
     U_eff = U
     if u_min is not None and u_max is not None:
         U_eff = clamp(U, u_min, u_max)
     L_run, L_z_run, L_u, L_zz_run, L_uz, L_uu = quadratize_cost(
-        cost, Z[:-1], U_eff, encoding, approximate=approximate_hessians,
-        **cost_opts)
-    _, F_z, F_u = linearize_dynamics(model, Z[:-1], U_eff, AUX, encoding,
-                                     **model_opts)
-
-    l_T, l_z_T, _, l_zz_T, _, _ = eval_cost(
-        cost, Z[-1], None, N, terminal=True, encoding=encoding,
+        cost, Z[..., :-1, :], U_eff, encoding,
         approximate=approximate_hessians, **cost_opts)
+    _, F_z, F_u = linearize_dynamics(model, Z[..., :-1, :], U_eff, AUX,
+                                     encoding, **model_opts)
 
-    L = torch.cat([L_run, l_T[None]])
-    L_z = torch.cat([L_z_run, l_z_T[None]])
-    L_zz = torch.cat([L_zz_run, l_zz_T[None]])
+    def terminal(z):
+        l_T, l_z_T, _, l_zz_T, _, _ = eval_cost(
+            cost, z, None, N, terminal=True, encoding=encoding,
+            approximate=approximate_hessians, **cost_opts)
+        return l_T, l_z_T, l_zz_T
+
+    z_T = Z[..., -1, :]
+    lane = z_T.shape[:-1]
+    if lane:
+        l_T, l_z_T, l_zz_T = (t.reshape(lane + t.shape[1:]) for t in
+                              torch.func.vmap(terminal)(
+                                  z_T.reshape(-1, z_T.shape[-1])))
+    else:
+        l_T, l_z_T, l_zz_T = terminal(z_T)
+
+    L = torch.cat([L_run, l_T[..., None]], dim=-1)
+    L_z = torch.cat([L_z_run, l_z_T[..., None, :]], dim=-2)
+    L_zz = torch.cat([L_zz_run, l_zz_T[..., None, :, :]], dim=-3)
     return tuple(t.contiguous() for t in
                  (Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu))
 
@@ -234,20 +252,31 @@ def Q(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, V_z, V_zz):
     return Q_z, Q_u, Q_zz, Q_uz, Q_uu
 
 
+def _lane_reg(reg, trailing):
+    """``reg`` broadcastable against a lane-batched tensor with
+    ``trailing`` dims after the lane dims: a host scalar as it is, a
+    tensor of the lane shape (a reg per solve) with ``trailing`` unit dims
+    appended."""
+    if isinstance(reg, torch.Tensor) and reg.dim():
+        return reg.reshape(reg.shape + (1,) * trailing)
+    return reg
+
+
 def _psd_clamp_with_reg(Q_uu, reg):
     """(Q_uu_reg, Q_uu_inv) by eigenvalue clamping at 1e-12 plus ``reg``:
     closed form for 1x1 action blocks, fixed-sweep Jacobi (``small_eigh``)
-    up to ``SMALL_EIGH_N``, ``torch.linalg.eigh`` past it."""
+    up to ``SMALL_EIGH_N``, ``torch.linalg.eigh`` past it. ``reg`` is a
+    scalar or a tensor of Q_uu's lane shape (a reg per solve)."""
     m = Q_uu.shape[-1]
     floor = torch.tensor(1e-12, dtype=Q_uu.dtype, device=Q_uu.device)
     if m == 1:
-        e = torch.where(Q_uu < 0, floor, Q_uu) + reg
+        e = torch.where(Q_uu < 0, floor, Q_uu) + _lane_reg(reg, 2)
         return e, 1.0 / e
     if m <= SMALL_EIGH_N:
         e, E = small_eigh(Q_uu, sort=False)
     else:
         e, E = torch.linalg.eigh(0.5 * (Q_uu + _T(Q_uu)))
-    e = torch.where(e < 0, floor, e) + reg
+    e = torch.where(e < 0, floor, e) + _lane_reg(reg, 1)
     Q_uu_reg = (E * e[..., None, :]) @ _T(E)
     Q_uu_inv = (E / e[..., None, :]) @ _T(E)
     return Q_uu_reg, Q_uu_inv
@@ -271,7 +300,8 @@ def backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0,
        warm-started from k_{i+1}, and K on the free dimensions from the
        box-QP's masked factor.
 
-    Inputs carry leading batch dims before the time axis.
+    Inputs carry leading batch dims before the time axis; ``reg`` is a
+    scalar or a tensor of those dims' shape (a reg per solve).
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool): ok is False
@@ -283,8 +313,8 @@ def backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0,
     V_z = L_z[..., N, :]
     V_zz = L_zz[..., N, :, :]
     if v_zz_reg:
-        reg_eye = reg * torch.eye(F_z.shape[-1], dtype=V_zz.dtype,
-                                  device=V_zz.device)
+        reg_eye = _lane_reg(reg, 2) * torch.eye(
+            F_z.shape[-1], dtype=V_zz.dtype, device=V_zz.device)
     k_next = torch.zeros_like(L_u[..., 0, :])
     # The default mode checks its gains once, after the loop.
     ok = torch.ones(L_u.shape[:-2], dtype=torch.bool, device=L_u.device)
@@ -452,6 +482,11 @@ def trajectory_cost(cost, Z, U, encoding: StateEncoding = StateEncoding.DEFAULT,
     L = cost(Zm[:-1], Um, idx, terminal=False, encoding=encoding,
              **cost_opts)
     l_T = cost(Zm[-1], None, N, terminal=True, encoding=encoding, **cost_opts)
+    if t_dim:
+        # Lanes of a batch of solves: each candidate's steps summed as one
+        # contiguous row, an order that does not depend on how many lanes
+        # share the call (a chunked batch gives the bits of the whole).
+        return L.movedim(0, -1).contiguous().sum(-1) + l_T
     return L.sum(dim=0) + l_T
 
 
@@ -476,10 +511,7 @@ def _decrease_reg(mu, delta, mu_min, delta_0):
 
 
 def _check_options(opts: ILQROptions):
-    if opts.riccati_mode == "parallel":
-        raise NotImplementedError(
-            "riccati_mode='parallel' is not ported yet (ROADMAP A13)")
-    if opts.riccati_mode not in ("scan", "kernel"):
+    if opts.riccati_mode not in ("scan", "parallel", "kernel"):
         raise ValueError("unknown riccati_mode {!r}".format(
             opts.riccati_mode))
 
@@ -496,6 +528,60 @@ def _solve_dtype(z0, U0, model, cost):
     for d in _param_dtypes(model) + _param_dtypes(cost):
         dtype = torch.promote_types(dtype, d)
     return dtype
+
+
+def _solver_steps(model, cost, opts, encoding, model_opts, cost_opts, u_min,
+                  u_max, alphas):
+    """(local_fn, backward_fn, line_search_fn) of a solve, each over
+    leading lane dims where the inputs have them: the local model, the
+    Riccati backward of the options' mode under ``pddp_tpu``'s gate (the
+    reg a float, or a tensor of the lane shape) and the line search."""
+    constrained = u_min is not None and u_max is not None
+
+    def local_fn(Z, U, AUX):
+        return local_model(Z, U, AUX, model, cost, encoding, model_opts,
+                           cost_opts, u_min=u_min, u_max=u_max,
+                           approximate_hessians=opts.approximate_hessians)
+
+    def backward_fn(derivs, U_cur, reg):
+        # pddp_tpu's gate: constrained and v_zz_reg solves take the scan,
+        # and so do action sizes past the kernel's in kernel mode.
+        if not constrained and not opts.v_zz_reg:
+            if opts.riccati_mode == "parallel":
+                from ..ops.riccati import parallel_backward
+                return parallel_backward(*derivs, reg=reg)
+            if opts.riccati_mode == "kernel":
+                from ..ops.backward_kernel import (kernel_backward,
+                                                   supports_kernel_backward)
+                if supports_kernel_backward(derivs[5], derivs[1]):
+                    return kernel_backward(*derivs, reg=reg)
+        return backward(*derivs, reg=reg, v_zz_reg=opts.v_zz_reg,
+                        u_min=u_min, u_max=u_max, U=U_cur)
+
+    def line_search_fn(Z, U, k, K_new):
+        if opts.fused_rollout and not model_opts:
+            from ..ops.fused_rollout import (fused_control_law,
+                                             supports_fused_rollout)
+            # pddp_tpu's gate: stateful models take the scan.
+            if supports_fused_rollout(model, cost, encoding):
+                if encoding == StateEncoding.IGNORE_UNCERTAINTY:
+                    return fused_control_law(
+                        model, Z, U, k, K_new, alphas, encoding, cost=cost,
+                        cost_opts=cost_opts, u_min=u_min, u_max=u_max,
+                        with_aux=True)
+                # Belief states: trajectories from the kernel, the cost
+                # as one batched post-pass.
+                Z_b, U_b, AUX_b = fused_control_law(
+                    model, Z, U, k, K_new, alphas, encoding, u_min=u_min,
+                    u_max=u_max, with_aux=True)
+                J_b = trajectory_cost(cost, Z_b, U_b, encoding, cost_opts)
+                return Z_b, U_b, J_b, AUX_b
+        return control_law(model, Z, U, k, K_new, alphas, encoding,
+                           model_opts, u_min=u_min, u_max=u_max, cost=cost,
+                           cost_opts=cost_opts, with_aux=True,
+                           cost_in_scan=opts.cost_in_scan)
+
+    return local_fn, backward_fn, line_search_fn
 
 
 def solve(model, cost, z0, U0, opts: ILQROptions,
@@ -526,7 +612,6 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
     sc = np.dtype(str(dtype).replace("torch.", "")).type
     u_min, u_max = (None if b is None else torch.as_tensor(
         b, dtype=dtype, device=device) for b in (opts.u_min, opts.u_max))
-    constrained = u_min is not None and u_max is not None
 
     alphas = (default_fit_alphas(dtype, device) if opts.alphas is None
               else torch.as_tensor(opts.alphas, dtype=dtype, device=device))
@@ -534,45 +619,9 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
     tol, max_reg = sc(opts.tol), sc(opts.max_reg)
     mu_min, delta_0 = sc(opts.mu_min), sc(opts.delta_0)
 
-    def local_fn(Z, U, AUX):
-        return local_model(Z, U, AUX, model, cost, encoding, model_opts,
-                           cost_opts, u_min=u_min, u_max=u_max,
-                           approximate_hessians=opts.approximate_hessians)
-
-    def backward_fn(derivs, U_cur, mu):
-        # pddp_tpu's gate: constrained and v_zz_reg solves, and action
-        # sizes past the kernel's, take the scan.
-        if (opts.riccati_mode == "kernel" and not constrained
-                and not opts.v_zz_reg):
-            from ..ops.backward_kernel import (kernel_backward,
-                                               supports_kernel_backward)
-            if supports_kernel_backward(derivs[5], derivs[1]):
-                return kernel_backward(*derivs, reg=float(mu))
-        return backward(*derivs, reg=float(mu), v_zz_reg=opts.v_zz_reg,
-                        u_min=u_min, u_max=u_max, U=U_cur)
-
-    def line_search_fn(Z, U, k, K_new):
-        if opts.fused_rollout and not model_opts:
-            from ..ops.fused_rollout import (fused_control_law,
-                                             supports_fused_rollout)
-            # pddp_tpu's gate: stateful models take the scan.
-            if supports_fused_rollout(model, cost, encoding):
-                if encoding == StateEncoding.IGNORE_UNCERTAINTY:
-                    return fused_control_law(
-                        model, Z, U, k, K_new, alphas, encoding, cost=cost,
-                        cost_opts=cost_opts, u_min=u_min, u_max=u_max,
-                        with_aux=True)
-                # Belief states: trajectories from the kernel, the cost
-                # as one batched post-pass.
-                Z_b, U_b, AUX_b = fused_control_law(
-                    model, Z, U, k, K_new, alphas, encoding, u_min=u_min,
-                    u_max=u_max, with_aux=True)
-                J_b = trajectory_cost(cost, Z_b, U_b, encoding, cost_opts)
-                return Z_b, U_b, J_b, AUX_b
-        return control_law(model, Z, U, k, K_new, alphas, encoding,
-                           model_opts, u_min=u_min, u_max=u_max, cost=cost,
-                           cost_opts=cost_opts, with_aux=True,
-                           cost_in_scan=opts.cost_in_scan)
+    local_fn, backward_fn, line_search_fn = _solver_steps(
+        model, cost, opts, encoding, model_opts, cost_opts, u_min, u_max,
+        alphas)
 
     # One rollout up front; afterwards the accepted trajectory always
     # comes out of the line search, with its aux recorded.
@@ -592,7 +641,7 @@ def solve(model, cost, z0, U0, opts: ILQROptions,
         accept = False
         retry = True
         while retry and evals < opts.max_evals:
-            k, K_new, ok = backward_fn(derivs, U, mu)
+            k, K_new, ok = backward_fn(derivs, U, float(mu))
             Z_b, U_b, J_b, AUX_b = line_search_fn(derivs[0], U, k, K_new)
             # A diverged candidate gives NaN, which argmin would pick:
             # non-finite candidates count as +inf instead.
@@ -649,6 +698,163 @@ def step_once(model, cost, z0, U0, opts: ILQROptions,
     return solve(model, cost, z0, U0, opts, encoding=encoding,
                  model_opts=model_opts, cost_opts=cost_opts, mu0=mu0,
                  delta0=delta0, n_iterations=1)
+
+
+#: evaluations (backward + line search over every lane) run by
+#: ``solve_lanes``, counted as the kernels' wrappers count their launches.
+lane_evaluations = 0
+
+
+def _tree_zip(fn, a, b):
+    """``fn`` over the paired tensors of two nests of the same structure."""
+    if isinstance(a, (tuple, list)):
+        return type(a)(_tree_zip(fn, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return {k: _tree_zip(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def _lanes_where(mask, new, old, lane_dim=0):
+    """``new`` where ``mask`` (B,) else ``old``, the lane axis at
+    ``lane_dim``."""
+    shape = (1,) * lane_dim + mask.shape + (1,) * (new.dim() - lane_dim - 1)
+    return torch.where(mask.reshape(shape), new, old)
+
+
+def _terminal_lanes(state):
+    return ((state == int(iLQRState.CONVERGED))
+            | (state == int(iLQRState.MAX_REG)))
+
+
+def solve_lanes(model, cost, z0s, U0s, opts: ILQROptions,
+                encoding: StateEncoding = StateEncoding.DEFAULT
+                ) -> ILQRResult:
+    """B independent solves in one loop, each lane with ``solve``'s status
+    machine, as ``pddp_tpu``'s vmap of its solve has it.
+
+    Every lane carries its own Z, U, AUX, K, J, mu, delta, state,
+    accepted iterations and evaluations, on the device. The outer loop
+    runs while any lane is active (not terminal, fewer than
+    ``n_iterations`` accepted, fewer than ``max_evals`` evaluations); the
+    inner loop while any active lane retries. Every evaluation runs all B
+    lanes through the backward (the reg of each lane its own) and the
+    line search, and only the lanes that run take its result: the others
+    keep their carry, as vmap's select does. After the inner loop the
+    lanes that accepted and go on get a fresh local model, computed for
+    those lanes only. Each evaluation makes one device-to-host transfer:
+    whether any lane retries, whether any lane goes on, and which lanes
+    need a fresh local model.
+
+    Args:
+        z0s (B, nz), U0s (B, N, nu).
+
+    Returns:
+        An ``ILQRResult`` whose every field has a leading B: tensors on
+        the inputs' device, ``state`` the ``iLQRState`` codes (int32).
+    """
+    global lane_evaluations
+    _check_options(opts)
+    B, N, nu = U0s.shape
+    nz = z0s.shape[-1]
+    dtype = _solve_dtype(z0s, U0s, model, cost)
+    device = U0s.device
+    z0s, U0s = z0s.to(dtype), U0s.to(dtype)
+    u_min, u_max = (None if b is None else torch.as_tensor(
+        b, dtype=dtype, device=device) for b in (opts.u_min, opts.u_max))
+    alphas = (default_fit_alphas(dtype, device) if opts.alphas is None
+              else torch.as_tensor(opts.alphas, dtype=dtype, device=device))
+    n_iter, max_evals = opts.n_iterations, opts.max_evals
+    tol, max_reg, mu_min, delta_0 = (
+        torch.tensor(v, dtype=dtype, device=device)
+        for v in (opts.tol, opts.max_reg, opts.mu_min, opts.delta_0))
+    codes = {s: torch.tensor(int(s), dtype=torch.int32, device=device)
+             for s in iLQRState}
+    local_fn, backward_fn, line_search_fn = _solver_steps(
+        model, cost, opts, encoding, None, None, u_min, u_max, alphas)
+
+    Z, AUX = rollout(model, z0s, U0s, encoding, u_min=u_min, u_max=u_max)
+    U = U0s
+    derivs = local_fn(Z, U, AUX)
+    J_opt = derivs[3].sum(-1)
+    K = torch.zeros((B, N, nu, nz), dtype=dtype, device=device)
+    mu = torch.zeros(B, dtype=dtype, device=device)
+    delta = torch.full((B,), opts.delta_0, dtype=dtype, device=device)
+    state = torch.full((B,), int(iLQRState.UNDEFINED), dtype=torch.int32,
+                       device=device)
+    accepted = torch.zeros(B, dtype=torch.int32, device=device)
+    evals = torch.zeros(B, dtype=torch.int32, device=device)
+    lanes = torch.arange(B, device=device)
+
+    active = torch.full((B,), n_iter > 0 and max_evals > 0,
+                        dtype=torch.bool, device=device)
+    go_on = n_iter > 0 and max_evals > 0
+    while go_on:
+        state = torch.where(active, codes[iLQRState.UNDEFINED], state)
+        retry = active
+        took = torch.zeros_like(active)
+        go_inner = True
+        while go_inner:
+            lane_evaluations += 1
+            run = retry & (evals < max_evals)
+            k, K_new, ok = backward_fn(derivs, U, mu)
+            Z_b, U_b, J_b, AUX_b = line_search_fn(derivs[0], U, k, K_new)
+            # Non-finite candidates count as +inf in each lane's argmin.
+            amin = torch.argmin(torch.where(torch.isfinite(J_b), J_b,
+                                            torch.inf), dim=-1)
+            J_new = J_b[lanes, amin]
+            accept = run & ok & torch.isfinite(J_new) & (J_new < J_opt)
+            converged = accept & ((J_opt - J_new).abs() / J_opt < tol)
+            # The Tassa schedule, as _increase_reg and _decrease_reg.
+            delta_inc = torch.clamp_min(delta, 1.0) * delta_0
+            mu_inc = torch.maximum(mu_min, mu * delta_inc)
+            delta_dec = torch.clamp_max(delta, 1.0) / delta_0
+            mu_dec = mu * delta_dec
+            mu_dec = torch.where(mu_dec <= mu_min, 0.0, mu_dec)
+            reg_exceeded = mu_inc >= max_reg
+
+            new_state = torch.where(
+                accept,
+                torch.where(converged, codes[iLQRState.CONVERGED],
+                            codes[iLQRState.ACCEPTED]),
+                torch.where(reg_exceeded, codes[iLQRState.MAX_REG],
+                            torch.where(ok, codes[iLQRState.REJECTED],
+                                        codes[iLQRState.NOT_PD])))
+            state = torch.where(run, new_state, state)
+            Z = _lanes_where(accept, Z_b[lanes, :, amin], Z)
+            U = _lanes_where(accept, U_b[lanes, :, amin], U)
+            AUX = _tree_zip(lambda new, old: _lanes_where(
+                accept, new[:, lanes, amin], old, lane_dim=1), AUX_b, AUX)
+            K = _lanes_where(accept, K_new, K)
+            J_opt = torch.where(accept, J_new, J_opt)
+            mu = torch.where(run, torch.where(accept, mu_dec, mu_inc), mu)
+            delta = torch.where(run, torch.where(accept, delta_dec,
+                                                 delta_inc), delta)
+            evals = evals + run.to(torch.int32)
+            retry = run & ~accept & ~reg_exceeded
+            took = took | accept
+            # Where each lane stands if the inner loop ends here.
+            active = (~_terminal_lanes(state)
+                      & (accepted + took.to(torch.int32) < n_iter)
+                      & (evals < max_evals))
+            # The one transfer of the evaluation.
+            flags = torch.cat([(retry & (evals < max_evals)).any()[None],
+                               active.any()[None], took & active]).tolist()
+            go_inner = flags[0]
+        accepted = accepted + took.to(torch.int32)
+        go_on = flags[1]
+        fresh = [b for b, f in enumerate(flags[2:]) if f]
+        if fresh:
+            if len(fresh) == B:
+                derivs = local_fn(Z, U, AUX)
+            else:
+                idx = torch.tensor(fresh, device=device)
+                sub = local_fn(Z[idx], U[idx],
+                               _tree_map(lambda a: a[:, idx], AUX))
+                derivs = tuple(d.index_copy(0, idx, s)
+                               for d, s in zip(derivs, sub))
+
+    return ILQRResult(Z=Z, U=U, K=K, J_opt=J_opt, state=state, mu=mu,
+                      delta=delta, iterations=accepted, evals=evals)
 
 
 # ---------------------------------------------------------------------------

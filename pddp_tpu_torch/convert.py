@@ -98,7 +98,8 @@ def rendezvous(model_params, cost_params, *, device=None,
 def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
         angular_indices=None, non_angular_indices=None, constrain_min=None,
         constrain_max=None, device=None, dtype=torch.float32,
-        requires_grad=False, particles=False, **init_kwargs):
+        requires_grad=False, particles=False, compute_dtype=None,
+        matmul_dtype=None, **init_kwargs):
     """A ``BNNDynamicsModel`` (a ``ParticlesBNNDynamicsModel`` with
     ``particles``) from numpy arrays.
 
@@ -117,6 +118,8 @@ def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
         requires_grad: set ``requires_grad`` on the net's trainable leaves
             (``models.bnn.trainable_mask``), for a caller's own autograd;
             ``fit_bnn`` trains the same leaves either way.
+        compute_dtype, matmul_dtype: the net's eval-mode precision options
+            (``models.bnn.BayesianMLP``).
     """
     _check_numpy([("net_{}".format(i), v) for i, v in enumerate(net_leaves)]
                  + list(buffers.items()))
@@ -125,7 +128,8 @@ def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
         angular_indices=angular_indices,
         non_angular_indices=non_angular_indices,
         constrain_min=constrain_min, constrain_max=constrain_max,
-        particles=particles)
+        particles=particles, compute_dtype=compute_dtype,
+        matmul_dtype=matmul_dtype)
     model = cls.init(dtype=dtype, device=device, **init_kwargs)
     old = model.net.leaves()
     if len(net_leaves) != len(old):

@@ -13,6 +13,9 @@
 //   V_z  = Q_z + K^T Q_uu k + K^T Q_u + Q_uz^T k
 //   V_zz = sym(Q_zz + K^T Q_uu K + K^T Q_uz + Q_uz^T K)
 // with the unregularized Q in the V update, and ok = all of k, K finite.
+// reg is one for every solve, or each solve's own (a batch of solves, each
+// lane on its own regularization schedule, as pallas_backward receives it
+// per lane under vmap), read once from device memory before the recursion.
 //
 // What bounds it on an H100: at the main-path shape (N=200, nz=4, nu=1,
 // f32) it reads about 37 KB and writes 4 KB, and does about 0.1 MFLOP:
@@ -327,6 +330,7 @@ struct K1Args {
   const T *F_z, *F_u, *L_z, *L_u, *L_zz, *L_uz, *L_uu;
   T *k, *K;
   bool* ok;
+  const T* regs;  // a reg per solve, or null: every solve takes reg
   T reg;
   int B, N, C;  // solves, steps, steps per chunk
 };
@@ -360,6 +364,8 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
   const T* L_uu = g.L_uu + bb * N * NU * NU;
   T* k_out = g.k + bb * N * NU;
   T* K_out = g.K + bb * N * NU * NZ;
+  // This solve's reg: one load, before the recursion starts.
+  const T reg = g.regs ? g.regs[bb] : g.reg;
 
   // This lane's entries in stages B and C, (row << 8) | column, -1 idle.
   int codeB[PB], codeC[PC];
@@ -471,7 +477,7 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
       for (int u = 0; u < NU; ++u)
 #pragma unroll
         for (int m = 0; m < NU; ++m) quu[u][m] = Q[(NZ + u) * NX + NZ + m];
-      clamped_inverse_cyclic<T, NU>(quu, g.reg, qinv);
+      clamped_inverse_cyclic<T, NU>(quu, reg, qinv);
 #pragma unroll
       for (int p = 0; p < PC; ++p) {
         const int code = codeC[p];
@@ -571,11 +577,12 @@ int launch_shape(K1Args<T> g, cudaStream_t stream) {
 
 template <typename T>
 int launch(const T* F_z, const T* F_u, const T* L_z, const T* L_u,
-           const T* L_zz, const T* L_uz, const T* L_uu, double reg, T* k,
-           T* K, bool* ok, int B, int N, int nz, int nu, void* stream_ptr) {
+           const T* L_zz, const T* L_uz, const T* L_uu, double reg,
+           const T* regs, T* k, T* K, bool* ok, int B, int N, int nz, int nu,
+           void* stream_ptr) {
   if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const K1Args<T> g{F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, k, K, ok,
-                    static_cast<T>(reg), B, N, 0};
+                    regs, static_cast<T>(reg), B, N, 0};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define PDDP_K1_LAUNCH(NZ_, NU_) \
   if (nz == NZ_ && nu == NU_) return launch_shape<T, NZ_, NU_>(g, stream);
@@ -807,6 +814,7 @@ struct K1BlockArgs {
   T *k, *K;
   bool* ok;
   T* scratch;  // null: the workspace is in shared memory
+  const T* regs;  // a reg per solve, or null: every solve takes reg
   T reg;
   int N, nz;
   int fv;        // elements a copy of F_z's rows (stage_fc)
@@ -1081,6 +1089,8 @@ __global__ void __launch_bounds__(kMaxBlockThreads)
   const T* L_uu = g.L_uu + b * N * NU * NU;
   T* k_out = g.k + b * N * NU;
   T* K_out = g.K + b * N * NU * nz;
+  // This solve's reg: one load, before the recursion starts.
+  const T reg = g.regs ? g.regs[b] : g.reg;
 
   // Stores the KT values v at p (aligned to KT elements) in every other
   // CTA of the cluster.
@@ -1255,7 +1265,7 @@ __global__ void __launch_bounds__(kMaxBlockThreads)
 
     // Stage B, and warp 0 the clamp.
     if (tid < 32) {
-      clamp_warp<T, NU>(tid, Fc, P, ldx, nz, L.uu, g.reg, QI, QUU);
+      clamp_warp<T, NU>(tid, Fc, P, ldx, nz, L.uu, reg, QI, QUU);
     } else {
       for (int t = tid - 32; t < nt.b; t += nthr - 32)
         tile_b(tblB[t], Fc, L);
@@ -1552,8 +1562,8 @@ int launch_block_shape(K1BlockArgs<T> g, int B, int c_req,
 template <typename T>
 int launch_block(const T* F_z, const T* F_u, const T* L_z, const T* L_u,
                  const T* L_zz, const T* L_uz, const T* L_uu, double reg,
-                 T* k, T* K, bool* ok, T* scratch, int B, int N, int nz,
-                 int nu, int c_req, void* stream_ptr) {
+                 const T* regs, T* k, T* K, bool* ok, T* scratch, int B,
+                 int N, int nz, int nu, int c_req, void* stream_ptr) {
   if (B < 1 || N < 1 || nz < 1) return static_cast<int>(cudaErrorInvalidValue);
   // Copies of 16 bytes where a step's rows (F_z) or slice (L_zz, L_uz) and
   // the tensor's alignment allow, else 8 or 4.
@@ -1565,7 +1575,8 @@ int launch_block(const T* F_z, const T* F_u, const T* L_z, const T* L_u,
     return v;
   };
   const K1BlockArgs<T> g{F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, k, K, ok,
-                         scratch, static_cast<T>(reg), N, nz, width(F_z, nz),
+                         scratch, regs, static_cast<T>(reg), N, nz,
+                         width(F_z, nz),
                          width(L_zz, long(nz) * nz), width(L_uz, long(nu) * nz),
                          false};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -1604,28 +1615,31 @@ int report_plan(int nz, int nu, int B, int c_req, long* out) {
 extern "C" {
 
 // F_z (B, N, nz, nz), F_u (B, N, nz, nu), L_z (B, N+1, nz), L_u (B, N, nu),
-// L_zz (B, N+1, nz, nz), L_uz (B, N, nu, nz), L_uu (B, N, nu, nu); k
+// L_zz (B, N+1, nz, nz), L_uz (B, N, nu, nz), L_uu (B, N, nu, nu); regs
+// (B) the reg of each solve, or null for reg in every solve; k
 // (B, N, nu), K (B, N, nu, nz), ok (B) bool. The launch picks its warps a
 // block and its chunk (pddp::plan); (nz, nu) without an instance returns
 // cudaErrorInvalidValue.
 int pddp_riccati_backward_f32(const float* F_z, const float* F_u,
                               const float* L_z, const float* L_u,
                               const float* L_zz, const float* L_uz,
-                              const float* L_uu, double reg, float* k,
+                              const float* L_uu, double reg,
+                              const float* regs, float* k,
                               float* K, bool* ok, int B, int N, int nz,
                               int nu, void* stream) {
-  return launch<float>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, k, K, ok,
-                       B, N, nz, nu, stream);
+  return launch<float>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, regs, k, K,
+                       ok, B, N, nz, nu, stream);
 }
 
 int pddp_riccati_backward_f64(const double* F_z, const double* F_u,
                               const double* L_z, const double* L_u,
                               const double* L_zz, const double* L_uz,
-                              const double* L_uu, double reg, double* k,
+                              const double* L_uu, double reg,
+                              const double* regs, double* k,
                               double* K, bool* ok, int B, int N, int nz,
                               int nu, void* stream) {
-  return launch<double>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, k, K, ok,
-                        B, N, nz, nu, stream);
+  return launch<double>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, regs, k,
+                        K, ok, B, N, nz, nu, stream);
 }
 
 // The block kernel, for any nz and nu <= 4: the same arguments, plus
@@ -1635,23 +1649,27 @@ int pddp_riccati_backward_f64(const double* F_z, const double* F_u,
 int pddp_riccati_backward_block_f32(const float* F_z, const float* F_u,
                                     const float* L_z, const float* L_u,
                                     const float* L_zz, const float* L_uz,
-                                    const float* L_uu, double reg, float* k,
+                                    const float* L_uu, double reg,
+                              const float* regs, float* k,
                                     float* K, bool* ok, float* scratch, int B,
                                     int N, int nz, int nu, int cluster,
                                     void* stream) {
-  return launch_block<float>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, k, K,
-                             ok, scratch, B, N, nz, nu, cluster, stream);
+  return launch_block<float>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, regs,
+                             k, K, ok, scratch, B, N, nz, nu, cluster,
+                             stream);
 }
 
 int pddp_riccati_backward_block_f64(const double* F_z, const double* F_u,
                                     const double* L_z, const double* L_u,
                                     const double* L_zz, const double* L_uz,
-                                    const double* L_uu, double reg, double* k,
+                                    const double* L_uu, double reg,
+                              const double* regs, double* k,
                                     double* K, bool* ok, double* scratch,
                                     int B, int N, int nz, int nu, int cluster,
                                     void* stream) {
-  return launch_block<double>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, k,
-                              K, ok, scratch, B, N, nz, nu, cluster, stream);
+  return launch_block<double>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg,
+                              regs, k, K, ok, scratch, B, N, nz, nu, cluster,
+                              stream);
 }
 
 // The block kernel's plan for B solves at (nz, nu), elements of itemsize

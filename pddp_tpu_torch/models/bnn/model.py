@@ -43,7 +43,7 @@ from ...utils.linalg import tria_solve_right
 from ...utils.particles import particles_covar, standardize
 from ..base import DynamicsModel
 from .losses import gaussian_log_likelihood
-from .network import BayesianMLP, Linear, bayesian_mlp, trainable_mask
+from .network import Linear, bayesian_mlp, trainable_mask
 
 __all__ = ["ParticlesBNNDynamicsModel", "BNNDynamicsModel", "BNNState",
            "bnn_dynamics_model_factory", "fit_bnn", "infer_eps",
@@ -218,7 +218,7 @@ class ParticlesBNNDynamicsModel(DynamicsModel):
                 std * draws.normal(generator, W.shape, W.dtype, W.device),
                 draws.uniform(generator, b.shape, b.dtype, b.device, -0.1,
                               0.1)))
-        net = BayesianMLP(layers, self.net.dropouts, self.net.activation)
+        net = self.net._like(layers, self.net.dropouts)
         return self.replace(net=net).resample(generator)
 
 

@@ -6,8 +6,9 @@ particle traverses one sampled network for a whole episode. The masks
 are functions of stored noise (``eval_mask``), drawn anew by
 ``resample``. In training mode the forward takes fresh noise of each
 hidden layer's input shape (``BayesianMLP.__call__(x, noise)``, the
-draws from ``draw_noise``). ``compute_dtype`` and ``matmul_dtype`` are
-not ported yet.
+draws from ``draw_noise``). In eval mode ``compute_dtype`` runs the
+forward at reduced precision and ``matmul_dtype`` only its products'
+operands (see ``BayesianMLP``).
 
 Leaves are listed in the JAX package's flatten order (``leaves``), which
 is the order of the ``net_<i>`` entries of the ``.npz`` files that
@@ -88,11 +89,68 @@ class _Dropout(_Leaves):
         return x * self.eval_mask()
 
 
+def _low_precision_mm(x, W, dtype):
+    """x @ W with both operands rounded to ``dtype`` and the product
+    summed and returned at x's dtype. On the card one cuBLAS product of
+    ``dtype`` operands with x's dtype out (``torch.mm(..., out_dtype=)``);
+    on the CPU, which has no such product, the rounded operands are
+    multiplied at x's dtype (the products of two bfloat16 values are exact
+    in float32, so only the order of the sums differs)."""
+    if x.device.type == "cuda" and W.dim() == 2:
+        out = torch.mm(x.reshape(-1, x.shape[-1]).to(dtype), W.to(dtype),
+                       out_dtype=x.dtype)
+        return out.reshape(x.shape[:-1] + W.shape[-1:])
+    return torch.matmul(x.to(dtype).to(x.dtype), W.to(dtype).to(x.dtype))
+
+
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """``_low_precision_mm`` with its forward-mode derivative and batching
+    rule (the BNN's structured Jacobians push tangents through the MLP
+    under ``torch.func.jvp`` and ``vmap``): the tangent of a product
+    takes the same low-precision product, as JAX's ``matmul`` with
+    ``preferred_element_type`` has it. Eval mode only: no reverse mode."""
+
+    @staticmethod
+    def forward(x, W, dtype):
+        return _low_precision_mm(x, W, dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, W, dtype = inputs
+        ctx.save_for_forward(x, W)
+        ctx.dtype = dtype
+
+    @staticmethod
+    def jvp(ctx, x_t, W_t, _):
+        x, W = ctx.saved_tensors
+        out = None
+        if x_t is not None:
+            out = _LowPrecisionMatmul.apply(x_t, W, ctx.dtype)
+        if W_t is not None:
+            t = _LowPrecisionMatmul.apply(x, W_t, ctx.dtype)
+            out = t if out is None else out + t
+        return out
+
+    @staticmethod
+    def vmap(info, in_dims, x, W, dtype):
+        x_bd, W_bd, _ = in_dims
+        x = (x.movedim(x_bd, 0) if x_bd is not None
+             else x.expand((info.batch_size,) + x.shape))
+        if W_bd is not None:  # a weight per batch entry
+            W = W.movedim(W_bd, 0)
+            W = W.reshape(W.shape[:1] + (1,) * (x.dim() - 2) + W.shape[1:])
+        return _LowPrecisionMatmul.apply(x, W, dtype), 0
+
+
 class Linear(_Leaves):
     FIELDS = ("W", "b")
 
-    def __call__(self, x):
+    def __call__(self, x, matmul_dtype=None):
+        """x @ W + b; with ``matmul_dtype`` the product's operands are
+        rounded to it and the product stays at x's precision."""
         W, b = self.W, self.b
+        if matmul_dtype is not None:
+            return _LowPrecisionMatmul.apply(x, W, matmul_dtype) + b
         if W.dtype != x.dtype:
             W, b = W.to(x.dtype), b.to(x.dtype)
         return torch.matmul(x, W) + b
@@ -181,12 +239,30 @@ class TLNDropout(_Dropout):
 
 
 class BayesianMLP:
-    """[Linear -> dropout mask -> activation]* -> Linear."""
+    """[Linear -> dropout mask -> activation]* -> Linear.
 
-    def __init__(self, layers, dropouts, activation="relu"):
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the eval-mode
+    forward at reduced precision: inputs, weights and masks are cast
+    down, the output cast back to the input's dtype. ``matmul_dtype``
+    casts only the products' operands: the products, activations, masks
+    and biases stay at the input's precision. Both apply to the forward on
+    the episode masks only (training runs at the parameters' precision);
+    they are meant one at a time, and with both ``compute_dtype`` rules,
+    as in ``pddp_tpu``.
+    """
+
+    def __init__(self, layers, dropouts, activation="relu",
+                 compute_dtype=None, matmul_dtype=None):
         self.layers = tuple(layers)
         self.dropouts = tuple(dropouts)
         self.activation = activation
+        self.compute_dtype = compute_dtype
+        self.matmul_dtype = matmul_dtype
+
+    def _like(self, layers, dropouts):
+        """A net of these layers and dropouts with this one's options."""
+        return BayesianMLP(layers, dropouts, self.activation,
+                           self.compute_dtype, self.matmul_dtype)
 
     def _act(self, x):
         return getattr(torch, self.activation)(x)
@@ -199,14 +275,24 @@ class BayesianMLP:
     def __call__(self, x, noise=None):
         """The forward pass: with ``noise`` (one array per hidden layer,
         of that layer's input shape, None where it has no dropout) the
-        training forward on fresh noise; without, the episode masks."""
+        training forward on fresh noise; without, the episode masks (and
+        ``compute_dtype`` or ``matmul_dtype`` where set)."""
+        cd, out_dtype = self.compute_dtype, x.dtype
+        fast = noise is None and cd is not None and out_dtype != cd
+        if fast:
+            x = x.to(cd)
+        mm = self.matmul_dtype if noise is None and not fast else None
         for i, (layer, drop) in enumerate(zip(self.layers[:-1],
                                               self.dropouts)):
-            x = layer(x)
+            x = layer(x, mm)
             if drop is not None:
-                x = drop.apply(x, None if noise is None else noise[i])
+                if fast:
+                    x = x * drop.eval_mask().to(x.dtype)
+                else:
+                    x = drop.apply(x, None if noise is None else noise[i])
             x = self._act(x)
-        return self.layers[-1](x)
+        x = self.layers[-1](x, mm)
+        return x.to(out_dtype) if fast else x
 
     def draw_noise(self, generator, batch_shape):
         """Fresh training noise for an input of ``batch_shape`` (its
@@ -221,7 +307,7 @@ class BayesianMLP:
         drops = [None if d is None else d.resample(
             generator, None if noise is None else noise[i])
             for i, d in enumerate(self.dropouts)]
-        return BayesianMLP(self.layers, drops, self.activation)
+        return self._like(self.layers, drops)
 
     def regularization(self):
         """The sum of each (dropout, following Linear) pair's penalty."""
@@ -256,7 +342,7 @@ class BayesianMLP:
         if pos != len(values):
             raise ValueError("expected {} leaves, got {}".format(
                 pos, len(values)))
-        return BayesianMLP(layers, drops, self.activation)
+        return self._like(layers, drops)
 
 
 def trainable_mask(net):
@@ -284,10 +370,8 @@ def bayesian_mlp(in_features, out_features, hidden_features, n_particles=100,
     (n_particles, width), on ``device`` (default ``cuda``, see
     ``device.resolve_device``). Draws come from numpy's generator at
     ``seed`` (JAX's bits cannot be reproduced; ``convert.bnn`` carries a
-    JAX net's values across)."""
-    if compute_dtype is not None or matmul_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype and matmul_dtype are not ported yet")
+    JAX net's values across). ``compute_dtype`` and ``matmul_dtype``: see
+    ``BayesianMLP``."""
     from ...device import resolve_device
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -323,4 +407,5 @@ def bayesian_mlp(in_features, out_features, hidden_features, n_particles=100,
         else:
             raise NotImplementedError(
                 "Unsupported dropout class: {}".format(dropout_class))
-    return BayesianMLP(layers, drops)
+    return BayesianMLP(layers, drops, compute_dtype=compute_dtype,
+                       matmul_dtype=matmul_dtype)

@@ -76,7 +76,7 @@ def _function(dtype, block=False):
         lib = load_library("backward_kernel")
         fn = getattr(lib, (_BLOCK_SYMBOLS if block else _SYMBOLS)[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
-                       + [ctypes.c_void_p] * (4 if block else 3)
+                       + [ctypes.c_void_p] * (5 if block else 4)
                        + [ctypes.c_int] * (5 if block else 4)
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -121,8 +121,12 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
 
     Inputs may carry one leading batch dim B (a batch of solves: a warp
     each at the shapes of ``INSTANCES``, else a block or a cluster each).
-    ``reg`` is a host scalar. ``_cluster`` is for the checks only (the card tests, chip_smoke.py): it
-    overrides the block kernel's plan (``launch_plan``).
+    ``reg`` is a host scalar for every solve, or a tensor of the batch's
+    shape (B,) on the inputs' device, each solve's own (the batched
+    solve's per-lane regularization); the kernel reads a solve's entry
+    once, before its recursion. ``_cluster`` is for the checks only (the
+    card tests, chip_smoke.py): it overrides the block kernel's plan
+    (``launch_plan``).
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool).
@@ -134,8 +138,10 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
                          "{}".format(F_z.device))
     ins = (F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu)
     unbatched = F_z.dim() == 3
+    regs = reg if isinstance(reg, torch.Tensor) else None
     if unbatched:
         ins = tuple(t.unsqueeze(0) for t in ins)
+        regs = None if regs is None else regs.reshape(1)
     F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu = ins
     B, N, nz, _ = F_z.shape
     nu = F_u.shape[-1]
@@ -158,6 +164,14 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
                 name, t.dtype, t.device, dtype, device))
         if not t.is_contiguous():
             raise ValueError("{} is not contiguous".format(name))
+    if regs is not None:
+        if tuple(regs.shape) != (B,):
+            raise ValueError("reg has shape {}, expected a float or "
+                             "({},)".format(tuple(regs.shape), B))
+        if regs.dtype != dtype or regs.device != device:
+            raise TypeError("reg is {} on {}, expected {} on {}".format(
+                regs.dtype, regs.device, dtype, device))
+        regs = regs.contiguous()
 
     k = torch.empty((B, N, nu), dtype=dtype, device=device)
     K = torch.empty((B, N, nu, nz), dtype=dtype, device=device)
@@ -177,7 +191,9 @@ def kernel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0, *,
     plan = (B, N, nz, nu) + ((_cluster or 0,) if block else ())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ins), float(reg), *outs, *plan,
+        err = fn(*(t.data_ptr() for t in ins),
+                 0.0 if regs is not None else float(reg),
+                 None if regs is None else regs.data_ptr(), *outs, *plan,
                  stream)
     if err != 0:
         raise RuntimeError("K1 ({} kernel) launch failed: CUDA error "

@@ -61,7 +61,8 @@ def supports(model, encoding=None):
     """Whether the kernel covers ``model`` under ``encoding``: a
     ``BNNDynamicsModel`` (exact type) under UPPER_TRIANGULAR_CHOLESKY
     with state size <= 8, action size <= 4, at most 6 linear layers, an
-    output of width 2 n, ReLU and at least two particles. The launch plan
+    output of width 2 n, ReLU, at least two particles and the net at full
+    precision (no ``compute_dtype`` or ``matmul_dtype``). The launch plan
     (cluster, particles and shared memory of a CTA) is the library's: a
     shape it cannot plan makes the launch raise."""
     if type(model) is not BNNDynamicsModel:
@@ -72,7 +73,8 @@ def supports(model, encoding=None):
     return (model.state_size <= MAX_N and model.action_size <= MAX_NU
             and len(net.layers) <= MAX_LAYERS and net.activation == "relu"
             and _widths(net)[-1] == 2 * model.state_size
-            and model.n_particles >= 2 and model.eps_in is not None)
+            and model.n_particles >= 2 and model.eps_in is not None
+            and net.compute_dtype is None and net.matmul_dtype is None)
 
 
 class _Packer:
@@ -354,7 +356,8 @@ def mlp(net, x):
     widths = _widths(net)
     if (len(net.layers) > MAX_LAYERS or net.activation != "relu"
             or widths[0] != F or widths[-1] > 2 * MAX_N
-            or widths[-1] % 2 or P < 2):
+            or widths[-1] % 2 or P < 2 or net.compute_dtype is not None
+            or net.matmul_dtype is not None):
         raise ValueError("the MLP kernel does not cover this net")
     _check("x", x, (G, P, F), dtype, device)
     pk = _Packer(dtype, device)

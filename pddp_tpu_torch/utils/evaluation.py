@@ -100,53 +100,84 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _flatten_lanes(t, lane):
+    """(*lane, N, ...) -> (lanes * N, ...)."""
+    return t.reshape((-1,) + t.shape[len(lane) + 1:])
+
+
+def _lane_steps(U):
+    """The step index of every entry of U (*lane, N, nu) flattened over
+    lanes and steps."""
+    N = U.shape[-2]
+    idx = torch.arange(N, device=U.device)
+    return idx.expand(U.shape[:-1]).reshape(-1)
+
+
+def _unflatten_lanes(out, lane, N):
+    return tuple(None if t is None else t.reshape(lane + (N,) + t.shape[1:])
+                 for t in out)
+
+
 def quadratize_cost(cost, Z_run, U, encoding: StateEncoding,
                     approximate=False, **kwargs):
     """Running-cost Taylor coefficients along a whole trajectory.
 
     A cost with a closed form (``eval_derivatives``) takes the whole
-    trajectory in one call; any other is vmapped autodiff.
+    trajectory in one call; any other is vmapped autodiff. Leading lane
+    dims (a batch of solves) are flattened with the steps into one call,
+    each entry with its own step index.
 
     Args:
-        Z_run (Tensor<N, nz>): encoded states z_0..z_{N-1}.
-        U (Tensor<N, nu>): actions.
+        Z_run (Tensor<..., N, nz>): encoded states z_0..z_{N-1}.
+        U (Tensor<..., N, nu>): actions.
 
     Returns:
         Tuple (L, L_z, L_u, L_zz, L_uz, L_uu) stacked over time.
     """
-    idx = torch.arange(U.shape[0], device=Z_run.device)
+    lane = U.shape[:-2]
+    N = U.shape[-2]
+    idx = _lane_steps(U)
+    Z_f, U_f = _flatten_lanes(Z_run, lane), _flatten_lanes(U, lane)
     deriv_fn = getattr(cost, "eval_derivatives", None)
+    out = None
     if deriv_fn is not None and not approximate:
-        out = deriv_fn(Z_run, U, idx, terminal=False, encoding=encoding,
+        out = deriv_fn(Z_f, U_f, idx, terminal=False, encoding=encoding,
                        approximate=approximate, **kwargs)
-        if out is not None:
-            return out
+    if out is None:
+        def one(z, u, i):
+            return eval_cost(cost, z, u, i, terminal=False, encoding=encoding,
+                             approximate=approximate, **kwargs)
 
-    def one(z, u, i):
-        return eval_cost(cost, z, u, i, terminal=False, encoding=encoding,
-                         approximate=approximate, **kwargs)
-
-    return torch.func.vmap(one)(Z_run, U, idx)
+        out = torch.func.vmap(one)(Z_f, U_f, idx)
+    return _unflatten_lanes(out, lane, N)
 
 
 def linearize_dynamics(model, Z_run, U, AUX, encoding: StateEncoding,
                        **kwargs):
-    """Dynamics Jacobians along a whole trajectory, vmapped over time.
+    """Dynamics Jacobians along a whole trajectory, vmapped over time (and
+    over leading lane dims, flattened with the steps, each entry with its
+    own step index).
 
     Args:
-        Z_run (Tensor<N, nz>): encoded states z_0..z_{N-1}.
-        U (Tensor<N, nu>): actions.
-        AUX: per-step aux nest stacked over time (from the rollout).
+        Z_run (Tensor<..., N, nz>): encoded states z_0..z_{N-1}.
+        U (Tensor<..., N, nu>): actions.
+        AUX: per-step aux nest stacked over time, each leaf (N, ..., *)
+            with the lane dims after the time axis (from the rollout).
 
     Returns:
         Tuple (Z_next, F_z, F_u) stacked over time.
     """
-    idx = torch.arange(U.shape[0], device=Z_run.device)
+    lane = U.shape[:-2]
+    N = U.shape[-2]
+    idx = _lane_steps(U)
+    AUX = _tree_map(lambda a: _flatten_lanes(a.movedim(0, len(lane)), lane),
+                    AUX)
 
     def one(z, u, i, aux):
         return eval_dynamics(model, z, u, i, encoding=encoding, aux=aux,
                              **kwargs)
 
     aux_dims = _tree_map(lambda _: 0, AUX)
-    return torch.func.vmap(one, in_dims=(0, 0, 0, aux_dims))(Z_run, U, idx,
-                                                             AUX)
+    out = torch.func.vmap(one, in_dims=(0, 0, 0, aux_dims))(
+        _flatten_lanes(Z_run, lane), _flatten_lanes(U, lane), idx, AUX)
+    return _unflatten_lanes(out, lane, N)

@@ -97,13 +97,46 @@ def _chip_smoke():
     return mod
 
 
+def _takes_regs(bk, block=False):
+    """Whether the tree's K1 library takes a reg per solve (a pointer
+    after the float reg: one argument more than before)."""
+    import torch
+    return len(bk._function(torch.float32, block).argtypes) == (
+        19 if block else 17)
+
+
+def _k1_with_ok(ins, reg, block):
+    """K1 launched as a library without the reg per solve takes it: the
+    outputs k, K, ok (and the block kernel's scratch, none here)."""
+    import torch
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    B, N, nz, nu = ins[1].shape
+    k = torch.empty((B, N, nu), dtype=ins[0].dtype, device="cuda")
+    K = torch.empty((B, N, nu, nz), dtype=ins[0].dtype, device="cuda")
+    ok = torch.empty((B,), dtype=torch.bool, device="cuda")
+    fn = bk._function(ins[0].dtype, block)
+    args = ((*(t.data_ptr() for t in ins), float(reg), k.data_ptr(),
+             K.data_ptr(), ok.data_ptr()) + ((None,) if block else ())
+            + (B, N, nz, nu) + ((0,) if block else ())
+            + (torch.cuda.current_stream().cuda_stream,))
+
+    def launch():
+        if fn(*args) != 0:
+            raise RuntimeError("K1 launch failed")
+    return launch
+
+
 def raw_k1(derivs, reg):
     """K1 alone on preallocated outputs (``chip_smoke.raw_k1``, or the
-    launch without ``ok`` of a K1 that does not write it)."""
+    launch of an older K1: without a reg per solve, or without ``ok``)."""
     import torch
     from pddp_tpu_torch.ops import backward_kernel as bk
     if hasattr(bk, "INSTANCES"):
-        return CS.raw_k1(derivs, reg)
+        if _takes_regs(bk):
+            return CS.raw_k1(derivs, reg)
+        ins = derivs[1:3] + derivs[4:]
+        return _k1_with_ok(tuple(t[None] for t in ins) if ins[0].dim() == 3
+                           else ins, reg, False)
     ins = derivs[1:3] + derivs[4:]
     if ins[0].dim() == 3:
         ins = tuple(t[None] for t in ins)
@@ -305,7 +338,9 @@ def raw_k1_block(ins, reg):
     import torch
     from pddp_tpu_torch.ops import backward_kernel as bk
     if "B" in inspect.signature(bk.launch_plan).parameters:
-        return CS.raw_k1(ins, reg)
+        if _takes_regs(bk, True):
+            return CS.raw_k1(ins, reg)
+        return _k1_with_ok(ins[1:3] + ins[4:], reg, True)
     d = ins[1:3] + ins[4:]
     B, N, nz, nu = d[1].shape
     k = torch.empty((B, N, nu), device="cuda")
@@ -347,7 +382,7 @@ def k1_block_times(label, out_dir):
             d = [t if B == 1 else t.expand((B,) + t.shape[1:]).contiguous()
                  for t in ins]
             res["warp_{}_B{}".format(name, B)] = CS.events_ms(
-                CS.raw_k1(d, 10.0), 200 if B == 1 else 50)
+                raw_k1(d, 10.0), 200 if B == 1 else 50)
     for _ in range(2):  # the first call also warms the process up
         r = CS.entry_point("rendezvous", "FULL_COVARIANCE_MATRIX", "cuda",
                            torch.float32, "kernel", True)

@@ -722,3 +722,62 @@ def test_pddp_loop_on_card(cuda):
     for x, y, atol in zip(t_card[2][:3], t_cpu[2][:3], (2e-7, 1e-4, 5e-5)):
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=atol)
     np.testing.assert_allclose(t_card[2][3], t_cpu[2][3], rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,nu", [(4, 1), (8, 4), (20, 1)])
+def test_k1_reg_per_lane_on_card(cuda, nz, nu):
+    """K1 (warp kernel at (4, 1) and (8, 4), block kernel at nz = 20) with
+    a reg per lane, 10^U(-6, 2) over 64 lanes, against the plain
+    backward's broadcast of the same (B,) reg in float64 (1e-10 at nu = 1,
+    1e-8 through the Jacobi); and each of three lanes bit for bit the
+    lane of a launch where every lane takes that lane's reg as a float."""
+    B, N = 64, 60
+    solves = [_riccati_inputs(500 + b, N, nz, nu) for b in range(B)]
+    ins = [torch.as_tensor(np.stack(a), dtype=torch.float64, device=cuda)
+           for a in zip(*solves)]
+    regs = torch.as_tensor(10.0**np.random.default_rng(5).uniform(-6, 2, B),
+                           device=cuda)
+    n = bk.launches + bk.block_launches
+    k_k, K_k, ok_k = bk.kernel_backward(*ins, reg=regs)
+    k_p, K_p, ok_p = backward(*ins, reg=regs)
+    torch.cuda.synchronize()
+    assert bk.launches + bk.block_launches == n + 1
+    assert bool(ok_k.all()) and bool(ok_p.all())
+    tol = 1e-10 if nu == 1 else 1e-8
+    for b in range(B):
+        for a, w in ((k_k[b], k_p[b]), (K_k[b], K_p[b])):
+            assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+    for b in (0, 17, 63):
+        k1, K1, _ = bk.kernel_backward(*ins, reg=float(regs[b]))
+        assert torch.equal(k1[b], k_k[b]) and torch.equal(K1[b], K_k[b])
+
+
+@pytest.mark.gpu
+def test_batched_solve_kernels_on_card(cuda):
+    """A B=16 cartpole batched_solve (N=60, float64) through K1 (a reg per
+    lane) and K2(a) against the scan with the cost in the loop, lane by
+    lane: the same state, iterations and evaluations, J within 1e-10; K1
+    and K2(a) each launched once per evaluation of the batch."""
+    from pddp_tpu_torch.controllers import ilqr
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions
+    from pddp_tpu_torch.parallel import batched_solve
+    model = CartpoleDynamicsModel(dt=0.05, device=cuda, dtype=torch.float64)
+    cost = CartpoleCost(device=cuda, dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    z0s = torch.as_tensor(0.05 * rng.standard_normal((16, 4)), device=cuda)
+    U0s = torch.full((16, 60, 1), 0.1, dtype=torch.float64, device=cuda)
+    base = dict(n_iterations=5, max_evals=15)
+    scan = batched_solve(model, cost, z0s, U0s,
+                         ILQROptions(**base, cost_in_scan=True), encoding=IGN)
+    n1, n2, ne = bk.launches, fr.launches["a"], ilqr.lane_evaluations
+    kern = batched_solve(model, cost, z0s, U0s,
+                         ILQROptions(**base, riccati_mode="kernel",
+                                     fused_rollout=True), encoding=IGN)
+    evals = ilqr.lane_evaluations - ne
+    assert evals >= 1
+    assert bk.launches - n1 == evals and fr.launches["a"] - n2 == evals
+    for f in ("state", "iterations", "evals"):
+        assert torch.equal(getattr(kern, f), getattr(scan, f)), f
+    rel = ((kern.J_opt - scan.J_opt).abs() / scan.J_opt.abs()).max()
+    assert float(rel) <= 1e-10

@@ -132,8 +132,9 @@ def test_max_reg_and_eval_budget():
     dict(u_min=[-1.0], u_max=[1.0]), dict(v_zz_reg=True),
     dict(riccati_mode="parallel")])
 def test_options_outside_the_slice_raise(opts):
-    """riccati_mode="parallel" is still outside the port and raises; the
-    constrained and v_zz_reg solves (ported since) run, and a constrained
+    """The options that once lay outside the port all run now: the
+    constrained and v_zz_reg solves, and riccati_mode="parallel", which
+    ends as the scan does on this unconstrained problem; a constrained
     solve keeps its actions within the bounds."""
     model = CartpoleDynamicsModel(**F64)
     cost = CartpoleCost(**F64)
@@ -142,14 +143,16 @@ def test_options_outside_the_slice_raise(opts):
             torch.full((5, 1), 2.0, dtype=torch.float64),
             tilqr.ILQROptions(**{"n_iterations": 3, "riccati_mode": "kernel",
                                  **opts}))
-    if opts.get("riccati_mode") == "parallel":
-        with pytest.raises(NotImplementedError):
-            tilqr.solve(*args, encoding=IGN)
-        return
     r = tilqr.solve(*args, encoding=IGN)
     assert r.evals >= 1 and np.isfinite(r.J_opt)
     if "u_max" in opts:
         assert float(r.U.abs().max()) <= 1.0
+    if opts.get("riccati_mode") == "parallel":
+        s = tilqr.solve(*args[:4], tilqr.ILQROptions(n_iterations=3),
+                        encoding=IGN)
+        assert (r.state, r.iterations, r.evals) == (s.state, s.iterations,
+                                                    s.evals)
+        assert r.J_opt == pytest.approx(s.J_opt, rel=1e-10)
 
 
 def test_solve_promotes_to_the_widest_parameter_dtype():
