@@ -28,7 +28,12 @@ collection) at the examples' full width: one trial on the card against
 the CPU in float64, examples/experiment.py's cartpole trial timed in
 float32 with K1 and K2(d) checked on the model it trained,
 scripts/make_trained_bnn.py's training recipe, and the learning test's
-pendulum run. The timed kernel-versus-plain comparisons take one turn
+pendulum run. Phase 16 runs bench.py's batched solves. Phase 17 solves
+the particle model (``particulate_model``, 100 particles, horizon 100,
+N=50) of the cartpole under three codecs and constrained, and of the
+rendezvous, through K1, timed by the port's ``PhaseTimer``, with K1 held
+against its plain version on each row and the cartpole rows in float64
+against the CPU. The timed kernel-versus-plain comparisons take one turn
 each. Each phase prints one JSON line; any failure raises and exits non-zero. The
 run's seconds, the card line, the kernels line and, last,
 ``{"ok": true, "device": {...}}`` close it. Without a CUDA device it
@@ -2940,12 +2945,12 @@ BATCHED_CPU_LANES = 8
 # bench.py:375-430: the BNN of phase 8 at B=1024 in chunks of 256, N=25.
 BNN_BATCH = {"B": 1024, "chunk": 256, "N": 25}
 # bench.py's BNN rows: (name, trained weights, the net's precision option,
-# solves). The bf16 rows run one chunk of the batch (its first 256 lanes),
-# and carry that batch in their names, so that phase 16 fits the run's
-# time; bench.py runs them at B=1024.
+# solves). The untrained and bf16 rows run one chunk of the batch (its
+# first 256 lanes), and carry that batch in their names, so that the run
+# fits its time; bench.py runs them at B=1024.
 BNN_BATCH_ROWS = (
     ("pddp_bnn_solves_per_sec_b1024_trained", True, None, 1024),
-    ("pddp_bnn_solves_per_sec_b1024_h25_p100_5iter", False, None, 1024),
+    ("pddp_bnn_solves_per_sec_b256_h25_p100_5iter", False, None, 256),
     ("pddp_bnn_solves_per_sec_b256_bf16_mlp", False, "compute_dtype", 256),
     ("pddp_bnn_solves_per_sec_b256_bf16_matmul", False, "matmul_dtype",
      256))
@@ -3088,12 +3093,12 @@ def batched_k1_row(derivs, regs, label, launches):
 
 
 def cpu_references():
-    """The CPU's side of the float64 checks of phases 14 and 16, all on the
-    CPU, so that it runs beside the build (phase 0) while the card is
-    idle: phase 14's ``entry_point`` through the plain versions at every
+    """The CPU's side of the float64 checks of phases 14, 16 and 17, all
+    on the CPU, so that it runs beside the build (phase 0) while the card
+    is idle: phase 14's ``entry_point`` through the plain versions at every
     configuration of ENTRY_CASES, the unbatched ``solve`` of
-    BATCHED_CPU_LANES lanes of 16a's batch, and 16b's four BNN lanes (in
-    chunks of two, 3 iterations)."""
+    BATCHED_CPU_LANES lanes of 16a's batch, 16b's four BNN lanes (in
+    chunks of two, 3 iterations) and 17a's particle solves."""
     import torch
     entry = {label: entry_point(ex, codec, "cpu", torch.float64, "scan",
                                 False) for label, ex, codec in ENTRY_CASES}
@@ -3115,7 +3120,8 @@ def cpu_references():
         CartpoleCost(device="cpu", dtype=torch.float64), z, u,
         ILQROptions(n_iterations=3, max_evals=BATCHED_OPTS["max_evals"]),
         encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY, chunk=2)
-    return {"entry": entry, "cartpole": cartpole, "bnn": bnn}
+    return {"entry": entry, "cartpole": cartpole, "bnn": bnn,
+            "particles": particle_cpu_solves()}
 
 
 def phase16a_cartpole(card, cpu):
@@ -3425,8 +3431,291 @@ def phase16_batched(card, cpu):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the particle model (particulate_model) solved through K1
+# ---------------------------------------------------------------------------
+
+# particulate_model's defaults, 100 particles and a horizon of 100, and the
+# solves' N, cut to 50 of the horizon for the run's time.
+PARTICLE_P, PARTICLE_H, PARTICLE_N = 100, 100, 50
+# Every solve's depth (iterations, evaluations), cut for the run's time.
+PARTICLE_OPTS = {"n_iterations": 3, "max_evals": 6}
+# (label, example, codec, constrained). 17a, the first four: the cartpole
+# at the warp kernel's (8, 1) and (14, 1) and the block kernel's nz = 20,
+# and under Cholesky with its actions squashed into [-PDDP_UMAX, PDDP_UMAX]
+# by constrain_model; 17b: the rendezvous under Cholesky, nz = 44, nu = 4,
+# the block kernel with its clamp.
+PARTICLE_ROWS = (
+    ("cartpole_variance", "cartpole", "VARIANCE_ONLY", False),
+    ("cartpole_chol", "cartpole", "UPPER_TRIANGULAR_CHOLESKY", False),
+    ("cartpole_full", "cartpole", "FULL_COVARIANCE_MATRIX", False),
+    ("cartpole_chol_constrained", "cartpole", "UPPER_TRIANGULAR_CHOLESKY",
+     True),
+    ("rendezvous_chol", "rendezvous", "UPPER_TRIANGULAR_CHOLESKY", False),
+)
+PARTICLE_17A = 4
+# 17a in float64, the card's solve through K1 against the CPU's plain one:
+# the same arithmetic in another order of sums, over at most 10
+# evaluations.
+PARTICLE_TOL = {"J_rtol": 1e-10, "rtol": 1e-8}
+# The regs K1's check on a row's first local model tries in turn, from
+# that of phase 1's clamp cases up to ILQROptions' max_reg, as a solve
+# escalates its own: at small regs the recursion can overflow there (at
+# N=100 the Cholesky rows in float32 at every reg, the constrained row in
+# both types below 1e3).
+PARTICLE_K1_REGS = tuple(10.0**k for k in range(1, 11))
+
+
+def particle_problem(label, device, dtype):
+    """(model, cost, z0, U0) of PARTICLE_ROWS' row ``label``:
+    ``particulate_model`` of the example's model (``constrain_model``'s
+    where the row says so) with PARTICLE_P particles over PARTICLE_H steps,
+    its noise the standard normal draws of numpy seed 17 (the same on the
+    card and the CPU); the start x0 of EXAMPLES with covariance 1e-2 I;
+    U0 (PARTICLE_N, nu) 0.1 N(0, 1) from numpy seed 18."""
+    import importlib
+
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.utils.constraint import constrain_model
+    from pddp_tpu_torch.utils.particles import particulate_model
+    _, ex, codec, constrained = next(r for r in PARTICLE_ROWS
+                                     if r[0] == label)
+    mod, model_cls, cost_cls, x0, dt, _ = EXAMPLES[ex]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    cls = getattr(m, model_cls)
+    if constrained:
+        cls = constrain_model(-PDDP_UMAX, PDDP_UMAX)(cls)
+    inner = cls(dt=dt, device=device, dtype=dtype)
+    eps = np.random.default_rng(17).standard_normal(
+        (PARTICLE_H, PARTICLE_P, inner.state_size))
+    model = particulate_model(inner, eps=eps, n_particles=PARTICLE_P,
+                              horizon=PARTICLE_H)
+    U0 = torch.as_tensor(0.1 * np.random.default_rng(18).standard_normal(
+        (PARTICLE_N, inner.action_size)), dtype=dtype, device=device)
+    z0 = start_state(torch.tensor(x0, dtype=dtype, device=device),
+                     StateEncoding[codec])
+    return model, getattr(m, cost_cls)(device=device, dtype=dtype), z0, U0
+
+
+def particle_cpu_solves():
+    """17a's float64 solves on the CPU through the plain versions (for
+    ``cpu_references``)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.encoding import StateEncoding
+    out = {}
+    for label, _, codec, _ in PARTICLE_ROWS[:PARTICLE_17A]:
+        model, cost, z0, U0 = particle_problem(label, "cpu", torch.float64)
+        out[label] = solve(model, cost, z0, U0,
+                           ILQROptions(**PARTICLE_OPTS),
+                           encoding=StateEncoding[codec])
+    return out
+
+
+def particle_k1_check(derivs):
+    """K1 against its plain version on one local model of a particle row,
+    in the model's type, at the first reg of PARTICLE_K1_REGS at which the
+    plain recursion stays finite, under phase 1's tolerances: the warp
+    kernel's TOL against the plain version of its type; the block kernel's
+    K1_BLOCK_TOL against float64, in float32 widened to twice the float32
+    plain version's own error within K1_BLOCK_F32_CAP. Where no reg keeps
+    it finite, ``held`` is False and only ``ok`` is compared."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    for reg in PARTICLE_K1_REGS:
+        k_p, K_p, ok_p = backward(*derivs, reg=reg)
+        if bool(ok_p):
+            break
+    N, nz, nu = derivs[2].shape
+    dname = str(derivs[0].dtype).replace("torch.", "")
+    block = (nz, nu) not in bk.INSTANCES
+    n = (bk.launches, bk.block_launches)
+    k_k, K_k, ok_k = bk.kernel_backward(*derivs, reg=reg)
+    torch.cuda.synchronize()
+    launched = (bk.block_launches if block else bk.launches) == n[block] + 1
+    bk.launches, bk.block_launches = n
+    row = {"dtype": dname, "reg": reg, "launched": launched,
+           "ok_equal": bool(ok_k) == bool(ok_p), "held": bool(ok_p)}
+    if not row["held"]:
+        row["pass"] = row["launched"] and row["ok_equal"]
+        return row
+    errs = [rel_err(k_k, k_p), rel_err(K_k, K_p)]
+    row.update(max_abs_err=max(e[0] for e in errs),
+               kernel_vs_plain_rel=max(e[1] for e in errs))
+    if block and dname == "float32":
+        k64, K64, _ = backward(*(t.double() for t in derivs), reg=reg)
+        plain = max(rel_err(k_p.double(), k64)[1],
+                    rel_err(K_p.double(), K64)[1])
+        row.update(plain_float32_rel=plain,
+                   rel=max(rel_err(k_k.double(), k64)[1],
+                           rel_err(K_k.double(), K64)[1]),
+                   tol=max(k1_block_tol(dname, nu), 2.0 * plain))
+        ok = (row["rel"] <= row["tol"] and plain <= K1_BLOCK_F32_CAP
+              and row["kernel_vs_plain_rel"] <= K1_BLOCK_F32_CAP)
+    else:
+        row.update(rel=row["kernel_vs_plain_rel"],
+                   tol=k1_block_tol(dname, nu) if block
+                   else TOL[("K1", dname)])
+        ok = row["rel"] <= row["tol"]
+    row["pass"] = ok and launched and row["ok_equal"] and bool(ok_k)
+    return row
+
+
+def particle_k1_times(derivs, reg, launches):
+    """K1 alone on a particle row's float32 local model at ``reg`` (CUDA
+    events over 200 raw launches) beside its bound, the larger of the
+    roofline and the chain floor at this N (the clamp's sweeps those the
+    data needs), and the plain backward's time (one call)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    N, nz, nu = derivs[2].shape
+    block = (nz, nu) not in bk.INSTANCES
+    sweeps = k1_sweeps(derivs, reg)
+    bound, by, roof, chain = chain_bound_ms(
+        *k1_work(1, N, nz, nu, 4, sweeps=5 if sweeps is None else sweeps),
+        "float32", k1_chain_cycles(nz, nu, "float32", sweeps), N)
+    row = {"kernel": "K1 " + ("block" if block else "warp"), "B": 1,
+           "N": N, "nz": nz, "nu": nu, "reg": reg, "launches": launches,
+           "ms": events_ms(raw_k1(derivs, reg), 200),
+           "plain_ms": events_ms(lambda: backward(*derivs, reg=reg), 1,
+                                 warmup=0),
+           "bound_ms": bound, "bound_by": by, "roofline_ms": roof,
+           "chain_floor_ms": chain, "clamp_sweeps": sweeps}
+    if block:
+        row["plan"] = bk.launch_plan(nz, nu, torch.float32, 1)
+    return row
+
+
+def _ends(r):
+    return {"state": r.state.name, "iterations": r.iterations,
+            "evals": r.evals, "J": float(r.J_opt)}
+
+
+def phase17_particles(card, cpu):
+    """Phase 17, the particle model: ``solve(particulate_model(...), cost,
+    z0, U0, riccati_mode="kernel", fused_rollout=True)`` at PARTICLE_P
+    particles and horizon PARTICLE_H, N=PARTICLE_N, on every row of
+    PARTICLE_ROWS in
+    float32, each count from zero, timed by the port's ``PhaseTimer``;
+    K1 takes every backward and the line search stays on the scan (the
+    model is stateful, as in pddp_tpu's gate). On each row's first local
+    model, K1 alone (``particle_k1_times``) and against its plain version
+    (``particle_k1_check``; 17a also on its float64 model). 17a also
+    solves through the plain backward (reported: a float32 solve may take
+    another path) and in float64 through K1 against the CPU's plain solve
+    (``cpu``, from ``cpu_references``): the same ends, J within
+    PARTICLE_TOL's 1e-10 relative, Z and U within 1e-8 of their largest
+    entry."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, local_model,
+                                                 rollout, solve)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.utils.profiling import PhaseTimer
+    failed = []
+
+    def want(cond, what):
+        if not cond:
+            failed.append(what)
+    t_start = time.perf_counter()
+    timer = PhaseTimer()
+    opts = {mode: ILQROptions(**PARTICLE_OPTS, riccati_mode=mode,
+                              fused_rollout=True)
+            for mode in ("kernel", "scan")}
+    rows = []
+    for r_i, (label, ex, codec, constrained) in enumerate(PARTICLE_ROWS):
+        enc = StateEncoding[codec]
+        model, cost, z0, U0 = particle_problem(label, "cuda", torch.float32)
+        with timer(label + " local model"):
+            Z, AUX = rollout(model, z0, U0, enc)
+            derivs = local_model(Z, U0, AUX, model, cost, enc)
+        bk.launches = bk.block_launches = 0
+        reset_counts(fr.launches)
+        with timer(label + " solve, K1"):
+            r = solve(model, cost, z0, U0, opts["kernel"], encoding=enc)
+        counts = {"K1_warp": bk.launches, "K1_block": bk.block_launches,
+                  "K2": sum(fr.launches.values())}
+        with timer(label + " K1 check and times"):
+            checks = {"float32": particle_k1_check(derivs)}
+            k1 = particle_k1_times(derivs, checks["float32"]["reg"],
+                                   counts["K1_warp"] + counts["K1_block"])
+        row = {"path": label, "example": ex, "codec": codec,
+               "constrained": constrained, "P": PARTICLE_P,
+               "horizon": PARTICLE_H, "N": PARTICLE_N, "nz": z0.shape[-1],
+               "nu": U0.shape[-1], "float32": _ends(r),
+               "launches": counts, "K1": k1, "K1_checks": checks,
+               "wall_ms": 1e3 * timer.totals[label + " solve, K1"]}
+        block = k1["kernel"] == "K1 block"
+        want(counts["K1_block" if block else "K1_warp"] == r.evals >= 1
+             and counts["K1_warp" if block else "K1_block"] == 0
+             and counts["K2"] == 0,
+             "{}: K1 not launched once an evaluation, or K2 launched: {} "
+             "for {} evaluations".format(label, counts, r.evals))
+        want(np.isfinite(row["float32"]["J"])
+             and bool(torch.isfinite(r.Z).all()),
+             "{}: non-finite float32 solve: {}".format(label, row["float32"]))
+        if r_i < PARTICLE_17A:
+            with timer(label + " solve, plain backward"):
+                rp = solve(model, cost, z0, U0, opts["scan"], encoding=enc)
+            row["plain_backward"] = {
+                **_ends(rp), "wall_ms": 1e3 * timer.totals[
+                    label + " solve, plain backward"],
+                "same_ends": (rp.state, rp.iterations, rp.evals)
+                == (r.state, r.iterations, r.evals),
+                "J_rel": abs(float(r.J_opt) - float(rp.J_opt))
+                / abs(float(rp.J_opt))}
+            model, cost, z0, U0 = particle_problem(label, "cuda",
+                                                   torch.float64)
+            with timer(label + " float64 K1 check"):
+                Z, AUX = rollout(model, z0, U0, enc)
+                checks["float64"] = particle_k1_check(
+                    local_model(Z, U0, AUX, model, cost, enc))
+            bk.launches = bk.block_launches = 0
+            with timer(label + " float64 solve, K1"):
+                r64 = solve(model, cost, z0, U0, opts["kernel"],
+                            encoding=enc)
+            c = cpu[label]
+            row["float64"] = {
+                **_ends(r64), "cpu": _ends(c),
+                "K1_launches": bk.launches + bk.block_launches,
+                "J_rel": abs(r64.J_opt - c.J_opt) / abs(c.J_opt),
+                "Z_rel": rel_err(r64.Z.cpu(), c.Z)[1],
+                "U_rel": rel_err(r64.U.cpu(), c.U)[1]}
+            f = row["float64"]
+            want((r64.state, r64.iterations, r64.evals)
+                 == (c.state, c.iterations, c.evals)
+                 and f["K1_launches"] == r64.evals
+                 and f["J_rel"] <= PARTICLE_TOL["J_rtol"]
+                 and f["Z_rel"] <= PARTICLE_TOL["rtol"]
+                 and f["U_rel"] <= PARTICLE_TOL["rtol"],
+                 "{}: the float64 solve through K1 differs from the CPU's: "
+                 "{}".format(label, f))
+        for c in checks.values():
+            want(c["pass"], "{}: K1 off its plain version: {}".format(
+                label, checks))
+        want(any(c["held"] for c in checks.values()),
+             "{}: K1 held on no local model: {}".format(label, checks))
+        held = [c for c in checks.values() if c["held"]]
+        k1["max_abs_err"] = held[0]["max_abs_err"] if held else None
+        k1["max_abs_err_dtype"] = held[0]["dtype"] if held else None
+        rows.append(row)
+        emit({"phase": "17a" if r_i < PARTICLE_17A else "17b",
+              "card": card, **row})
+    res = {"phase": 17, "rows": rows, "options": PARTICLE_OPTS,
+           "timer_ms": {k: 1e3 * v for k, v in timer.totals.items()},
+           "seconds": time.perf_counter() - t_start}
+    emit({"phase": 17, "seconds": res["seconds"],
+          "timer_ms": res["timer_ms"]})
+    check(not failed, "; ".join(failed))
+    return res
+
+
 def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
-                   batched):
+                   batched, particles):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -3588,6 +3877,23 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
             >= row["roofline_ms"] else "roofline",
             "library_ms": None, "B": row["B"], "N": row["N"],
             "nz": row["nz"] if "nz" in row else 4})
+    # The particle model (phase 17): K1 at each row's shape, its launches
+    # those of the row's float32 solve.
+    for row in particles["rows"]:
+        k1 = row["K1"]
+        kernels.append({
+            "name": "K1 riccati_backward{} particles {}".format(
+                "_block" if k1["kernel"] == "K1 block" else "", row["path"]),
+            "route": "cuda",
+            "source": "pddp_tpu_torch/csrc/backward_kernel.cu",
+            "replaces": "pddp_tpu/ops/backward_kernel.py:45",
+            "launches": k1["launches"], "max_abs_err": k1["max_abs_err"],
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+            "bound_note": "chain" if k1["chain_floor_ms"]
+            >= k1["roofline_ms"] else "roofline",
+            "library_ms": None, "B": 1, "N": k1["N"], "nz": k1["nz"],
+            "nu": k1["nu"], "P": row["P"]})
     return {"kernels": kernels}
 
 
@@ -3644,8 +3950,9 @@ def _run_phases(card, run, seconds, t_start):
     entry = run("14", phase14_entry_point, card, cpu_refs["entry"])
     pddp = run("15", phase15_pddp, card)
     batched = run("16", phase16_batched, card, cpu_refs)
+    particles = run("17", phase17_particles, card, cpu_refs["particles"])
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
-                             pddp, batched)
+                             pddp, batched, particles)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

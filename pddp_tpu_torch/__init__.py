@@ -13,7 +13,8 @@ Entry points build their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card they raise (see ``device.py``).
 """
 
+from .__version__ import __version__
 from .device import resolve_device
 from .encoding import StateEncoding
 
-__all__ = ["StateEncoding", "resolve_device"]
+__all__ = ["__version__", "StateEncoding", "resolve_device"]

@@ -20,11 +20,12 @@ from .examples import pendulum as _pend
 from .examples import rendezvous as _rdv
 from .examples.cartpole.model import PARAM_NAMES
 from .models.bnn import bnn_dynamics_model_factory, trainable_mask
+from .utils.particles import ParticleDynamicsModel, tensor_like
 
 __all__ = ["BNN_BUFFERS", "CARTPOLE_COST_FIELDS", "CARTPOLE_MODEL_FIELDS",
            "COST_FIELDS", "bnn", "cartpole", "double_cartpole",
            "controller_state", "golden_U0", "golden_cartpole_U0",
-           "pendulum", "rendezvous"]
+           "particle_model", "pendulum", "rendezvous"]
 
 _DATA = Path(__file__).resolve().parent / "data"
 
@@ -152,6 +153,29 @@ def bnn(net_leaves, buffers, state_size, action_size, hidden_features, *,
             raise ValueError("{} has shape {}, expected {}".format(
                 k, tuple(v.shape), tuple(getattr(model, k).shape)))
     return model.replace(net=model.net.with_leaves(leaves), **fields)
+
+
+def particle_model(inner, eps, *, infer_noise_variables=True, dtype=None):
+    """A ``ParticleDynamicsModel`` over the port's model ``inner`` (made by
+    ``cartpole`` and the others) with ``pddp_tpu``'s standardized episode
+    noise ``np.asarray(jax_model.eps)`` (horizon, P, n), taken as it is;
+    ``n_particles`` and ``horizon`` from its shape.
+
+    Args:
+        dtype: of the noise; the inner model's by default. Its device is
+            the inner model's.
+    """
+    _check_numpy([("eps", eps)])
+    eps = np.array(eps)
+    if eps.ndim != 3 or eps.shape[2] != inner.state_size:
+        raise ValueError("eps has shape {}, expected (horizon, P, {})".format(
+            eps.shape, inner.state_size))
+    like = tensor_like(inner)
+    return ParticleDynamicsModel(
+        inner, torch.as_tensor(eps, dtype=dtype or like.dtype,
+                               device=like.device),
+        n_particles=eps.shape[1], horizon=eps.shape[0],
+        infer_noise_variables=infer_noise_variables)
 
 
 def controller_state(state, *, device=None, dtype=None):

@@ -1,5 +1,7 @@
-"""Environments of the port (``GymEnv`` is not ported yet)."""
+"""Environments of the port: the ``Env`` contract, ``SimEnv`` and the
+gym adapter ``GymEnv``."""
 
 from .base import Env, SimEnv
+from .gym_env import GymEnv
 
-__all__ = ["Env", "SimEnv"]
+__all__ = ["Env", "SimEnv", "GymEnv"]

@@ -34,13 +34,11 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
-from ...encoding import (StateEncoding, decode_covar_sqrt, decode_mean,
-                         encode)
+from ...encoding import StateEncoding, decode_covar_sqrt, decode_mean
 from ...utils import draws
 from ...utils.angular import augment_state, infer_augmented_state_size
 from ...utils.constraint import constrain
-from ...utils.linalg import tria_solve_right
-from ...utils.particles import particles_covar, standardize
+from ...utils.particles import infer_eps, moment_match, standardize
 from ..base import DynamicsModel
 from .losses import gaussian_log_likelihood
 from .network import Linear, bayesian_mlp, trainable_mask
@@ -48,36 +46,6 @@ from .network import Linear, bayesian_mlp, trainable_mask
 __all__ = ["ParticlesBNNDynamicsModel", "BNNDynamicsModel", "BNNState",
            "bnn_dynamics_model_factory", "fit_bnn", "infer_eps",
            "load_bnn_npz", "moment_match", "save_bnn_npz"]
-
-
-def infer_eps(U_chol, deltas, eps0, first):
-    """The input noise of one step: ``eps @ U_chol = deltas`` solved per
-    particle, or ``eps0`` for the whole (P, n) array where any element of
-    the solve is not finite, or at the first step.
-
-    Args:
-        U_chol (..., n, n), deltas (..., P, n), eps0 (P, n) or (..., P, n),
-        first: whether this is step 0.
-    """
-    eps_inf = tria_solve_right(U_chol, deltas).detach()
-    finite = torch.isfinite(eps_inf)
-    eps_safe = torch.where(finite, eps_inf, torch.zeros_like(eps_inf))
-    bad = (~finite.all(dim=-1).all(dim=-1)).to(deltas.dtype)
-    w = torch.clamp(bad, min=float(first))[..., None, None]
-    return eps0 * w + eps_safe * (1.0 - w)
-
-
-def moment_match(output, encoding, jitter_levels=None):
-    """Particles (..., P, n) -> encoded distribution (..., nz): the mean,
-    and the ddof=1 covariance through ``encode`` (the Cholesky codec with
-    the ``jitter_levels`` ladder), or the ddof=0 std for the diagonal
-    codecs."""
-    M = output.mean(dim=-2)
-    if encoding in (StateEncoding.FULL_COVARIANCE_MATRIX,
-                    StateEncoding.UPPER_TRIANGULAR_CHOLESKY):
-        return encode(M, C=particles_covar(output, dim=-2), encoding=encoding,
-                      jitter_levels=jitter_levels)
-    return encode(M, S=output.std(dim=-2, correction=0), encoding=encoding)
 
 
 @dataclass

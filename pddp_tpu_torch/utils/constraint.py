@@ -1,5 +1,9 @@
 """Action constraints (port of ``pddp_tpu/utils/constraint.py``).
 
+``constrain`` squashes actions through tanh; ``constrain_env`` and
+``constrain_model`` are class decorators that apply it before an env's or
+a model's ``apply``.
+
 ``boxqp`` is the projected-Newton box-QP that the constrained Riccati
 backward solves at every step. It keeps ``pddp_tpu``'s semantics, quirks
 included: the status stays 0 when the iteration budget runs out, the
@@ -16,10 +20,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..encoding import StateEncoding
 from .linalg import SMALL_N, small_cholesky, tria_solve
 
 __all__ = ["BOXQP_RESULTS", "BoxQPResult", "boxqp", "chol_solve", "clamp",
-           "constrain", "masked_cholesky"]
+           "constrain", "constrain_env", "constrain_model",
+           "masked_cholesky"]
 
 BOXQP_RESULTS = {
     -1: "Hessian is not positive definite",
@@ -38,6 +44,56 @@ def constrain(u, min_bounds, max_bounds):
     diff = (max_bounds - min_bounds) / 2.0
     mean = (max_bounds + min_bounds) / 2.0
     return diff * torch.tanh(u) + mean
+
+
+def _constrain_like(u, min_bounds, max_bounds):
+    """``constrain`` with the bounds as tensors on ``u``'s device and in
+    its dtype (an action that is not a tensor becomes one)."""
+    u = torch.as_tensor(u)
+    lo, hi = (torch.as_tensor(b, dtype=u.dtype, device=u.device)
+              for b in (min_bounds, max_bounds))
+    return constrain(u, lo, hi)
+
+
+def constrain_env(min_bounds, max_bounds):
+    """Class decorator constraining an env's actions: ``apply`` squashes
+    ``u`` through tanh into [min, max] first. The decorated class is
+    subclassed (named ``"Constrained" + cls.__name__``), not patched."""
+    def decorator(cls):
+        class Constrained(cls):
+            def apply(self, u):
+                return super().apply(_constrain_like(u, min_bounds,
+                                                     max_bounds))
+
+        Constrained.__name__ = "Constrained" + cls.__name__
+        Constrained.__qualname__ = Constrained.__name__
+        return Constrained
+
+    return decorator
+
+
+def constrain_model(min_bounds, max_bounds):
+    """Class decorator constraining a dynamics model's actions: ``apply``
+    squashes ``u`` through tanh into [min, max] before the dynamics, and
+    the subclass (named ``"Constrained" + cls.__name__``) gains
+    ``constrain(u)``. A subclass is another type to K2's exact-type gate
+    (``ops.fused_rollout.stage``), so its line search runs the scan."""
+    def decorator(cls):
+        class Constrained(cls):
+            def apply(self, z, u, i, aux,
+                      encoding: StateEncoding = StateEncoding.DEFAULT,
+                      **kwargs):
+                return super().apply(z, self.constrain(u), i, aux, encoding,
+                                     **kwargs)
+
+            def constrain(self, u):
+                return _constrain_like(u, min_bounds, max_bounds)
+
+        Constrained.__name__ = "Constrained" + cls.__name__
+        Constrained.__qualname__ = Constrained.__name__
+        return Constrained
+
+    return decorator
 
 
 def clamp(u, min_bounds, max_bounds):

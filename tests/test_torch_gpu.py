@@ -781,3 +781,43 @@ def test_batched_solve_kernels_on_card(cuda):
         assert torch.equal(getattr(kern, f), getattr(scan, f)), f
     rel = ((kern.J_opt - scan.J_opt).abs() / scan.J_opt.abs()).max()
     assert float(rel) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["VARIANCE_ONLY", "FULL_COVARIANCE_MATRIX"])
+def test_particle_solve_through_k1_on_card(cuda, codec):
+    """A cartpole ``particulate_model`` solve (P=100, N=30, float64)
+    through K1 (the warp kernel at nz = 8, the block kernel at nz = 20)
+    against the same solve through the plain backward: the same state,
+    iterations and evaluations, J within 1e-10 relative and Z, U within
+    1e-8 of their largest entry (the same arithmetic in another order of
+    sums); K1 launched once per evaluation, the line search on the scan
+    (the model is stateful)."""
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.utils.particles import particulate_model
+    enc = StateEncoding[codec]
+    inner = CartpoleDynamicsModel(dt=0.05, device=cuda, dtype=torch.float64)
+    eps = np.random.default_rng(1).standard_normal((30, 100, 4))
+    model = particulate_model(inner, eps=eps, n_particles=100, horizon=30)
+    cost = CartpoleCost(device=cuda, dtype=torch.float64)
+    z0 = encode(torch.tensor([0.0, 0.0, 0.1, 0.0], dtype=torch.float64,
+                             device=cuda),
+                V=1e-2 * torch.ones(4, dtype=torch.float64, device=cuda),
+                encoding=enc)
+    U0 = torch.as_tensor(0.1 * np.random.default_rng(2).standard_normal(
+        (30, 1)), device=cuda)
+    base = dict(n_iterations=3, max_evals=8)
+    plain = solve(model, cost, z0, U0, ILQROptions(**base), encoding=enc)
+    n = (bk.launches, bk.block_launches, sum(fr.launches.values()))
+    kern = solve(model, cost, z0, U0,
+                 ILQROptions(**base, riccati_mode="kernel",
+                             fused_rollout=True), encoding=enc)
+    counts = (bk.launches - n[0], bk.block_launches - n[1],
+              sum(fr.launches.values()) - n[2])
+    block = codec == "FULL_COVARIANCE_MATRIX"
+    assert counts == ((0, kern.evals, 0) if block else (kern.evals, 0, 0))
+    assert (kern.state, kern.iterations, kern.evals) == (
+        plain.state, plain.iterations, plain.evals)
+    assert abs(kern.J_opt - plain.J_opt) <= 1e-10 * abs(plain.J_opt)
+    for a, b in ((kern.Z, plain.Z), (kern.U, plain.U)):
+        assert float((a - b).abs().max()) <= 1e-8 * float(b.abs().max())
