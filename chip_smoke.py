@@ -33,8 +33,13 @@ the particle model (``particulate_model``, 100 particles, horizon 100,
 N=50) of the cartpole under three codecs and constrained, and of the
 rendezvous, through K1, timed by the port's ``PhaseTimer``, with K1 held
 against its plain version on each row and the cartpole rows in float64
-against the CPU. The timed kernel-versus-plain comparisons take one turn
-each. Each phase prints one JSON line; any failure raises and exits non-zero. The
+against the CPU. Phase 18 runs the port's multi-GPU paths on
+``torch.distributed`` in a 1-rank NCCL world and in a 2-rank gloo world
+with both ranks on the one card: bench.py's cartpole batch sharded over
+the ranks through K1 and K2(a), the particle-sharded solve of phase 8's
+BNN through K1 (float64 against the unsharded solve, float32 timed) and
+one ``dp_train_step``. The timed kernel-versus-plain comparisons take one
+turn each. Each phase prints one JSON line; any failure raises and exits non-zero. The
 run's seconds, the card line, the kernels line and, last,
 ``{"ok": true, "device": {...}}`` close it. Without a CUDA device it
 exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
@@ -3714,8 +3719,429 @@ def phase17_particles(card, cpu):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: multi-GPU on torch.distributed
+# ---------------------------------------------------------------------------
+
+# Ranks of the spawned gloo world. The machine has one card and NCCL takes
+# one rank a device, so this world puts both ranks on cuda:0: its
+# collectives cross processes while the kernels run on the card.
+SHARD_RANKS = 2
+# The sharded batch against one unsharded batched_solve:
+# pddp_tpu's tests/parallel/test_batch.py:38-39.
+SHARD_BATCH_TOL = {"J_rtol": 1e-5, "U_rtol": 1e-4, "U_atol": 1e-6}
+# The particle-sharded solve in float64 against the unsharded one:
+# tests/parallel/test_particles.py:48-51 (the ends equal).
+PSOLVE_TOL = {"J_rtol": 1e-9, "ZU_rtol": 1e-7, "ZU_atol": 1e-10,
+              "K_rtol": 1e-6, "K_atol": 1e-8}
+# A BNN solve's depth: phase 9's 15 evaluations at most, its 5 iterations
+# cut to 2 for the run's time (phase 18 runs five such solves; at 5
+# iterations they took 10 evaluations and 4-6 s each alone, 6-9 s each in
+# the 2-rank world).
+PSOLVE_OPTS = {"n_iterations": 2, "max_evals": 15}
+# One data-parallel AMSGrad step of fit_bnn's (its batch of 128 rows,
+# phase 15's learning rate) on the trained net in float64, against one
+# step on the whole batch in one process: the same sums in another order.
+DP_ROWS, DP_SEED = 128, 18
+DP_TOL = {"params_atol": 1e-10, "loss_rtol": 1e-12}
+ENDS = ("state", "iterations", "evals")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _host(r, fields=("J_opt", "U", "state", "iterations", "evals")):
+    """An ILQRResult's ``fields`` as numpy arrays (numbers as they are):
+    what a rank sends back by pickle (a tensor on a queue would be shared
+    through a file descriptor of a process that exits)."""
+    import torch
+    return {f: (getattr(r, f).cpu().numpy() if isinstance(getattr(r, f),
+                                                          torch.Tensor)
+                else getattr(r, f)) for f in fields}
+
+
+def dp_problem(torch, dtype):
+    """(model, loss_fn, params, batch) of the data-parallel step: the
+    trained net of phase 8, DP_ROWS of cartpole_transitions' rows (numpy,
+    DP_SEED) normalized by the net's buffers, and training noise drawn by
+    numpy for each hidden layer (concrete dropout's uniform)."""
+    from pddp_tpu_torch.models.bnn import training_loss
+    from pddp_tpu_torch.utils.angular import augment_state
+    model = bnn_model(torch, dtype, BNN_BATCH["N"], True)
+    rng = np.random.default_rng(DP_SEED)
+    X, U, dX = cartpole_transitions(rng, DP_ROWS, "cuda", dtype)
+    x = model._normalize_input(torch.cat([augment_state(
+        X, model.angular_indices, model.non_angular_indices),
+        model._constrain(U)], dim=-1))
+    noise = [torch.as_tensor(rng.uniform(1e-5, 1.0 - 1e-5,
+                                         (DP_ROWS, layer.W.shape[1])),
+                             dtype=dtype, device="cuda")
+             for layer in model.net.layers[:-1]]
+    loss_fn, params = training_loss(
+        model, n_data=torch.tensor(float(DP_ROWS), dtype=dtype,
+                                   device="cuda"))
+    return model, loss_fn, params, {"x": x, "dX": dX, "noise": noise}
+
+
+def shard_paths(size):
+    """The three sharded paths in one rank of a world of ``size`` ranks
+    (its process group started): (i) the cartpole batch of 16a sharded
+    over the ranks through K1 and K2(a), timed after a warm-up, with the
+    rank's launches; (ii) the particle-sharded solve of phase 8's trained
+    BNN through K1 in float64 and, timed, float32, with the rank's
+    launches and its first local model (float32); (iii) one
+    ``dp_train_step`` of AMSGrad (float64). Every count is set to 0 just
+    before each path and read just after."""
+    import torch
+    from pddp_tpu_torch.controllers import ilqr
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, local_model,
+                                                 rollout)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.parallel import (batched_solve, dp_train_step,
+                                         make_mesh, particle_sharded_solve)
+    from pddp_tpu_torch.parallel.particles import _local_ensemble
+    from pddp_tpu_torch.utils.optim import amsgrad
+
+    def zero():
+        bk.launches = bk.block_launches = 0
+        reset_counts(fr.launches)
+        reset_counts(fb.launches)
+        ilqr.lane_evaluations = 0
+
+    def counts():
+        return {"K1": bk.launches, "K1_block": bk.block_launches,
+                "K2(a)": fr.launches["a"],
+                "K2_other": sum(fr.launches.values()) - fr.launches["a"],
+                "K2(d)": fb.launches["rollout"],
+                "evaluations": ilqr.lane_evaluations}
+
+    out = {"ranks": size, "rank": torch.distributed.get_rank(),
+           "backend": torch.distributed.get_backend()}
+    dp = make_mesh("dp")
+    model, cost, z0s, U0s = cartpole_batch(torch, torch.float32, "cuda",
+                                           BATCHED_B, BATCHED_H)
+    opts = ILQROptions(**BATCHED_OPTS, cost_in_scan=True,
+                       riccati_mode="kernel", fused_rollout=True)
+
+    def batch():
+        return batched_solve(model, cost, z0s, U0s, opts,
+                             encoding=StateEncoding.IGNORE_UNCERTAINTY,
+                             mesh=dp)
+    batch()   # warm-up
+    zero()
+    r, wall = _timed(batch)
+    out["batch"] = {"wall_s": wall, "launches": counts(),
+                    "lanes_a_rank": BATCHED_B // size, "result": _host(r)}
+
+    pp = make_mesh("pp")
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    N = BNN_BATCH["N"]
+    for dtype in (torch.float64, torch.float32):
+        m = bnn_model(torch, dtype, N, True)
+        c = CartpoleCost(device="cuda", dtype=dtype)
+        z0, U0 = bnn_start(torch, dtype, N)
+        popts = ILQROptions(**PSOLVE_OPTS, riccati_mode="kernel")
+        zero()
+        r, wall = _timed(lambda: particle_sharded_solve(
+            m, c, z0, U0, popts, encoding=ch, mesh=pp))
+        key = "psolve_" + str(dtype).replace("torch.", "")
+        out[key] = {"wall_s": wall, "launches": counts(),
+                    "particles_a_rank": m.n_particles // size,
+                    "result": _host(r, ("Z", "U", "K", "J_opt", "state",
+                                        "iterations", "evals"))}
+    local = _local_ensemble(m, pp.get_group("pp"))
+    Z, AUX = rollout(local, z0, U0, ch)
+    out["psolve_float32"]["first_local_model"] = [
+        t.cpu().numpy() for t in local_model(Z, U0, AUX, local, c, ch)]
+
+    _, loss_fn, params, data = dp_problem(torch, torch.float64)
+    opt = amsgrad(PDDP_TRAINING["learning_rate"])
+    (new, _, loss), wall = _timed(lambda: dp_train_step(
+        loss_fn, params, opt, opt.init(params), data, dp))
+    out["dp"] = {"wall_s": wall, "params": [p.cpu().numpy() for p in new],
+                 "loss": float(loss), "rows_a_rank": DP_ROWS // size}
+    return out
+
+
+def shard_rank(rank, size, port, go, queue):
+    """One rank of the gloo world on cuda:0: start, wait for ``go``, run
+    ``shard_paths`` and put ``(rank, result)`` on ``queue`` (a traceback
+    under "error" where it fails)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        torch.ones(1, device="cuda")
+        go.wait()
+        dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{}"
+                                .format(port), world_size=size, rank=rank)
+        try:
+            queue.put((rank, shard_paths(size)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def _collect(queue, procs, timeout):
+    """Every rank's ``(rank, result)`` from ``queue``; fails where a rank
+    ends without one or ``timeout`` seconds pass."""
+    import queue as queue_mod
+    out, end = {}, time.perf_counter() + timeout
+    while len(out) < len(procs):
+        try:
+            rank, res = queue.get(timeout=5.0)
+            out[rank] = res
+        except queue_mod.Empty:
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            check(not dead and time.perf_counter() < end,
+                  "a rank of the gloo world ended without a result "
+                  "(exit codes {}) or the world timed out".format(dead))
+    return out
+
+
+def _world_report(world, ref, ref_p64, ref_dp):
+    """A world's ranks against the unsharded runs: the batch (the first
+    rank's gathered result; the others' equal to it), the float64
+    particle solve, the data-parallel step; each rank's walls and
+    launches."""
+    import torch
+    first = world[0]
+    rep = {"ranks": first["ranks"], "backend": first["backend"],
+           "walls_s": [{k: w[k]["wall_s"] for k in
+                        ("batch", "psolve_float64", "psolve_float32", "dp")}
+                       for w in world],
+           "launches": [{k: w[k]["launches"] for k in
+                         ("batch", "psolve_float64", "psolve_float32")}
+                        for w in world]}
+    b, rb = first["batch"]["result"], ref
+    same = ((b["state"] == rb["state"]) & (b["iterations"]
+            == rb["iterations"]) & (b["evals"] == rb["evals"]))
+    rep["batch"] = {
+        "lanes_a_rank": first["batch"]["lanes_a_rank"],
+        "bit_equal": all(np.array_equal(b[f], rb[f]) for f in b),
+        "other_ends": int((~same).sum()),
+        "J_rel": float((np.abs(b["J_opt"] - rb["J_opt"])
+                        / np.abs(rb["J_opt"])).max()),
+        "U_err": float((np.abs(b["U"] - rb["U"]) - SHARD_BATCH_TOL["U_rtol"]
+                        * np.abs(rb["U"])).max()),
+        "ranks_equal": all(np.array_equal(w["batch"]["result"]["J_opt"],
+                                          b["J_opt"]) for w in world)}
+    p = first["psolve_float64"]["result"]
+    rp = _host(ref_p64, ("Z", "U", "K", "J_opt", "state", "iterations",
+                         "evals"))
+
+    def excess(a, b, rtol, atol):
+        """max |a - b| - (atol + rtol |b|): <= 0 within the tolerance."""
+        return float((np.abs(a - b) - atol - rtol * np.abs(b)).max())
+    rep["psolve_float64"] = {
+        "ends": [_ilqr().iLQRState(p["state"]).name, p["iterations"],
+                 p["evals"]],
+        "ends_equal": all(p[f] == rp[f] for f in ENDS),
+        "J_rel": abs(p["J_opt"] - rp["J_opt"]) / abs(rp["J_opt"]),
+        "Z_excess": excess(p["Z"], rp["Z"], PSOLVE_TOL["ZU_rtol"],
+                           PSOLVE_TOL["ZU_atol"]),
+        "U_excess": excess(p["U"], rp["U"], PSOLVE_TOL["ZU_rtol"],
+                           PSOLVE_TOL["ZU_atol"]),
+        "K_excess": excess(p["K"], rp["K"], PSOLVE_TOL["K_rtol"],
+                           PSOLVE_TOL["K_atol"]),
+        "ranks_equal": all(w["psolve_float64"]["result"]["J_opt"]
+                           == p["J_opt"] for w in world)}
+    p32 = first["psolve_float32"]["result"]
+    rep["psolve_float32"] = {"ends": [_ilqr().iLQRState(p32["state"]).name,
+                                      p32["iterations"], p32["evals"]],
+                             "J": p32["J_opt"],
+                             "particles_a_rank":
+                             first["psolve_float32"]["particles_a_rank"]}
+    d = first["dp"]
+    rep["dp"] = {"rows_a_rank": d["rows_a_rank"],
+                 "params_err": max(float(np.abs(a - b).max())
+                                   for a, b in zip(d["params"],
+                                                   ref_dp["params"])),
+                 "loss_rel": abs(d["loss"] - ref_dp["loss"])
+                 / abs(ref_dp["loss"])}
+    failed = []
+    for w in world:
+        lb = w["batch"]["launches"]
+        if not (lb["K1"] >= 1 and lb["K1"] == lb["K2(a)"]
+                == lb["evaluations"] and lb["K1_block"] == 0):
+            failed.append("rank {}: the sharded batch did not launch K1 "
+                          "and K2(a) once an evaluation: {}".format(
+                              w["rank"], lb))
+        for key in ("psolve_float64", "psolve_float32"):
+            lp, ev = w[key]["launches"], w[key]["result"]["evals"]
+            if not (lp["K1"] >= 1 and lp["K1"] == ev
+                    and lp["K2(d)"] == 0):
+                failed.append("rank {}: the particle-sharded solve's K1 "
+                              "launches {} against {} evaluations".format(
+                                  w["rank"], lp, ev))
+    bt = rep["batch"]
+    if not (bt["ranks_equal"] and bt["J_rel"] <= SHARD_BATCH_TOL["J_rtol"]
+            and bt["U_err"] <= SHARD_BATCH_TOL["U_atol"]):
+        failed.append("the sharded batch off the unsharded one: {}".format(
+            bt))
+    ps = rep["psolve_float64"]
+    if not (ps["ends_equal"] and ps["ranks_equal"]
+            and ps["J_rel"] <= PSOLVE_TOL["J_rtol"]
+            and max(ps["Z_excess"], ps["U_excess"], ps["K_excess"]) <= 0):
+        failed.append("the float64 particle-sharded solve off the "
+                      "unsharded one: {}".format(ps))
+    if not (rep["dp"]["params_err"] <= DP_TOL["params_atol"]
+            and rep["dp"]["loss_rel"] <= DP_TOL["loss_rtol"]):
+        failed.append("dp_train_step off one process's step: {}".format(
+            rep["dp"]))
+    return rep, failed
+
+
+def phase18_multi_gpu(card):
+    """Phase 18, multi-GPU on torch.distributed: ``shard_paths`` in a
+    1-rank NCCL world in this process and in a 2-rank gloo world of
+    spawned processes, both ranks on cuda:0 (started before the NCCL
+    world, they wait for it to end: their start-up overlaps it, their
+    work runs alone on the card). Each world against one unsharded
+    ``batched_solve``, one unsharded float64 BNN solve and one step of
+    AMSGrad on the whole batch in one process. Then K1 and K2(a) alone at
+    a gloo rank's batch (its first 512 lanes, the local model of the
+    first iterate, a reg per lane as in 16a) and K1 at the first local
+    model of its particle-sharded float32 solve, each against its plain
+    version, beside its bound. The 2-rank walls share one card and one
+    host: they are no scaling number."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout, solve)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.parallel import batched_solve
+    from pddp_tpu_torch.utils.optim import amsgrad, apply_updates
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    queue, go = ctx.Queue(), ctx.Event()
+    port = _free_port()
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, SHARD_RANKS, port, go, queue), daemon=True)
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        ign = StateEncoding.IGNORE_UNCERTAINTY
+        ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+        dist.init_process_group(
+            "nccl", init_method="tcp://127.0.0.1:{}".format(_free_port()),
+            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+        try:
+            one = shard_paths(1)
+        finally:
+            dist.destroy_process_group()
+        # The unsharded runs.
+        model, cost, z0s, U0s = cartpole_batch(torch, torch.float32, "cuda",
+                                               BATCHED_B, BATCHED_H)
+        opts = ILQROptions(**BATCHED_OPTS, cost_in_scan=True,
+                           riccati_mode="kernel", fused_rollout=True)
+        ref = _host(batched_solve(model, cost, z0s, U0s, opts, encoding=ign))
+        N = BNN_BATCH["N"]
+        z0, U0 = bnn_start(torch, torch.float64, N)
+        ref_p64 = solve(bnn_model(torch, torch.float64, N, True),
+                        CartpoleCost(device="cuda", dtype=torch.float64), z0,
+                        U0, ILQROptions(**PSOLVE_OPTS, riccati_mode="kernel"),
+                        encoding=ch)
+        _, loss_fn, params, data = dp_problem(torch, torch.float64)
+        with torch.enable_grad():
+            params = [p.requires_grad_(True) for p in params]
+            loss = loss_fn(params, data)
+            grads = torch.autograd.grad(loss, params)
+        opt = amsgrad(PDDP_TRAINING["learning_rate"])
+        ref_dp = {"params": [p.cpu().numpy() for p in apply_updates(
+            params, opt.update(list(grads), opt.init(params), params)[0])],
+            "loss": float(loss.detach())}
+        go.set()
+        gloo = _collect(queue, procs, 300.0)
+    finally:
+        go.set()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    errors = [w["error"] for w in gloo.values() if "error" in w]
+    check(not errors, "the gloo world failed: {}".format(errors))
+    res = {"phase": 18, "card": card}
+    failed = []
+    for label, world in (("nccl_1rank", [one]),
+                         ("gloo_2ranks_one_card",
+                          [gloo[r] for r in range(SHARD_RANKS)])):
+        res[label], f = _world_report(world, ref, ref_p64, ref_dp)
+        failed += ["{}: {}".format(label, x) for x in f]
+
+    # The kernels alone at a gloo rank's shapes.
+    rank0 = gloo[0]
+    n = BATCHED_B // SHARD_RANKS
+    Z0, AUX0 = rollout(model, z0s[:n], U0s[:n], ign)
+    derivs = local_model(Z0, U0s[:n], AUX0, model, cost, ign)
+    regs = torch.as_tensor(10.0**np.random.default_rng(16).uniform(
+        1.0, 2.0, n), dtype=torch.float32, device="cuda")
+    k1, (k, K, fin) = batched_k1_row(
+        derivs, regs, "cartpole_sharded_b{}".format(n),
+        rank0["batch"]["launches"]["K1"])
+    alphas = default_fit_alphas(torch.float32, "cuda")
+    A, H = alphas.shape[0], BATCHED_H
+    Z_k, U_k, J_k = (t[fin] for t in fr.fused_control_law(
+        model, derivs[0], U0s[:n], k, K, alphas, ign, cost=cost))
+    Z_p, U_p, J_p = (t[fin] for t in control_law(
+        model, derivs[0], U0s[:n], k, K, alphas, ign, cost=cost,
+        cost_in_scan=True))
+    bound, by, roof, chain = chain_bound_ms(
+        *k2_work(n, H, A, 4, False), "float32",
+        k2_chain_cycles("cartpole", 4, 4, "float32"), H)
+    errs = [rel_err(a, b) for a, b in ((Z_k, Z_p), (U_k, U_p), (J_k, J_p))]
+    k2 = {"kernel": "K2(a)", "path": "cartpole_sharded_b{}".format(n),
+          "B": n, "N": H, "A": A,
+          "ms": events_ms(raw_k2(model, cost, derivs[0], U0s[:n], k, K,
+                                 alphas), 20),
+          "plain_ms": events_ms(lambda: control_law(
+              model, derivs[0], U0s[:n], k, K, alphas, ign, cost=cost,
+              cost_in_scan=True), 1, warmup=0),
+          "bound_ms": bound, "bound_by": by, "roofline_ms": roof,
+          "chain_floor_ms": chain,
+          "launches": rank0["batch"]["launches"]["K2(a)"],
+          "max_abs_err": max(e[0] for e in errs),
+          "rel_err": max(e[1] for e in errs)}
+    bnn = [torch.as_tensor(a, device="cuda")[None] for a in
+           rank0["psolve_float32"]["first_local_model"]]
+    k1_bnn, _ = batched_k1_row(
+        bnn, torch.ones(1, device="cuda"), "bnn_particle_sharded_p{}".format(
+            rank0["psolve_float32"]["particles_a_rank"]),
+        rank0["psolve_float32"]["launches"]["K1"])
+    res["kernel_rows"] = [k1, k2, k1_bnn]
+    if not (k1["ok_equal"] and k1["rel_err"] <= TOL[("K1", "float32")]
+            and k2["rel_err"] <= TOL[("K2", "float32")]
+            and k1_bnn["ok_equal"]
+            and k1_bnn["rel_err"] <= TOL[("K1", "float32")]):
+        failed.append("K1 or K2(a) off its plain version at a rank's "
+                      "shape: {} {} {}".format(k1, k2, k1_bnn))
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    check(not failed, "; ".join(failed))
+    return res
+
+
 def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
-                   batched, particles):
+                   batched, particles, multi):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -3894,6 +4320,25 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
             >= k1["roofline_ms"] else "roofline",
             "library_ms": None, "B": 1, "N": k1["N"], "nz": k1["nz"],
             "nu": k1["nu"], "P": row["P"]})
+    # Multi-GPU (phase 18): K1 and K2(a) at a rank's block of the sharded
+    # batch, K1 at the particle-sharded BNN solve; launches a rank of the
+    # 2-rank gloo world (those of the 1-rank NCCL world beside them).
+    nccl = multi["nccl_1rank"]["launches"][0]
+    for row in multi["kernel_rows"]:
+        src, replaces, name = sources[row["kernel"]]
+        path = "psolve_float32" if row["path"].startswith("bnn") else "batch"
+        kernels.append({
+            "name": "{} sharded {}".format(name, row["path"]),
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": row["launches"],
+            "launches_nccl_1rank": nccl[path][row["kernel"]],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bound_note": "chain" if row["chain_floor_ms"]
+            >= row["roofline_ms"] else "roofline",
+            "library_ms": None, "B": row["B"], "N": row["N"],
+            "nz": row.get("nz", 4)})
     return {"kernels": kernels}
 
 
@@ -3951,8 +4396,9 @@ def _run_phases(card, run, seconds, t_start):
     pddp = run("15", phase15_pddp, card)
     batched = run("16", phase16_batched, card, cpu_refs)
     particles = run("17", phase17_particles, card, cpu_refs["particles"])
+    multi = run("18", phase18_multi_gpu, card)
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
-                             pddp, batched, particles)
+                             pddp, batched, particles, multi)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

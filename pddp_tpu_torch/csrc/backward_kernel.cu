@@ -1620,6 +1620,7 @@ extern "C" {
 // (B, N, nu), K (B, N, nu, nz), ok (B) bool. The launch picks its warps a
 // block and its chunk (pddp::plan); (nz, nu) without an instance returns
 // cudaErrorInvalidValue.
+#ifndef PDDP_F64_ONLY
 int pddp_riccati_backward_f32(const float* F_z, const float* F_u,
                               const float* L_z, const float* L_u,
                               const float* L_zz, const float* L_uz,
@@ -1630,7 +1631,9 @@ int pddp_riccati_backward_f32(const float* F_z, const float* F_u,
   return launch<float>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, regs, k, K,
                        ok, B, N, nz, nu, stream);
 }
+#endif
 
+#ifndef PDDP_F32_ONLY
 int pddp_riccati_backward_f64(const double* F_z, const double* F_u,
                               const double* L_z, const double* L_u,
                               const double* L_zz, const double* L_uz,
@@ -1641,11 +1644,13 @@ int pddp_riccati_backward_f64(const double* F_z, const double* F_u,
   return launch<double>(F_z, F_u, L_z, L_u, L_zz, L_uz, L_uu, reg, regs, k,
                         K, ok, B, N, nz, nu, stream);
 }
+#endif
 
 // The block kernel, for any nz and nu <= 4: the same arguments, plus
 // scratch, (B, scratch elements of the plan) of device memory where the
 // workspace does not fit shared memory (else null), and the cluster (0: the
 // library's plan; pddp_riccati_block_plan).
+#ifndef PDDP_F64_ONLY
 int pddp_riccati_backward_block_f32(const float* F_z, const float* F_u,
                                     const float* L_z, const float* L_u,
                                     const float* L_zz, const float* L_uz,
@@ -1658,7 +1663,9 @@ int pddp_riccati_backward_block_f32(const float* F_z, const float* F_u,
                              k, K, ok, scratch, B, N, nz, nu, cluster,
                              stream);
 }
+#endif
 
+#ifndef PDDP_F32_ONLY
 int pddp_riccati_backward_block_f64(const double* F_z, const double* F_u,
                                     const double* L_z, const double* L_u,
                                     const double* L_zz, const double* L_uz,
@@ -1671,6 +1678,7 @@ int pddp_riccati_backward_block_f64(const double* F_z, const double* F_u,
                               regs, k, K, ok, scratch, B, N, nz, nu, cluster,
                               stream);
 }
+#endif
 
 // The block kernel's plan for B solves at (nz, nu), elements of itemsize
 // bytes, cluster as the launch takes it: out = {CTAs a solve,
@@ -1679,8 +1687,12 @@ int pddp_riccati_backward_block_f64(const double* F_z, const double* F_u,
 // shared memory}. Needs the device (the cluster's occupancy).
 int pddp_riccati_block_plan(int nz, int nu, int itemsize, int B, int cluster,
                             long* out) {
+#ifndef PDDP_F64_ONLY
   if (itemsize == 4) return report_plan<float>(nz, nu, B, cluster, out);
+#endif
+#ifndef PDDP_F32_ONLY
   if (itemsize == 8) return report_plan<double>(nz, nu, B, cluster, out);
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1271,8 +1271,12 @@ int pddp_bnn_plan_ints() { return kPlanInts; }
     return report_plan<T>(entry, clusters, cfg, out);                        \
   }
 
+#ifndef PDDP_F64_ONLY
 PDDP_BNN_ENTRIES(float, f32)
+#endif
+#ifndef PDDP_F32_ONLY
 PDDP_BNN_ENTRIES(double, f64)
+#endif
 
 #undef PDDP_BNN_ENTRIES
 

@@ -608,6 +608,7 @@ extern "C" {
 // bounds (2, nu) or null; Z_out (B, N+1, A, nz), U_out (B, N, A, nu),
 // J_out (B, A) or null without a cost. The launch picks its warps a block
 // and its chunk (pddp::plan).
+#ifndef PDDP_F64_ONLY
 int pddp_fused_rollout_f32(const float* Z, const float* U, const float* k,
                            const float* K, const float* alphas,
                            const float* params, const float* bounds,
@@ -617,7 +618,9 @@ int pddp_fused_rollout_f32(const float* Z, const float* U, const float* k,
   return launch<float>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
                        J_out, B, N, A, model, codec, cost, stream);
 }
+#endif
 
+#ifndef PDDP_F32_ONLY
 int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
                            const double* K, const double* alphas,
                            const double* params, const double* bounds,
@@ -627,5 +630,6 @@ int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
   return launch<double>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
                         J_out, B, N, A, model, codec, cost, stream);
 }
+#endif
 
 }  // extern "C"

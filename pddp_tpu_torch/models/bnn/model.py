@@ -38,6 +38,7 @@ from ...encoding import StateEncoding, decode_covar_sqrt, decode_mean
 from ...utils import draws
 from ...utils.angular import augment_state, infer_augmented_state_size
 from ...utils.constraint import constrain
+from ...utils.optim import amsgrad, apply_updates
 from ...utils.particles import infer_eps, moment_match, standardize
 from ..base import DynamicsModel
 from .losses import gaussian_log_likelihood
@@ -45,7 +46,7 @@ from .network import Linear, bayesian_mlp, trainable_mask
 
 __all__ = ["ParticlesBNNDynamicsModel", "BNNDynamicsModel", "BNNState",
            "bnn_dynamics_model_factory", "fit_bnn", "infer_eps",
-           "load_bnn_npz", "moment_match", "save_bnn_npz"]
+           "load_bnn_npz", "moment_match", "save_bnn_npz", "training_loss"]
 
 
 @dataclass
@@ -194,12 +195,22 @@ class BNNDynamicsModel(ParticlesBNNDynamicsModel):
     """BNN dynamics on an encoded Gaussian belief.
 
     ``chol_jitter`` is the Cholesky jitter ladder of the moment match
-    (None: ``utils.linalg.JITTER_LEVELS``)."""
+    (None: ``utils.linalg.JITTER_LEVELS``).
+
+    Sharded ensemble (``parallel.particle_sharded_solve``): with
+    ``particle_group`` set, this model holds one rank's block of the
+    particles (``n_particles`` of ``n_particles_global``, its slices of
+    ``eps_in``, ``eps_out`` and the dropout noise), the moment match sums
+    the mean and the covariance (or the variance) over the group's ranks,
+    and the noise falls back to ``eps_in[i]`` on every rank when the
+    inference fails on any. Unsharded: None and 0."""
 
     def __init__(self, *args, eps_in=None, chol_jitter=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.eps_in = eps_in
         self.chol_jitter = None if chol_jitter is None else tuple(chol_jitter)
+        self.particle_group = None
+        self.n_particles_global = 0
 
     def _effective_eps(self, z, i, state: BNNState, encoding):
         """(eps, mean, U_chol) of step i (see ``infer_eps``)."""
@@ -209,10 +220,12 @@ class BNNDynamicsModel(ParticlesBNNDynamicsModel):
         if not self.infer_noise_variables:
             return eps0.expand(z.shape[:-1] + eps0.shape), mean, U_chol
         deltas = state.prev_output - mean[..., None, :]
-        return infer_eps(U_chol, deltas, eps0, i == 0), mean, U_chol
+        return (infer_eps(U_chol, deltas, eps0, i == 0, self.particle_group),
+                mean, U_chol)
 
     def _moment_match(self, output, encoding):
-        return moment_match(output, encoding, self.chol_jitter)
+        return moment_match(output, encoding, self.chol_jitter,
+                            self.particle_group, self.n_particles_global)
 
     def resample(self, generator=None, noise=None):
         """As ``ParticlesBNNDynamicsModel.resample``, then ``eps_in``
@@ -306,8 +319,44 @@ class BNNDynamicsModel(ParticlesBNNDynamicsModel):
 # Training
 # ---------------------------------------------------------------------------
 
-#: optax.amsgrad's constants (b1, b2, eps; eps_root is 0).
-AMSGRAD = (0.9, 0.999, 1e-8)
+def training_loss(model, likelihood=gaussian_log_likelihood, reg_scale=1.0,
+                  n_data=1):
+    """``fit_bnn``'s loss of a minibatch as ``(loss_fn, params)``.
+
+    ``params`` are the net's trainable leaves (``trainable_mask``, in
+    ``leaves`` order), detached; ``loss_fn(params, batch)`` is the
+    negative Gaussian log likelihood of the de-normalized outputs, averaged
+    over the batch's rows, plus ``reg_scale`` times the dropout regularizer
+    over ``n_data``. ``batch`` has ``x`` (the normalized net inputs, a row
+    each), ``dX`` (the targets) and ``noise`` (the training noise of each
+    hidden layer, a row each, None where a layer has no dropout).
+    """
+    leaves = [t.detach() for t in model.net.leaves()]
+    train = [i for i, m in enumerate(trainable_mask(model.net)) if m]
+    dX_mean, dX_std = model.dX_mean, model.dX_std
+    log_dX_std = torch.log(dX_std)
+
+    def loss_fn(params, batch):
+        full = list(leaves)
+        for i, p in zip(train, params):
+            full[i] = p
+        net = model.net.with_leaves(full)
+        out = net(batch["x"], noise=batch["noise"])
+        mean, log_std = out.split(out.shape[-1] // 2, dim=-1)
+        nll = -likelihood(batch["dX"], mean * dX_std + dX_mean,
+                          torch.exp(log_std + log_dX_std)).mean()
+        return nll + reg_scale * (net.regularization() / n_data)
+
+    return loss_fn, [leaves[i] for i in train]
+
+
+def _with_trainable(net, params):
+    """``net`` with its trainable leaves replaced by ``params``."""
+    leaves = [t.detach() for t in net.leaves()]
+    train = [i for i, m in enumerate(trainable_mask(net)) if m]
+    for i, p in zip(train, params):
+        leaves[i] = p.detach()
+    return net.with_leaves(leaves)
 
 
 def fit_bnn(model, X, U, dX, generator=None, n_iter=500, batch_size=128,
@@ -318,15 +367,14 @@ def fit_bnn(model, X, U, dX, generator=None, n_iter=500, batch_size=128,
     """Trains the net on transitions (X, U) -> dX; returns the updated
     model, and the loss of every step with ``return_losses``.
 
-    The loss of a minibatch is the negative Gaussian log likelihood of
-    the de-normalized outputs plus ``reg_scale`` times the dropout
-    regularizer over the number of rows. The optimizer is
-    ``optax.amsgrad``'s, written out: the maximum is taken of the
-    bias-corrected second moment (``torch.optim.Adam(amsgrad=True)``
-    keeps that of the raw one), on the leaves of ``trainable_mask``.
-    The normalizers are the mean and the ddof=0 std (floored at 1e-8 to
-    1) of the first ``n_valid`` rows, the augmented and constrained
-    inputs' and dX's; rows past ``n_valid`` (padding) are never drawn.
+    The loss of a minibatch is ``training_loss``'s: the negative Gaussian
+    log likelihood of the de-normalized outputs plus ``reg_scale`` times
+    the dropout regularizer over the number of rows. The optimizer is
+    ``utils.optim.amsgrad`` (``optax.amsgrad``'s), on the leaves of
+    ``trainable_mask``. The normalizers are the mean and the ddof=0 std
+    (floored at 1e-8 to 1) of the first ``n_valid`` rows, the augmented
+    and constrained inputs' and dX's; rows past ``n_valid`` (padding) are
+    never drawn.
 
     Draws: ``batch_idx`` (n_iter, batch_size) in [0, n_valid), then each
     step's noise per hidden layer, from ``generator``; or explicit,
@@ -364,53 +412,27 @@ def fit_bnn(model, X, U, dX, generator=None, n_iter=500, batch_size=128,
         noise = [None if n is None else draws.explicit(n, dtype, device)
                  for n in noise]
     x_norm = model._normalize_input(X_)
-    dX_mean, dX_std = model.dX_mean, model.dX_std
-    log_dX_std = torch.log(dX_std)
-    n_data = torch.as_tensor(N, dtype=dtype, device=device)
-
-    leaves = [t.detach() for t in model.net.leaves()]
-    train = [i for i, m in enumerate(trainable_mask(model.net)) if m]
-    b1, b2, eps = AMSGRAD
-    # The first moment, the second and the running maximum of its
-    # bias-corrected value, one list each over the trainable leaves (the
-    # update runs as one foreach op a term, each rounded as optax's).
-    m, v, v_max = ([torch.zeros_like(leaves[i]) for i in train]
-                   for _ in range(3))
+    loss_fn, params = training_loss(
+        model, likelihood, reg_scale,
+        torch.as_tensor(N, dtype=dtype, device=device))
+    opt = amsgrad(learning_rate)
+    state = opt.init(params)
     losses = []
     for t in range(n_iter):
-        for i in train:
-            leaves[i].requires_grad_(True)
-        net = model.net.with_leaves(leaves)
+        for p in params:
+            p.requires_grad_(True)
         idx = batch_idx[t]
-        step_noise = (net.draw_noise(generator, (idx.shape[0],))
+        step_noise = (model.net.draw_noise(generator, (idx.shape[0],))
                       if noise is None else
                       [None if n is None else n[t] for n in noise])
         with torch.enable_grad():
-            out = net(x_norm[idx], noise=step_noise)
-            mean, log_std = out.split(out.shape[-1] // 2, dim=-1)
-            nll = -likelihood(dX[idx], mean * dX_std + dX_mean,
-                              torch.exp(log_std + log_dX_std)).mean()
-            loss = nll + reg_scale * (net.regularization() / n_data)
-            grads = torch.autograd.grad(loss, [leaves[i] for i in train])
+            loss = loss_fn(params, {"x": x_norm[idx], "dX": dX[idx],
+                                    "noise": step_noise})
+            grads = torch.autograd.grad(loss, params)
         losses.append(loss.detach())
-        c1, c2 = 1.0 - b1**(t + 1), 1.0 - b2**(t + 1)
-        # m = (1 - b1) g + b1 m; v = (1 - b2) g^2 + b2 v
-        m = torch._foreach_add(torch._foreach_mul(grads, 1.0 - b1),
-                               torch._foreach_mul(m, b1))
-        v = torch._foreach_add(torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1.0 - b2),
-            torch._foreach_mul(v, b2))
-        v_max = torch._foreach_maximum(v_max, torch._foreach_div(v, c2))
-        # leaf + (-lr) (m / c1) / (sqrt(v_max) + eps)
-        step = torch._foreach_div(torch._foreach_div(m, c1),
-                                  torch._foreach_add(
-                                      torch._foreach_sqrt(v_max), eps))
-        new = torch._foreach_add([leaves[i].detach() for i in train],
-                                 torch._foreach_mul(step, -learning_rate))
-        for i, p in zip(train, new):
-            leaves[i] = p
-    model = model.replace(net=model.net.with_leaves(
-        [t.detach() for t in leaves]))
+        updates, state = opt.update(list(grads), state, params)
+        params = apply_updates(params, updates)
+    model = model.replace(net=_with_trainable(model.net, params))
     if return_losses:
         return model, (torch.stack(losses) if losses else
                        x_norm.new_zeros((0,)))

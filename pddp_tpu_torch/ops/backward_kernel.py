@@ -73,7 +73,7 @@ _FUNCTIONS: dict = {}
 def _function(dtype, block=False):
     fn = _FUNCTIONS.get((dtype, block))
     if fn is None:
-        lib = load_library("backward_kernel")
+        lib = load_library("backward_kernel", dtype)
         fn = getattr(lib, (_BLOCK_SYMBOLS if block else _SYMBOLS)[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_double]
                        + [ctypes.c_void_p] * (5 if block else 4)
@@ -97,7 +97,7 @@ def launch_plan(nz, nu, dtype, B=1, *, _cluster=None):
     that does not fit)."""
     if (nz, nu) in INSTANCES:
         return {"kernel": "warp"}
-    lib = load_library("backward_kernel")
+    lib = load_library("backward_kernel", dtype)
     lib.pddp_riccati_block_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.pddp_riccati_block_plan.restype = ctypes.c_int

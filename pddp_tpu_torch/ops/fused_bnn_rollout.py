@@ -62,7 +62,8 @@ def supports(model, encoding=None):
     ``BNNDynamicsModel`` (exact type) under UPPER_TRIANGULAR_CHOLESKY
     with state size <= 8, action size <= 4, at most 6 linear layers, an
     output of width 2 n, ReLU, at least two particles and the net at full
-    precision (no ``compute_dtype`` or ``matmul_dtype``). The launch plan
+    precision (no ``compute_dtype`` or ``matmul_dtype``), its particles
+    not sharded over ranks (the kernel sums over its own). The launch plan
     (cluster, particles and shared memory of a CTA) is the library's: a
     shape it cannot plan makes the launch raise."""
     if type(model) is not BNNDynamicsModel:
@@ -74,6 +75,7 @@ def supports(model, encoding=None):
             and len(net.layers) <= MAX_LAYERS and net.activation == "relu"
             and _widths(net)[-1] == 2 * model.state_size
             and model.n_particles >= 2 and model.eps_in is not None
+            and model.particle_group is None
             and net.compute_dtype is None and net.matmul_dtype is None)
 
 
@@ -174,7 +176,7 @@ def _function(entry, dtype):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError("the BNN kernels take float32 or float64, not "
                         "{}".format(dtype))
-    lib = load_library("fused_bnn_rollout")
+    lib = load_library("fused_bnn_rollout", dtype)
     n_ints = lib.pddp_bnn_config_ints()
     if n_ints != sum(c for _, c in _CONFIG_FIELDS):
         raise RuntimeError("kernel Config has {} ints, the wrapper {}".format(
@@ -388,7 +390,7 @@ def launch_plan(model, clusters, dtype, entry="rollout"):
         pk.net(model.net, model.n_particles, model.state_size)
         cfg = pk.cfg
     fn = _function("plan", dtype)
-    lib = load_library("fused_bnn_rollout")
+    lib = load_library("fused_bnn_rollout", dtype)
     out = (ctypes.c_int * lib.pddp_bnn_plan_ints())()
     err = fn(0 if entry == "rollout" else 1, int(clusters),
              _config_ints(cfg), out)

@@ -140,7 +140,7 @@ _FUNCTIONS: dict = {}
 def _function(dtype):
     fn = _FUNCTIONS.get(dtype)
     if fn is None:
-        fn = getattr(load_library("fused_rollout"), _SYMBOLS[dtype])
+        fn = getattr(load_library("fused_rollout", dtype), _SYMBOLS[dtype])
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int

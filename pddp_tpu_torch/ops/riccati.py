@@ -106,10 +106,46 @@ def _psd_clamp_inv_with_reg(Q_uu, reg):
     return (E / e[..., None, :]) @ _T(E)
 
 
-def parallel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
+def _across_blocks(elems, terminal, group):
+    """(eta, J) of the value functions V_{i+1} of this rank's steps: the
+    suffix scan over the whole horizon, its steps sharded over ``group``
+    in contiguous blocks (rank 0 the first; the time axis leading) and
+    ``terminal`` the terminal element. Two levels: the block's own suffix
+    scan, then one all-gather of every block's composite element; the
+    later blocks' composites and the terminal element, combined in order,
+    close the block's scan."""
+    from ..parallel.collectives import all_gather, group_rank, group_size
+    size, rank = group_size(group), group_rank(group)
+    local = _suffix_scan(elems)
+    every = all_gather(torch.cat([t[0].reshape(1, -1) for t in local], 1),
+                       group)
+    composites = [c.reshape((size,) + t.shape[1:]) for c, t in zip(
+        every.split([t[0].numel() for t in local], dim=1), local)]
+    # tails[r] composes the blocks from r on, then the terminal element.
+    tails = _suffix_scan(tuple(torch.cat([c, t])
+                               for c, t in zip(composites, terminal)))
+    tail = [t[rank + 1:rank + 2] for t in tails]
+    rest = [t[1:] for t in local]
+    closed = _combine(rest, [t.expand_as(r) for t, r in zip(tail, rest)])
+    return (torch.cat([closed[3], tail[3]]), torch.cat([closed[4], tail[4]]))
+
+
+def parallel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0,
+                      group=None):
     """The Riccati backward in O(log N) depth: the interface and returns
     of ``controllers.ilqr.backward`` (unconstrained), leading lane dims
     before the time axis, ``reg`` a scalar or a tensor of the lane shape.
+
+    ``group``: a process group whose ranks hold the horizon in contiguous
+    blocks, as ``parallel.shard_over_horizon`` gives them (an unbatched
+    local model): the N-long leaves (F_z, F_u, L_u, L_uz, L_uu) this
+    rank's block of the steps, the (N+1)-long ones (Z, L, L_z, L_zz)
+    whole. The scan then runs in two levels with one all-gather, and the
+    returns are this rank's block of k and K, and ``ok`` over the whole
+    horizon (every rank's). Where N does not divide by the group's size,
+    ``shard_over_horizon`` leaves the N-long leaves whole (and shards the
+    (N+1)-long ones if N + 1 divides); the (N+1)-long leaves are then
+    gathered, and k and K come back whole.
 
     Returns:
         (k (..., N, nu), K (..., N, nu, nz), ok (...) bool).
@@ -119,8 +155,23 @@ def parallel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
     lane = L_u.shape[:-2]
     nz = Z.shape[-1]
     dtype, device = Z.dtype, Z.device
+    n = F_u.shape[-3]
+    lo = 0
+    sharded = False
+    if group is not None:
+        from ..parallel.collectives import (all_gather, any_rank,
+                                            group_rank, group_size)
+        if F_u.dim() != 3:
+            raise ValueError("a horizon-sharded backward takes an "
+                             "unbatched local model")
+        size = group_size(group)
+        if L_z.shape[0] * size == n + 1:   # (N+1)-long leaves in blocks
+            L_z, L_zz = (all_gather(t, group) for t in (L_z, L_zz))
+        sharded = L_z.shape[0] == n * size + 1
+        if sharded:
+            lo = group_rank(group) * n
 
-    L_z_run, L_zz_run = L_z[..., :-1, :], L_zz[..., :-1, :, :]
+    L_z_run, L_zz_run = L_z[..., lo:lo + n, :], L_zz[..., lo:lo + n, :, :]
     # Completing the square in u, v = u + L_uu^-1 (L_uz z + L_u):
     #   F~ = F_z - F_u L_uu^-1 L_uz      c~ = -F_u L_uu^-1 L_u
     #   X~ = L_zz - L_uz^T L_uu^-1 L_uz  r~ = L_z - L_uz^T L_uu^-1 L_u
@@ -142,18 +193,20 @@ def parallel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
     r_tilde = L_z_run - _mv(L_uzT, Li_u)
     C = _sym(F_u @ lsolve(_T(F_u)))
 
-    # Steps 0..N-1, then the terminal element (A = 0, C = 0: the
-    # terminal value function itself).
+    # Steps, then the terminal element (A = 0, C = 0: the terminal value
+    # function itself).
     zmat = torch.zeros(lane + (1, nz, nz), dtype=dtype, device=device)
     zvec = torch.zeros(lane + (1, nz), dtype=dtype, device=device)
-    elems = (torch.cat([F_tilde, zmat], dim=-3),
-             torch.cat([c_tilde, zvec], dim=-2),
-             torch.cat([C, zmat], dim=-3),
-             torch.cat([-r_tilde, -L_z[..., -1:, :]], dim=-2),
-             torch.cat([X_tilde, L_zz[..., -1:, :, :]], dim=-3))
-    _, _, _, eta, J = _suffix_scan(elems)
-    S_next = J[..., 1:, :, :]
-    s_next = -eta[..., 1:, :]
+    steps = (F_tilde, c_tilde, C, -r_tilde, X_tilde)
+    terminal = (zmat, zvec, zmat, -L_z[..., -1:, :], L_zz[..., -1:, :, :])
+    if sharded:
+        eta, J = _across_blocks(steps, terminal, group)
+    else:
+        _, _, _, eta, J = _suffix_scan(tuple(
+            torch.cat([s, t], dim=a)
+            for s, t, a in zip(steps, terminal, _TIME_DIMS)))
+        eta, J = eta[..., 1:, :], J[..., 1:, :, :]
+    S_next, s_next = J, -eta
 
     # The gains from the untransformed local model, over the horizon.
     F_uT = _T(F_u)
@@ -163,4 +216,7 @@ def parallel_backward(Z, F_z, F_u, L, L_z, L_u, L_zz, L_uz, L_uu, reg=0.0):
     kK = -(_psd_clamp_inv_with_reg(Q_uu, reg)
            @ torch.cat([Q_u[..., None], Q_uz], dim=-1))
     k, K = kK[..., 0], kK[..., 1:]
-    return k, K, _all_finite(k, 2) & _all_finite(K, 3)
+    ok = _all_finite(k, 2) & _all_finite(K, 3)
+    if sharded:
+        ok = any_rank((~ok).to(torch.int32), group) == 0
+    return k, K, ok

@@ -1,7 +1,8 @@
 """Utilities of the port, imported lazily (the encoding core itself
 imports ``utils.linalg``): linear algebra, angles, constraints,
-derivatives, particles, draws, trajectories, checkpoints and timing, and
-the reference-layout aliases ``encoding`` and ``gaussian_variable``."""
+derivatives, optimizers, particles, draws, trajectories, checkpoints and
+timing, and the reference-layout aliases ``encoding`` and
+``gaussian_variable``."""
 
 import importlib
 
@@ -12,6 +13,7 @@ _SUBMODULES = (
     "draws",
     "evaluation",
     "linalg",
+    "optim",
     "particles",
     "profiling",
     "trajectory",

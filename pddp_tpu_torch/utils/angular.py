@@ -16,11 +16,19 @@ from ..encoding import (StateEncoding, decode_covar, decode_mean, decode_var,
                         encode)
 
 __all__ = ["augment_state", "reduce_state", "augment_encoded_state",
-           "infer_augmented_state_size", "infer_reduced_state_size"]
+           "complementary_indices", "infer_augmented_state_size",
+           "infer_reduced_state_size"]
 
 
 def _as_tuple(idx):
     return tuple(int(i) for i in idx)
+
+
+def complementary_indices(indices, size: int):
+    """The indices of ``range(size)`` not in ``indices`` (ints in a
+    sequence, an array or a tensor, or one int), in order."""
+    idx = set(torch.as_tensor(indices).reshape(-1).tolist())
+    return tuple(i for i in range(size) if i not in idx)
 
 
 def infer_augmented_state_size(angular_indices, non_angular_indices) -> int:

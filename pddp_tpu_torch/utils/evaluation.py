@@ -13,8 +13,8 @@ from torch.func import grad, hessian, jacfwd
 
 from ..encoding import StateEncoding
 
-__all__ = ["eval_cost", "eval_dynamics", "quadratize_cost",
-           "linearize_dynamics"]
+__all__ = ["eval_cost", "eval_dynamics", "batch_eval_cost",
+           "batch_eval_dynamics", "quadratize_cost", "linearize_dynamics"]
 
 
 def eval_cost(cost, z, u, i, terminal=False,
@@ -89,6 +89,12 @@ def eval_dynamics(model, z, u, i, encoding: StateEncoding = StateEncoding.DEFAUL
     # state's dtype.
     J = J.to(z_next.dtype)
     return z_next, J[:, :nz], J[:, nz:]
+
+
+# ``pddp_tpu``'s names of the two, kept from the reference's batched
+# variants (with ``torch.func`` the exact and batched paths coincide).
+batch_eval_cost = eval_cost
+batch_eval_dynamics = eval_dynamics
 
 
 def _tree_map(fn, tree):

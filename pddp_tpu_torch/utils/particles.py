@@ -52,7 +52,7 @@ def standardize(eps, dim=0):
             / eps.std(dim=dim, keepdim=True, correction=1))
 
 
-def infer_eps(U_chol, deltas, eps0, first):
+def infer_eps(U_chol, deltas, eps0, first, group=None):
     """The noise of one step: ``eps @ U_chol = deltas`` solved per
     particle, or ``eps0`` for the whole (P, n) array where any element of
     the solve is not finite, or at the first step. A blend by a 0/1
@@ -62,26 +62,49 @@ def infer_eps(U_chol, deltas, eps0, first):
     Args:
         U_chol (..., n, n), deltas (..., P, n), eps0 (P, n) or (..., P, n),
         first: whether this is step 0.
+        group: the process group over which the particles are sharded
+            (each rank holds a block of them), or None. The fallback is
+            then taken on every rank where the solve fails on any.
     """
     eps_inf = tria_solve_right(U_chol, deltas).detach()
     finite = torch.isfinite(eps_inf)
     eps_safe = torch.where(finite, eps_inf, torch.zeros_like(eps_inf))
     bad = (~finite.all(dim=-1).all(dim=-1)).to(deltas.dtype)
+    if group is not None:
+        from ..parallel.collectives import any_rank
+        bad = any_rank(bad, group)
     w = torch.clamp(bad, min=float(first))[..., None, None]
     return eps0 * w + eps_safe * (1.0 - w)
 
 
-def moment_match(output, encoding, jitter_levels=None):
+def moment_match(output, encoding, jitter_levels=None, group=None,
+                 n_global=0):
     """Particles (..., P, n) -> encoded distribution (..., nz): the mean,
     and the ddof=1 covariance through ``encode`` (the Cholesky codec with
     the ``jitter_levels`` ladder), or the ddof=0 std for the diagonal
-    codecs."""
-    M = output.mean(dim=-2)
-    if encoding in (StateEncoding.FULL_COVARIANCE_MATRIX,
-                    StateEncoding.UPPER_TRIANGULAR_CHOLESKY):
-        return encode(M, C=particles_covar(output, dim=-2), encoding=encoding,
-                      jitter_levels=jitter_levels)
-    return encode(M, S=output.std(dim=-2, correction=0), encoding=encoding)
+    codecs.
+
+    With ``group`` (the particles sharded over its ranks, ``n_global`` of
+    them in all), the mean and then the covariance or the variance are
+    sums over the ranks of each rank's sums: two all-reduces."""
+    matrix = encoding in (StateEncoding.FULL_COVARIANCE_MATRIX,
+                          StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
+    if group is None:
+        M = output.mean(dim=-2)
+        if matrix:
+            return encode(M, C=particles_covar(output, dim=-2),
+                          encoding=encoding, jitter_levels=jitter_levels)
+        return encode(M, S=output.std(dim=-2, correction=0),
+                      encoding=encoding)
+    from ..parallel.collectives import all_reduce_sum
+    M = all_reduce_sum(output.sum(dim=-2), group) / n_global
+    deltas = output - M[..., None, :]
+    if matrix:
+        C = all_reduce_sum(torch.einsum("...pi,...pj->...ij", deltas,
+                                        deltas), group) / (n_global - 1)
+        return encode(M, C=C, encoding=encoding, jitter_levels=jitter_levels)
+    V = all_reduce_sum((deltas * deltas).sum(dim=-2), group) / n_global
+    return encode(M, S=torch.sqrt(V), encoding=encoding)
 
 
 def tensor_like(model):

@@ -286,10 +286,31 @@ def test_bf16_knobs_match_pddp_tpu(knob):
 
 
 def test_batched_solve_rejects_a_ragged_chunk_and_a_mesh(cartpole):
+    """A ragged chunk raises, with a mesh or without; a mesh is taken (the
+    sharded cases are in tests/test_torch_parallel.py): over a 1-rank
+    gloo world in this process, the lanes come back with the bits of the
+    unsharded batch."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pddp_tpu_torch.parallel import make_mesh
     model, cost, z0s, U0s = cartpole
-    with pytest.raises(ValueError, match="not divisible"):
-        batched_solve(model, cost, z0s, U0s, ILQROptions(), encoding=IGN,
-                      chunk=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        batched_solve(model, cost, z0s, U0s, ILQROptions(), encoding=IGN,
-                      mesh=object())
+    for mesh in (None, object()):
+        with pytest.raises(ValueError, match="not divisible"):
+            batched_solve(model, cost, z0s, U0s, ILQROptions(),
+                          encoding=IGN, chunk=4, mesh=mesh)
+    opts = ILQROptions(n_iterations=1, max_evals=2)
+    whole = batched_solve(model, cost, z0s, U0s, opts, encoding=IGN)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{}".format(
+        port), world_size=1, rank=0)
+    try:
+        sharded = batched_solve(model, cost, z0s, U0s, opts, encoding=IGN,
+                                mesh=make_mesh(devices="cpu"), chunk=3)
+    finally:
+        dist.destroy_process_group()
+    for f in g.FIELDS:
+        assert torch.equal(getattr(sharded, f), getattr(whole, f)), f

@@ -821,3 +821,96 @@ def test_particle_solve_through_k1_on_card(cuda, codec):
     assert abs(kern.J_opt - plain.J_opt) <= 1e-10 * abs(plain.J_opt)
     for a, b in ((kern.Z, plain.Z), (kern.U, plain.U)):
         assert float((a - b).abs().max()) <= 1e-8 * float(b.abs().max())
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A 1-rank NCCL world in this process on cuda:0 (the machine's one
+    card) and its 1-D mesh ``dp``; skips where there is no card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+
+    from pddp_tpu_torch.parallel import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:{}".format(
+        port), world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        yield make_mesh("dp")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_batched_solve_on_card(nccl_world):
+    """The B=16 cartpole batch (N=60, float64) sharded over a 1-rank NCCL
+    mesh through K1 and K2(a): the bits of the unsharded batch, K1 and
+    K2(a) each launched once per evaluation; in chunks of 8, the same
+    ends and J within 1e-10 (the local model's batched products may take
+    another order of sums at another batch size)."""
+    from pddp_tpu_torch.controllers import ilqr
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions
+    from pddp_tpu_torch.parallel import batched_solve
+    cuda = torch.device("cuda")
+    model = CartpoleDynamicsModel(dt=0.05, device=cuda, dtype=torch.float64)
+    cost = CartpoleCost(device=cuda, dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    z0s = torch.as_tensor(0.05 * rng.standard_normal((16, 4)), device=cuda)
+    U0s = torch.full((16, 60, 1), 0.1, dtype=torch.float64, device=cuda)
+    opts = ILQROptions(n_iterations=5, max_evals=15, riccati_mode="kernel",
+                       fused_rollout=True)
+    whole = batched_solve(model, cost, z0s, U0s, opts, encoding=IGN)
+    n1, n2, ne = bk.launches, fr.launches["a"], ilqr.lane_evaluations
+    sharded = batched_solve(model, cost, z0s, U0s, opts, encoding=IGN,
+                            mesh=nccl_world)
+    evals = ilqr.lane_evaluations - ne
+    assert evals >= 1
+    assert bk.launches - n1 == evals and fr.launches["a"] - n2 == evals
+    for f in ("Z", "U", "K", "J_opt", "state", "iterations", "evals"):
+        assert torch.equal(getattr(sharded, f), getattr(whole, f)), f
+    chunked = batched_solve(model, cost, z0s, U0s, opts, encoding=IGN,
+                            mesh=nccl_world, chunk=8)
+    for f in ("state", "iterations", "evals"):
+        assert torch.equal(getattr(chunked, f), getattr(whole, f)), f
+    rel = ((chunked.J_opt - whole.J_opt).abs() / whole.J_opt.abs()).max()
+    assert float(rel) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_particle_sharded_solve_on_card(nccl_world):
+    """A BNN (hidden [32, 32], P=16, N=10, float64, the Cholesky codec)
+    solved with its particles sharded over a 1-rank NCCL mesh through K1
+    (the moment match's all-reduces on the card): the unsharded solve's
+    ends, J within 1e-9, Z and U within 1e-7 (tests/parallel/
+    test_particles.py:48-51); K1 once an evaluation."""
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory
+    from pddp_tpu_torch.parallel import particle_sharded_solve
+    cuda = torch.device("cuda")
+    enc = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    model = bnn_dynamics_model_factory(
+        4, 1, [32, 32], angular_indices=(2,),
+        non_angular_indices=(0, 1, 3)).init(
+            seed=3, n_particles=16, horizon=11, dtype=torch.float64,
+            device=cuda)
+    cost = CartpoleCost(device=cuda, dtype=torch.float64)
+    z0 = encode(torch.zeros(4, dtype=torch.float64, device=cuda),
+                V=1e-2 * torch.ones(4, dtype=torch.float64, device=cuda),
+                encoding=enc)
+    U0 = torch.full((10, 1), 0.1, dtype=torch.float64, device=cuda)
+    opts = ILQROptions(n_iterations=3, max_evals=8, riccati_mode="kernel")
+    ref = solve(model, cost, z0, U0, opts, encoding=enc)
+    n1 = bk.launches
+    r = particle_sharded_solve(model, cost, z0, U0, opts, encoding=enc,
+                               mesh=nccl_world, axis_name="dp")
+    assert bk.launches - n1 == r.evals >= 1
+    assert (r.state, r.iterations, r.evals) == (ref.state, ref.iterations,
+                                                ref.evals)
+    assert abs(r.J_opt - ref.J_opt) <= 1e-9 * abs(ref.J_opt)
+    for a, b in ((r.Z, ref.Z), (r.U, ref.U)):
+        assert float(((a - b).abs() - 1e-7 * b.abs()).max()) <= 1e-10
