@@ -109,8 +109,10 @@ K1_BLOCK_FORCED = [(20, 1, 2), (27, 1, 4), (42, 1, 1), (3, 2, 2),
 TURNS = (True, False)
 
 # (B, N) of the batched kernel cases (phases 1, 2 and 10): one solve of
-# one step, a ragged block of three, a full batch at the bench horizon.
-BATCHES = [(1, 1), (3, 37), (64, 200)]
+# one step, a ragged block of three, a full batch at half the bench
+# horizon (cut from N=200 for the run's time; phase 13 times every kernel
+# at the bench horizon, and phase 1 holds K1 there at B=1 and B=1024).
+BATCHES = [(1, 1), (3, 37), (64, 100)]
 
 
 def k1_block_tol(dtype_name, nu):
@@ -236,6 +238,7 @@ def raw_k2(model, cost, Z, U, k, K, alphas, enc=None):
     import torch
     from pddp_tpu_torch.encoding import StateEncoding
     from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.ops._examples import MODELS, example_of
     enc = StateEncoding.IGNORE_UNCERTAINTY if enc is None else enc
     if Z.dim() == 2:
         Z, U, k, K = (t[None] for t in (Z, U, k, K))
@@ -249,11 +252,14 @@ def raw_k2(model, cost, Z, U, k, K, alphas, enc=None):
     fn = fr._function(Z.dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
+    base, constrained = example_of(model)
+    which = (MODELS[base], int(enc), kind, int(constrained))
+
     def launch():
         check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, params)),
                  None, outs[0].data_ptr(), outs[1].data_ptr(),
-                 outs[2].data_ptr() if kind else None, B, N, A,
-                 fr._MODELS[type(model)], int(enc), kind, stream) == 0,
+                 outs[2].data_ptr() if kind else None, B, N, A, *which,
+                 stream) == 0,
               "K2 launch")
     return launch
 
@@ -526,23 +532,29 @@ def k2_chain_cycles(name, codec, nz, dtype_name, bounded=False):
     return max(mean, belief)
 
 
-def k2d_chain_cycles(n, nz, widths, P, dtype_name):
+def k2d_chain_cycles(n, nz, widths, P, dtype_name, codec=1):
     """Cycles of one K2(d) step's critical path (csrc/fused_bnn_rollout.cu):
     the feedback law's nz-long chain and its two adds; the noise solve's n
     chained subtract-and-divides; the particle's n-long sum; the net
     input's sine, subtraction and division; each layer's K-long FMA chain
     and its bias and mask; the next state's two; the sums over P of the
     mean and then the covariance, as trees (the least depth of any order);
-    the n x n Cholesky (n square roots and divisions behind 2n FMAs); one
-    cluster barrier."""
+    under the matrix codecs (``codec`` StateEncoding's value) the n x n
+    Cholesky (n square roots and divisions behind 2n FMAs: CHOL's encode,
+    FULL's decode), under VAR and STD one square root, under IGNORE
+    neither the second sums nor a root; one cluster barrier."""
     lat = LATENCY[dtype_name]
     fma, div = lat["fma"], lat["div"]
     depth = int(np.ceil(np.log2(P)))
+    moments = {0: 2 * depth * fma + n * (lat["sqrt"] + div) + 2 * n * fma,
+               1: 2 * depth * fma + n * (lat["sqrt"] + div) + 2 * n * fma,
+               2: 2 * depth * fma + lat["sqrt"],
+               3: 2 * depth * fma + lat["sqrt"],
+               4: depth * fma}[codec]
     return ((nz + 3) * fma + n * (fma + div) + n * fma
             + lat["sincos"] + fma + div
             + (sum(widths[:-1]) + 2 * (len(widths) - 1)) * fma + 2 * fma
-            + 2 * depth * fma + n * (lat["sqrt"] + div) + 2 * n * fma
-            + lat["cluster_sync"])
+            + moments + lat["cluster_sync"])
 
 
 def chain_ms(cycles, N, clock_mhz):
@@ -681,6 +693,9 @@ def phase0_build(card):
     entries = [r["entry"] for r in kernels["fused_bnn_rollout"]]
     check(all(any("bnn_rollout_kernelI" + t in e for e in entries)
               for t in "fd"), "ptxas reported no K2(d) instance")
+    entries = [r["entry"] for r in kernels["fused_particle_rollout"]]
+    check(all(any("particle_rollout_kernelI" + t in e for e in entries)
+              for t in "fd"), "ptxas reported no K2(e) instance")
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(next(iter(report.values()))["seconds"], 3),
@@ -857,7 +872,8 @@ def phase1_k1_block():
 
 # K1 with a reg per solve (the batched solve's per-lane mu): (nz, nu) of
 # the warp kernel at the main path's shape and its Jacobi clamp (8, 4), and
-# of the block kernel at nz = 20; 64 lanes, regs 10^U(-6, 2), N=200.
+# of the block kernel at nz = 20; BATCHES' full batch (64 lanes, N=100;
+# N=200 until phase 19 needed the time), regs 10^U(-6, 2).
 K1_LANE_REG_SHAPES = [(4, 1), (8, 4), (20, 1)]
 
 
@@ -873,7 +889,7 @@ def phase1_k1_lane_regs():
     from pddp_tpu_torch.controllers.ilqr import backward
     from pddp_tpu_torch.ops import backward_kernel as bk
     rows = []
-    B, N = 64, 200
+    B, N = BATCHES[-1]
     for si, (nz, nu) in enumerate(K1_LANE_REG_SHAPES):
         rng = np.random.default_rng(2000 + si)
         ins64 = k1_inputs(rng, B, N, nz, nu, torch.float64, "cuda")
@@ -1318,7 +1334,7 @@ def k2d_split_case(torch, dtype, P, hidden, A, B, bounded):
     torch.cuda.synchronize()
     row = {"dtype": dname, "N": N, "B": B, "A": A, "P": P,
            "widths": [6, *hidden, 8], "bounded": bounded, "trained": False,
-           "plan": fb.launch_plan(model, B * A, dtype),
+           "plan": fb.launch_plan(model, B * A, dtype, ch),
            "finite": all(bool(torch.isfinite(p).all()) for p in plain),
            "tol": BNN_TOL[dname]}
     for name, a, p in zip(("Z", "U", "AUX"), kern, plain):
@@ -1392,14 +1408,18 @@ def phase7_bnn_kernels():
     return rows, frags
 
 
-def raw_bnn(torch, entry, model, dtype, args):
-    """A closure launching one BNN entry alone on preallocated outputs."""
+def raw_bnn(torch, entry, model, dtype, args, enc=None):
+    """A closure launching one BNN entry alone on preallocated outputs
+    (K2(d) under the codec ``enc``, by default the Cholesky codec)."""
+    from pddp_tpu_torch.encoding import StateEncoding
     from pddp_tpu_torch.ops import fused_bnn_rollout as fb
     fn = fb._function(entry, dtype)
     stream = torch.cuda.current_stream().cuda_stream
     if entry == "rollout":
         Z, U, k, K, alphas = args
-        params, cfg = fb._params(model, dtype, "cuda")
+        params, cfg = fb._params(
+            model, dtype, "cuda",
+            StateEncoding.UPPER_TRIANGULAR_CHOLESKY if enc is None else enc)
         B, N, A, nz = U.shape[0], U.shape[1], alphas.shape[0], Z.shape[-1]
         outs = [torch.empty(s, dtype=dtype, device="cuda") for s in
                 ((B, N + 1, A, nz), (B, N, A, 1), (B, N, A, 100, 4))]
@@ -1438,12 +1458,17 @@ def raw_bnn(torch, entry, model, dtype, args):
     return launch
 
 
-def bnn_work(model, B, N, A, G, itemsize):
+def bnn_work(model, B, N, A, G, itemsize, codec=1):
     """(bytes, operations) of K2(d), F1, F2 and F3 at these shapes, each
     input read once and each output written once; a multiply-add counts
-    2, a sine, exponential, square root or division 1."""
+    2, a sine, exponential, square root or division 1. K2(d) under codec
+    ``codec`` (StateEncoding's value; the Cholesky codec's by default):
+    its state's size, and the moment match's covariance (FULL, CHOL),
+    variances (VAR, STD) or neither (IGNORE); the Cholesky factor's work
+    (CHOL's encode, FULL's decode) is the same one count in each."""
     n, nu, P = 4, 1, model.n_particles
-    nz = n + n * (n + 1) // 2
+    nz = {0: n + n * n, 1: n + n * (n + 1) // 2, 2: 2 * n, 3: 2 * n,
+          4: n}[codec]
     widths = [6, 200, 200, 8]
     weights = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
     masks = P * sum(widths[1:-1])
@@ -1451,8 +1476,11 @@ def bnn_work(model, B, N, A, G, itemsize):
                + sum(widths[1:]) + 2 * sum(widths[1:-1]))
     infer = P * (n + n * (n - 1) + n)
     moments = P * n * 2 + P * n * (n + 1) // 2 * 3 + 2 * (n**3 // 3 + 2 * n)
+    moments_codec = {0: moments, 1: moments,
+                     2: P * n * 2 + P * n * 3 + n, 3: P * n * 2 + P * n * 3 + n,
+                     4: P * n * 2}[codec]
     step = (2 * nz + 3 + infer + 2 * P * n * n + P * 6 * 2 + mlp
-            + P * n * 3 + moments)
+            + P * n * 3 + moments_codec)
     k2_bytes = (B * ((N + 1) * nz + 3 * N + N * nz) + A + weights + masks
                 + 20 + N * P * n + B * ((N + 1) * A * nz + N * A
                                         + N * A * P * n)) * itemsize
@@ -1644,8 +1672,33 @@ EXAMPLES = {
                    [-10.0, -10.0, 10.0, 10.0, 0.0, -5.0, 5.0, 0.0], 0.1, 40),
 }
 # K2(b)/(c) against control_law: f64 the same arithmetic apart from the
-# order of sums and fused multiply-adds; f32 over up to 200 steps.
+# order of sums and fused multiply-adds. float32, phase 1's rule for K1's
+# block kernel: each output of the kernel against the float64 plain
+# version on the same inputs within the larger of 1e-4 and twice the
+# float32 plain version's own distance there (over up to 200 steps the
+# float32 recursion itself strays ~1e-4 from float64: 3 of 192 seeds of
+# scripts/torch_k2c_seeds.py put the kernel 1.037e-4 off the float32
+# plain version while that version was 1.007e-4 off float64).
 K2BC_TOL = {"float64": 1e-12, "float32": 1e-4}
+# The float32 rule of phases 10 and 19 (f32_derived): the float32 plain
+# version's own distance to float64, and the kernel's distance to the
+# float32 plain version, must stay under F32_DERIVED_CAP (past it the
+# inputs, not the kernel, are at fault), so a derived tolerance cannot
+# widen past twice the cap. The largest own distance of either phase is
+# 19a's particle rendezvous step noise, 5.6e-3 on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md).
+F32_DERIVED_CAP = 1e-2
+
+
+def f32_derived(kernel_vs_f64, plain_vs_f64, kernel_vs_plain, floor):
+    """{"tol", "held"}: a float32 output held within the larger of
+    ``floor`` and twice the float32 plain version's own distance to the
+    float64 plain version on the same inputs (relative distances)."""
+    tol = max(floor, 2.0 * plain_vs_f64)
+    return {"tol": tol,
+            "held": (kernel_vs_f64 <= tol
+                     and plain_vs_f64 <= F32_DERIVED_CAP
+                     and kernel_vs_plain <= F32_DERIVED_CAP)}
 
 
 def example(name, dtype):
@@ -1723,8 +1776,11 @@ def phase10_k2bc():
     """K2 stages (b) and (c) against control_law on the card: every
     example under IGNORE_UNCERTAINTY (stage b; the cartpole's stage (a) is
     phase 2) and under VARIANCE_ONLY, the Cholesky codec and the full
-    covariance (stage c), with and without bounds, at B, N = (1, 12), (64,
-    the golden horizon) and BATCHES, f64 and f32."""
+    covariance (stage c), with and without bounds, at B, N = (1, 12) and
+    BATCHES, f64 and f32. Each case's inputs are
+    made once in float64 and rounded to float32's values, so that both
+    types run on the same inputs and the float64 plain version is the
+    reference of the float32 check (K2BC_TOL)."""
     import torch
     from pddp_tpu_torch.controllers.ilqr import control_law, default_fit_alphas
     from pddp_tpu_torch.encoding import StateEncoding
@@ -1734,29 +1790,30 @@ def phase10_k2bc():
               StateEncoding.UPPER_TRIANGULAR_CHOLESKY,
               StateEncoding.FULL_COVARIANCE_MATRIX)
     rows = []
-    batch_inputs = {}  # BATCHES' float64 inputs, cast for the f32 turn
+    group = 0
     for name in ("pendulum", "double_cartpole", "rendezvous", "cartpole"):
         for enc in codecs:
             if name == "cartpole" and enc == codecs[0]:
                 continue
-            for dtype in (torch.float64, torch.float32):
-                dname = str(dtype).replace("torch.", "")
-                alphas = default_fit_alphas(dtype, "cuda")
-                for B, N, bounded in ((1, 12, True),
-                                      (64, EXAMPLES[name][5], False),
-                                      (1, 1, False), (3, 37, True),
-                                      (64, 200, False)):
-                    rng = np.random.default_rng(len(rows))
-                    shared = batch_inputs.get((name, enc, B, N))
-                    if shared is not None:
-                        model, cost, _ = example(name, dtype)
-                        ins = tuple(a.to(dtype) for a in shared)
-                    else:
-                        model, cost, ins = k2bc_inputs(
-                            rng, name, enc, B, N, dtype,
-                            first_reg=0.1 if (B, N) in BATCHES else 10.0)
-                        if (B, N) in BATCHES:
-                            batch_inputs[(name, enc, B, N)] = ins
+            # (seed offset, (B, N, bounded)): the offset is the case's
+            # place before the full batch at the golden horizon (64, 40-60)
+            # went for phase 19's time (BATCHES' (64, 100) is the full
+            # batch), so each case keeps the seed its float64 row had.
+            for j, (B, N, bounded) in ((0, (1, 12, True)),
+                                       (2, BATCHES[0] + (False,)),
+                                       (3, BATCHES[1] + (True,)),
+                                       (4, BATCHES[2] + (False,))):
+                rng = np.random.default_rng(10 * group + j)
+                _, _, ins64 = k2bc_inputs(
+                    rng, name, enc, B, N, torch.float64,
+                    first_reg=0.1 if (B, N) in BATCHES else 10.0)
+                ins64 = tuple(a.float().double() for a in ins64)
+                ref = None
+                for dtype in (torch.float64, torch.float32):
+                    dname = str(dtype).replace("torch.", "")
+                    alphas = default_fit_alphas(dtype, "cuda")
+                    model, cost, _ = example(name, dtype)
+                    ins = tuple(a.to(dtype) for a in ins64)
                     nu = model.action_size
                     b = ((torch.full((nu,), -0.12, dtype=dtype,
                                      device="cuda"),
@@ -1776,7 +1833,6 @@ def phase10_k2bc():
                            "dtype": dname, "B": B, "N": N,
                            "bounds": bounded,
                            "launched": fr.launches[st] - before,
-                           "tol": K2BC_TOL[dname],
                            "finite": all(bool(torch.isfinite(p).all())
                                          for p in plain)}
                     if bounded:
@@ -1785,14 +1841,39 @@ def phase10_k2bc():
                             .mean())
                     for key, a, p in zip("ZUJ", kern, plain):
                         row[key + "_abs"], row[key + "_rel"] = rel_err(a, p)
+                    if ref is None:
+                        ref = plain
+                        row["tol"] = K2BC_TOL[dname]
+                        row["held"] = all(row[key + "_rel"] <= row["tol"]
+                                          for key in "ZUJ")
+                    else:
+                        row["kernel_vs_plain_float32_rel"] = max(
+                            row[key + "_rel"] for key in "ZUJ")
+                        row["plain_float32_rel"] = max(
+                            rel_err(p.double(), r)[1]
+                            for p, r in zip(plain, ref))
+                        row["kernel_vs_float64_rel"] = max(
+                            rel_err(a.double(), r)[1]
+                            for a, r in zip(kern, ref))
+                        row.update(f32_derived(
+                            row["kernel_vs_float64_rel"],
+                            row["plain_float32_rel"],
+                            row["kernel_vs_plain_float32_rel"],
+                            K2BC_TOL[dname]))
                     rows.append(row)
+            group += 1
+    f32 = [r for r in rows if r["dtype"] == "float32"]
     emit({"phase": 10, "kernel": "K2(b) K2(c)", "cases": rows,
+          "float32_plain_rel_max": max(r["plain_float32_rel"] for r in f32),
+          "float32_kernel_vs_float64_rel_max": max(
+              r["kernel_vs_float64_rel"] for r in f32),
+          "float32_tol_max": max(r["tol"] for r in f32),
           "seconds": time.perf_counter() - t0})
     for row in rows:
         check(row["finite"] and row["launched"] == 1,
               "K2(b)/(c) case did not launch or went non-finite: {}".format(
                   row))
-        check(all(row[key + "_rel"] <= row["tol"] for key in "ZUJ"),
+        check(row["held"],
               "K2(b)/(c) disagrees with its plain version: {}".format(row))
         check(not row["bounds"] or row["at_bound_share"] > 0,
               "the bounds did not bind: {}".format(row))
@@ -1972,9 +2053,11 @@ def example_path(card, label, ex, codec):
     Z_n, U_n = derivs[0], r_main.U
     reg = max(r_main.mu, 1e-6)
     for _ in range(64):
-        k_p, K_p, ok_p = backward(*derivs, reg=reg)
+        (k_p, K_p, ok_p), k1_plain_ms = timed_call(
+            lambda: backward(*derivs, reg=reg))
         if bool(ok_p):
-            plain2 = line_search(False, Z_n, U_n, k_p, K_p)
+            plain2, k2_plain_ms = timed_call(
+                lambda: line_search(False, Z_n, U_n, k_p, K_p))
             if all(bool(torch.isfinite(x).all()) for x in plain2):
                 break
         reg *= 2.0
@@ -2011,16 +2094,16 @@ def example_path(card, label, ex, codec):
           "{}: K2 disagrees with plain at the path's inputs: {} J {}"
           .format(label, k2_rel, J_rel))
 
-    n_rep = 2 if nu > 1 else 5
+    # The plain versions (0.1-3.3 s a call, host-bound): the one call of
+    # each in the checks above, timed there (repeats cut for phase 19's
+    # time).
     t = {"K1_ms": events_ms(raw_k1(derivs, reg), 200),
-         "K1_plain_ms": events_ms(lambda: backward(*derivs, reg=reg),
-                                  n_rep, warmup=1),
+         "K1_plain_ms": k1_plain_ms,
          "K2_ms": events_ms(raw_k2(model, cost, Z_n, U_n, k_p, K_p, alphas,
                                    enc), 200),
          "K2_wrapper_ms": events_ms(lambda: line_search(
              True, Z_n, U_n, k_p, K_p), 50),
-         "K2_plain_ms": events_ms(lambda: line_search(
-             False, Z_n, U_n, k_p, K_p), 5, warmup=1)}
+         "K2_plain_ms": k2_plain_ms}
     n, nz = model.state_size, Z_n.shape[-1]
     sweeps = k1_sweeps(derivs, reg)
     b1, f1 = k1_work(1, H, nz, nu, 4, sweeps=5 if sweeps is None else sweeps)
@@ -2037,8 +2120,9 @@ def example_path(card, label, ex, codec):
         turns["kernels" if kernels else "plain"].append(events_ms(
             lambda: iteration(kernels), 10 if kernels else 1,
             warmup=2 if kernels else 0))
-    # A belief-state solve takes seconds: one timed run, the first.
-    solves = [ms_first] + ([full_solve()[0]] if ign else [])
+    # One timed run of the solve, the first (a second one, where the
+    # state ignores uncertainty, cut for phase 19's time).
+    solves = [ms_first]
     profile = device_profile(lambda: iteration(True))
     res = {"phase": 12, "path": label, "card": card, "dtype": "float32",
            "H": H, "A": A, "codec": codec, "nz": nz, "nu": nu,
@@ -2145,7 +2229,9 @@ def phase13_kernel_times(card, path_inputs, bnn_k1):
         rows.append({"kernel": "K2(d)", "path": "bnn", "B": B, "N": N,
                      "nz": nz, "ms": ms, "bound_ms": bound, "bound_by": by,
                      "roofline_ms": roof, "chain_floor_ms": chain,
-                     "plan": fb.launch_plan(model, B * A, torch.float32)})
+                     "plan": fb.launch_plan(
+                         model, B * A, torch.float32,
+                         StateEncoding.UPPER_TRIANGULAR_CHOLESKY)})
     for label, p in path_inputs.items():
         rows += [k1_row(label, p["derivs"], p["reg"], B) for B in (1, 64)]
         model, enc = p["model"], p["enc"]
@@ -2450,10 +2536,10 @@ def phase14_entry_point(card, cpu_runs):
 # action bound of the cartpole, training recipe.
 PDDP_DT, PDDP_HIDDEN, PDDP_P, PDDP_UMAX = 0.1, [200, 200], 100, 10.0
 PDDP_TRAINING = {"n_iter": 500, "learning_rate": 1e-3}
-# 15a and 15b run the MPC trial's first 7 ticks of 2N (a tick takes
+# 15a and 15b run the MPC trial's first 4 ticks of 2N (a tick takes
 # ~0.7 s in 15a's float64 and ~1.2 s in 15b's float32, host-bound; 15a's
-# seventh takes 10 evaluations).
-PDDP_MPC_TICKS = 7
+# seventh took 10 evaluations when they ran 7, cut for phase 19's time).
+PDDP_MPC_TICKS = 4
 # 15a: one trial on the card and on the CPU, float64, the same numpy-made
 # draws; held within 1e-8 (max |card - CPU| / max |CPU| of each array):
 # both do the same arithmetic in another order of sums, through 20
@@ -2608,9 +2694,10 @@ def pddp_walls(rec, training):
 
 def phase15a_card_vs_cpu(card):
     """One PDDP trial at full width (the cartpole BNN 6-200-200-8, P=100,
-    Cholesky codec, N=10, the MPC trial cut to its first 7 ticks) on the
-    card and on the CPU in float64 with the same numpy-made draws: every
-    dataset, trained model, iLQR fit and the MPC trial's cost alike."""
+    Cholesky codec, N=10, the MPC trial cut to its first PDDP_MPC_TICKS
+    ticks) on the card and on the CPU in float64 with the same numpy-made
+    draws: every dataset, trained model, iLQR fit and the MPC trial's cost
+    alike."""
     import torch
     from pddp_tpu_torch.controllers import PDDPController
     from pddp_tpu_torch.encoding import StateEncoding
@@ -2757,9 +2844,9 @@ def phase15b_experiment(card):
     """examples/experiment.py's cartpole trial in float32 on the card
     (N=25, dt=0.1, 6-200-200-8, P=100, 500 AMSGrad steps at lr 1e-3,
     actions in +-10, U0 uniform in the bounds; cut to one trial and 10
-    iterations a fit, and the MPC trial to its first 7 ticks), timed part
-    by part, a profile of one MPC tick and one training step, then K1 and
-    K2(d) on the model it trained."""
+    iterations a fit, and the MPC trial to its first PDDP_MPC_TICKS
+    ticks), timed part by part, a profile of one MPC tick and one training
+    step, then K1 and K2(d) on the model it trained."""
     import torch
     from pddp_tpu_torch.controllers import PDDPController
     from pddp_tpu_torch.encoding import StateEncoding
@@ -2950,15 +3037,16 @@ BATCHED_CPU_LANES = 8
 # bench.py:375-430: the BNN of phase 8 at B=1024 in chunks of 256, N=25.
 BNN_BATCH = {"B": 1024, "chunk": 256, "N": 25}
 # bench.py's BNN rows: (name, trained weights, the net's precision option,
-# solves). The untrained and bf16 rows run one chunk of the batch (its
-# first 256 lanes), and carry that batch in their names, so that the run
-# fits its time; bench.py runs them at B=1024.
+# solves). The untrained and bf16 rows run the batch's first 128 lanes as
+# one chunk (256 until phase 19 needed the time), and carry that batch in
+# their names, so that the run fits its time; bench.py runs them at
+# B=1024.
 BNN_BATCH_ROWS = (
     ("pddp_bnn_solves_per_sec_b1024_trained", True, None, 1024),
-    ("pddp_bnn_solves_per_sec_b256_h25_p100_5iter", False, None, 256),
-    ("pddp_bnn_solves_per_sec_b256_bf16_mlp", False, "compute_dtype", 256),
-    ("pddp_bnn_solves_per_sec_b256_bf16_matmul", False, "matmul_dtype",
-     256))
+    ("pddp_bnn_solves_per_sec_b128_h25_p100_5iter", False, None, 128),
+    ("pddp_bnn_solves_per_sec_b128_bf16_mlp", False, "compute_dtype", 128),
+    ("pddp_bnn_solves_per_sec_b128_bf16_matmul", False, "matmul_dtype",
+     128))
 # Lane-by-lane limits: float64 J relative (16a 1e-10; the BNN against the
 # CPU 1e-8, its local model summing over 100 particles and 200 widths in
 # another order), and the bf16 rows' J against float32 (pddp_tpu's
@@ -3103,7 +3191,8 @@ def cpu_references():
     is idle: phase 14's ``entry_point`` through the plain versions at every
     configuration of ENTRY_CASES, the unbatched ``solve`` of
     BATCHED_CPU_LANES lanes of 16a's batch, 16b's four BNN lanes (in
-    chunks of two, 3 iterations) and 17a's particle solves."""
+    chunks of two, 3 iterations), 17a's particle solves and 19c's
+    constrained solves."""
     import torch
     entry = {label: entry_point(ex, codec, "cpu", torch.float64, "scan",
                                 False) for label, ex, codec in ENTRY_CASES}
@@ -3126,7 +3215,8 @@ def cpu_references():
         ILQROptions(n_iterations=3, max_evals=BATCHED_OPTS["max_evals"]),
         encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY, chunk=2)
     return {"entry": entry, "cartpole": cartpole, "bnn": bnn,
-            "particles": particle_cpu_solves()}
+            "particles": particle_cpu_solves(),
+            "constrained": constrained_cpu_solves()}
 
 
 def phase16a_cartpole(card, cpu):
@@ -3318,7 +3408,8 @@ def phase16b_bnn(card, cpu):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         runs[name], wall = _timed(lambda: batched_solve(
-            model, cost, z0s[:Bn], U0s[:Bn], opts, encoding=ch, chunk=C))
+            model, cost, z0s[:Bn], U0s[:Bn], opts, encoding=ch,
+            chunk=min(C, Bn)))
         row = {"B": Bn, "wall_s": wall, name: Bn / wall,
                **_lane_ends(runs[name]),
                "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
@@ -3505,9 +3596,12 @@ def particle_problem(label, device, dtype):
 
 def particle_cpu_solves():
     """17a's float64 solves on the CPU through the plain versions (for
-    ``cpu_references``)."""
+    ``cpu_references``), and under "f32_cartpole_chol" the float32 local
+    model of the cartpole's Cholesky row on the CPU with the plain
+    backward's ok at each reg of PARTICLE_K1_REGS (``particle_f32_report``)."""
     import torch
-    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, backward,
+                                                 local_model, rollout, solve)
     from pddp_tpu_torch.encoding import StateEncoding
     out = {}
     for label, _, codec, _ in PARTICLE_ROWS[:PARTICLE_17A]:
@@ -3515,7 +3609,58 @@ def particle_cpu_solves():
         out[label] = solve(model, cost, z0, U0,
                            ILQROptions(**PARTICLE_OPTS),
                            encoding=StateEncoding[codec])
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    model, cost, z0, U0 = particle_problem("cartpole_chol", "cpu",
+                                           torch.float32)
+    Z, AUX = rollout(model, z0, U0, ch)
+    derivs = local_model(Z, U0, AUX, model, cost, ch)
+    out["f32_cartpole_chol"] = {
+        "derivs": derivs,
+        "ok": [bool(backward(*derivs, reg=reg)[2])
+               for reg in PARTICLE_K1_REGS]}
     return out
+
+
+# pddp_tpu's float32 particle cartpole under the Cholesky codec at phase
+# 17's size and seeds (tests/golden/particle_f32.py).
+PARTICLE_F32 = os.path.join(ROOT, "tests", "golden", "particle_f32.npz")
+LOCAL_NAMES = ("Z", "F_z", "F_u", "L", "L_z", "L_u", "L_zz", "L_uz", "L_uu")
+
+
+def particle_f32_report(Z, derivs, r, cpu):
+    """Where the float32 Cholesky particle row parts from pddp_tpu
+    (ROADMAP C): the plain backward's ok at each reg of PARTICLE_K1_REGS
+    on the card, on the CPU (``cpu``) and in pddp_tpu's stored run; the
+    card's rollout of U0 against pddp_tpu's; each array of the card's
+    local model against the CPU's (largest difference over largest
+    value, whether it is finite, and the steps where the card's is not);
+    the solve's ends on the card and in pddp_tpu. Reported, not held."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import backward
+    with np.load(PARTICLE_F32) as npz:
+        ref = dict(npz)
+    local = {}
+    for name, a, b in zip(LOCAL_NAMES, derivs, cpu["derivs"]):
+        a = a.detach().cpu()
+        fin = torch.isfinite(a).reshape(a.shape[0], -1).all(dim=-1)
+        local[name] = {"rel": rel_err(a.double(), b.double())[1],
+                       "finite_card": bool(fin.all()),
+                       "finite_cpu": bool(torch.isfinite(b).all()),
+                       "nonfinite_steps_card": (~fin).nonzero().flatten()
+                       .tolist()}
+    return {"ok_per_reg": {
+                "card": [bool(backward(*derivs, reg=reg)[2])
+                         for reg in PARTICLE_K1_REGS],
+                "cpu": cpu["ok"],
+                "pddp_tpu": [bool(v) for v in ref["ok"]]},
+            "Z_vs_pddp_tpu": rel_err(Z.cpu().double(),
+                                     torch.as_tensor(ref["Z"]).double()),
+            "local_model_card_vs_cpu": local,
+            "solve": {"card": _ends(r),
+                      "pddp_tpu": {"state": int(ref["solve_state"]),
+                                   "iterations": int(ref["solve_iterations"]),
+                                   "evals": int(ref["solve_evals"]),
+                                   "J": float(ref["solve_J"])}}}
 
 
 def particle_k1_check(derivs):
@@ -3619,6 +3764,7 @@ def phase17_particles(card, cpu):
                                                  rollout, solve)
     from pddp_tpu_torch.encoding import StateEncoding
     from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
     from pddp_tpu_torch.ops import fused_rollout as fr
     from pddp_tpu_torch.utils.profiling import PhaseTimer
     failed = []
@@ -3628,6 +3774,7 @@ def phase17_particles(card, cpu):
             failed.append(what)
     t_start = time.perf_counter()
     timer = PhaseTimer()
+    local_models = {}  # phase 19's line searches start from these
     opts = {mode: ILQROptions(**PARTICLE_OPTS, riccati_mode=mode,
                               fused_rollout=True)
             for mode in ("kernel", "scan")}
@@ -3638,12 +3785,18 @@ def phase17_particles(card, cpu):
         with timer(label + " local model"):
             Z, AUX = rollout(model, z0, U0, enc)
             derivs = local_model(Z, U0, AUX, model, cost, enc)
+        local_models[label] = {"float32": derivs}
         bk.launches = bk.block_launches = 0
         reset_counts(fr.launches)
+        reset_counts(fpr.launches)
         with timer(label + " solve, K1"):
             r = solve(model, cost, z0, U0, opts["kernel"], encoding=enc)
         counts = {"K1_warp": bk.launches, "K1_block": bk.block_launches,
-                  "K2": sum(fr.launches.values())}
+                  "K2": sum(fr.launches.values()) + fpr.launches["rollout"]}
+        if label == "cartpole_chol":
+            with timer(label + " against pddp_tpu's float32"):
+                f32_report = particle_f32_report(Z, derivs, r,
+                                                 cpu["f32_cartpole_chol"])
         with timer(label + " K1 check and times"):
             checks = {"float32": particle_k1_check(derivs)}
             k1 = particle_k1_times(derivs, checks["float32"]["reg"],
@@ -3677,8 +3830,10 @@ def phase17_particles(card, cpu):
                                                    torch.float64)
             with timer(label + " float64 K1 check"):
                 Z, AUX = rollout(model, z0, U0, enc)
+                local_models[label]["float64"] = local_model(
+                    Z, U0, AUX, model, cost, enc)
                 checks["float64"] = particle_k1_check(
-                    local_model(Z, U0, AUX, model, cost, enc))
+                    local_models[label]["float64"])
             bk.launches = bk.block_launches = 0
             with timer(label + " float64 solve, K1"):
                 r64 = solve(model, cost, z0, U0, opts["kernel"],
@@ -3712,9 +3867,11 @@ def phase17_particles(card, cpu):
               "card": card, **row})
     res = {"phase": 17, "rows": rows, "options": PARTICLE_OPTS,
            "timer_ms": {k: 1e3 * v for k, v in timer.totals.items()},
-           "seconds": time.perf_counter() - t_start}
+           "seconds": time.perf_counter() - t_start,
+           "local_models": local_models}
     emit({"phase": 17, "seconds": res["seconds"],
-          "timer_ms": res["timer_ms"]})
+          "timer_ms": res["timer_ms"],
+          "float32_cholesky_vs_pddp_tpu": f32_report})
     check(not failed, "; ".join(failed))
     return res
 
@@ -4140,8 +4297,680 @@ def phase18_multi_gpu(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the rest of K2's gate: K2(e), K2(d) under four more codecs and
+# K2(a)-(c) on constrain_model's examples
+# ---------------------------------------------------------------------------
+
+# K2(e), K2(d) and the constrained K2(a)-(c) in float64 against their
+# plain versions, max|kernel - plain| / max|plain| of each output:
+# pddp_tpu's own tolerances for its kernel against the scan
+# (tests/ops/test_fused_rollout.py:155-158), Z, U and AUX 1e-10, J 1e-8.
+REST_TOL = {"Z": 1e-10, "U": 1e-10, "AUX": 1e-10, "J": 1e-8}
+# float32, phase 1's rule for K1's block kernel (f32_derived): each output
+# of the kernel against the float64 plain version on the same inputs (the
+# float32 model and inputs cast up) within the larger of REST_F32_FLOOR and
+# twice the float32 plain version's own distance there.
+REST_F32_FLOOR = 1e-5
+# 19b: phase 8's trained BNN under the codecs beside its Cholesky one.
+BNN_REST_CODECS = ("VARIANCE_ONLY", "STANDARD_DEVIATION_ONLY",
+                   "FULL_COVARIANCE_MATRIX", "IGNORE_UNCERTAINTY")
+# 19c: constrain_model(-PDDP_UMAX, PDDP_UMAX) of these examples (label,
+# example, codec, K2's stage), solved from U0 = 0.1 at H=200 as phase 12's
+# paths are, through K1 and K2; float64 against the CPU's plain solve.
+CONSTRAINED_PATHS = (
+    ("constrained_cartpole", "cartpole", "IGNORE_UNCERTAINTY", "a"),
+    ("constrained_double_cartpole", "double_cartpole", "IGNORE_UNCERTAINTY",
+     "b"),
+    ("constrained_pendulum_chol", "pendulum", "UPPER_TRIANGULAR_CHOLESKY",
+     "c"))
+CONSTRAINED_H = 200
+CONSTRAINED_OPTS = {"n_iterations": 10}
+CONSTRAINED_J_RTOL = 1e-10
+# The constrained double cartpole's float64 solve at H=200 is not a
+# function of its inputs to rounding: on the CPU through the plain
+# versions a change of 1e-15 in its start moves J by 9e-10 after one
+# iteration, and its end from ACCEPTED after 10 iterations to MAX_REG
+# after 5 (scripts/torch_constrained_branch.py; ROADMAP C). Its ends at
+# H=200 are reported, and a second run of that solve on the card is held
+# to the first's bits; its ends are held against the CPU's at these
+# settings instead, phase 11's golden horizon, where the same changes of
+# the start move J by 1.6e-15 at most.
+CONSTRAINED_SHORT = {"constrained_double_cartpole": {"H": 25,
+                                                     "n_iterations": 25}}
+# Operations of one mean step of each example (as MODEL_OPS) on the
+# latency chain from its state and action to the next state, in LATENCY's
+# units: the sines and cosines, dependent FMAs and divisions.
+MODEL_CHAIN = {"cartpole": ("sincos", 6, 1), "pendulum": ("sincos", 4, 1),
+               "double_cartpole": ("sincos", 12, 1),
+               "rendezvous": (None, 4, 1)}
+
+
+def cast_tree(obj, dtype):
+    """A copy of a port model or cost with every floating tensor cast to
+    ``dtype``: the float32 model's own values, for a float64 reference on
+    the same inputs."""
+    import copy
+    import enum
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dtype) if obj.is_floating_point() else obj
+    if isinstance(obj, list):
+        return [cast_tree(o, dtype) for o in obj]
+    if isinstance(obj, tuple) and not hasattr(obj, "_fields"):
+        return tuple(cast_tree(o, dtype) for o in obj)
+    if isinstance(obj, dict):
+        return {k: cast_tree(v, dtype) for k, v in obj.items()}
+    if (isinstance(obj, (enum.Enum, type)) or not hasattr(obj, "__dict__")
+            or not type(obj).__module__.startswith("pddp_tpu_torch")):
+        return obj
+    new = copy.copy(obj)
+    for k, v in vars(obj).items():
+        setattr(new, k, cast_tree(v, dtype))
+    return new
+
+
+def k2e_work(name, codec, B, N, A, P, itemsize, bounded=False):
+    """(bytes, operations) of one K2(e) call over example ``name`` under
+    codec ``codec`` (StateEncoding's value): each input read once (the
+    noise table's N steps), each output written once (AUX the most); per
+    candidate and step the feedback law, per particle the noise solve
+    (n(n-1)/2 multiply-adds and n divisions), X = mean + eps Uc, the
+    model's step and the moment match's sums, then the divisions by P and
+    one Cholesky factorization under the matrix codecs (CHOL's encode,
+    FULL's decode; the ladder's first rung, where these inputs factor) or
+    n square roots under VAR and STD."""
+    n, nu, _ = SIZES[name]
+    nz = {0: n + n * n, 1: n + n * (n + 1) // 2, 2: 2 * n, 3: 2 * n,
+          4: n}[codec]
+    matrix = codec in (0, 1)
+    n_in = (B * ((N + 1) * nz + 2 * N * nu + N * nu * nz) + A + 8 + 2 * nu
+            + N * P * n + (2 * nu if bounded else 0))
+    n_out = B * ((N + 1) * A * nz + N * A * nu + N * A * P * n)
+    second = (0 if codec == 4 else
+              n + 2 * (n * (n + 1) // 2) if matrix else 3 * n)
+    particle = (n * (n - 1) + n) + (2 * n * n + n) + MODEL_OPS[name] + n
+    belief = ((2 * n**3 // 3 + n + n * (n - 1) // 2) if matrix
+              else n if codec in (2, 3) else 0)
+    step = (2 * nz + 3 + (2 if bounded else 0) + P * (particle + second)
+            + 2 * n + belief)
+    return (n_in + n_out) * itemsize, B * A * N * step
+
+
+def k2e_chain_cycles(name, codec, nz, P, dtype_name, constrained=False):
+    """Cycles of one K2(e) step's critical path, counted by hand from
+    csrc/fused_particle_rollout.cu at LATENCY's latencies: the feedback
+    law z -> u (nz FMAs, two adds; constrain_model's tanh and two FMAs),
+    beside it the noise solve (n chained subtract-and-divides) and X (n
+    FMAs); the example's step (MODEL_CHAIN); the sums over P of the mean
+    and then the second moments, as trees (the least depth of any order),
+    each with its division; under the matrix codecs one n x n Cholesky (n
+    square roots and divisions behind 2n FMAs), under VAR and STD a square
+    root. Block barriers are the design's, not the function's: left
+    out."""
+    lat = LATENCY[dtype_name]
+    fma, div = lat["fma"], lat["div"]
+    n = SIZES[name][0]
+    u = (nz + 3) * fma + ((lat["sincos"] + 2 * fma) if constrained else 0)
+    noise = n * (fma + div) + n * fma
+    sc, fmas, divs = MODEL_CHAIN[name]
+    model = (lat[sc] if sc else 0) + fmas * fma + divs * div
+    depth = int(np.ceil(np.log2(P)))
+    moments = (depth + 1) * fma + div
+    if codec != 4:
+        moments += (depth + 2) * fma + div
+    belief = (n * (lat["sqrt"] + div) + 2 * n * fma if codec in (0, 1)
+              else lat["sqrt"] if codec in (2, 3) else 0)
+    return max(u, noise) + model + moments + belief
+
+
+def raw_k2e(model, Z, U, k, K, alphas, enc):
+    """A closure launching K2(e) alone on preallocated outputs."""
+    import torch
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.ops._examples import (MODELS, example_of,
+                                              param_buffer)
+    if Z.dim() == 2:
+        Z, U, k, K = (t[None] for t in (Z, U, k, K))
+    B, N, A = U.shape[0], U.shape[1], alphas.shape[0]
+    nz, nu, n, P = Z.shape[-1], U.shape[-1], model.state_size, \
+        model.n_particles
+    dtype = Z.dtype
+    base, constrained = example_of(model.inner)
+    params = param_buffer(model.inner, None, dtype, "cuda")
+    eps = model.eps.to(dtype).contiguous()
+    outs = [torch.empty(s, dtype=dtype, device="cuda")
+            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, N, A, P, n))]
+    fn = fpr._function(dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = ([t.data_ptr() for t in (Z, U, k, K, alphas, params, eps)]
+            + [None] + [o.data_ptr() for o in outs]
+            + [B, N, A, P, MODELS[base], int(enc), int(constrained),
+               int(bool(model.infer_noise_variables)), stream])
+
+    def launch():
+        check(fn(*ptrs) == 0, "K2(e) launch")
+    return launch
+
+
+def batch_of(rng, Z, U, k, K, B):
+    """B solves of one: Z and U repeated, the gains perturbed by 1 %."""
+    import torch
+
+    def noise(t):
+        return (t * torch.as_tensor(
+            1.0 + 0.01 * rng.standard_normal((B,) + tuple(t.shape)),
+            dtype=t.dtype, device=t.device)).contiguous()
+    return (Z.expand((B,) + Z.shape).contiguous(),
+            U.expand((B,) + U.shape).contiguous(), noise(k), noise(K))
+
+
+def rest_errors(kern, plain):
+    """{output: (max abs, max abs / max |plain|)} of Z, U, J and AUX (the
+    examples' AUX is ())."""
+    return {key: rel_err(a, p) for key, a, p in zip(
+        ("Z", "U", "J", "AUX"), kern, plain) if not isinstance(a, tuple)}
+
+
+def rest_f32(kern, plain, ref):
+    """The float32 check (REST_F32_FLOOR): each output's distance to the
+    float64 plain version ``ref`` on the same inputs, the float32 plain
+    version's own, the tolerance derived from it, and the kernel's
+    distance to the float32 plain version (reported)."""
+    import torch
+    out = {}
+    for key, a, p, r in zip(("Z", "U", "J", "AUX"), kern, plain, ref):
+        if isinstance(a, tuple):
+            continue
+        rel_k = rel_err(a.double(), r)[1]
+        rel_p = rel_err(p.double(), r)[1]
+        rel_kp = rel_err(a, p)[1]
+        out[key] = {"kernel_vs_f64": rel_k, "plain_f32_vs_f64": rel_p,
+                    "kernel_vs_plain_f32": rel_kp,
+                    **f32_derived(rel_k, rel_p, rel_kp, REST_F32_FLOOR),
+                    "finite": bool(torch.isfinite(a).all())}
+        out[key]["held"] = out[key]["held"] and out[key]["finite"]
+    return out
+
+
+def rest_f64_held(errs):
+    return all(errs[key][1] <= REST_TOL[key] for key in errs)
+
+
+def line_search_with_argmin(model, cost, Z, U, k, K, alphas, enc):
+    """fused_control_law with the cost as a post-pass (the stateful
+    stages') and the finite argmin of J, as an iteration takes it."""
+    import torch
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    out = fr.fused_control_law(model, Z, U, k, K, alphas, enc, cost=cost,
+                               with_aux=True)
+    J = out[2]
+    best = int(torch.argmin(torch.where(torch.isfinite(J), J, torch.inf)))
+    return out, best
+
+
+def k1_first_finite(derivs, regs):
+    """K1's gains at the first reg of ``regs`` at which they are finite,
+    or (None, None, None)."""
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    for reg in regs:
+        k, K, ok = bk.kernel_backward(*derivs, reg=reg)
+        if bool(ok):
+            return k, K, reg
+    return None, None, None
+
+
+def timed_call(fn):
+    """(fn's result, its device time in ms by CUDA events), one call."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def reset_all_counts():
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    bk.launches = bk.block_launches = 0
+    for counts in (fr.launches, fb.launches, fpr.launches):
+        reset_counts(counts)
+
+
+def read_counts():
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    return {"K1": bk.launches + bk.block_launches,
+            **{"K2(" + k + ")": v for k, v in fr.launches.items()},
+            "K2(d)": fb.launches["rollout"],
+            "K2(e)": fpr.launches["rollout"]}
+
+
+def rest_row_times(raw1, raw64, work1, work64, cycles, N, dtype_name):
+    """The kernel alone at B=1 and B=64 (CUDA events) beside its bound."""
+    b1, by1, roof1, chain1 = chain_bound_ms(*work1, dtype_name, cycles, N)
+    b64, by64, roof64, chain64 = chain_bound_ms(*work64, dtype_name, cycles,
+                                                N)
+    return {"ms": events_ms(raw1, 20), "ms_B64": events_ms(raw64, 5),
+            "bound_ms": b1, "bound_by": by1, "roofline_ms": roof1,
+            "chain_floor_ms": chain1, "bound_ms_B64": b64,
+            "bound_by_B64": by64}
+
+
+def phase19a_particles(card, local_models):
+    """19a: one iteration of each phase-17 row (PARTICLE_ROWS, P=100,
+    N=50) through K1 and K2(e): the local model of U0 (phase 17's), K1 at
+    the first reg of PARTICLE_K1_REGS that gives finite gains (a float32
+    row whose gains are finite at no reg takes its float64 row's, cast:
+    ROADMAP C), and ``fused_control_law`` with the cost as a post-pass and
+    the argmin; in float64 and float32, each against the plain
+    ``control_law`` (REST_TOL; float32 rest_f32), and K2(e) alone at B=1
+    and B=64."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout)
+    from pddp_tpu_torch.encoding import StateEncoding
+    f32, f64 = torch.float32, torch.float64
+    rows, failed = [], []
+    rng = np.random.default_rng(19)
+    for label, ex, codec, constrained in PARTICLE_ROWS:
+        enc = StateEncoding[codec]
+        m64, c64, z064, U064 = particle_problem(label, "cuda", f64)
+        d64 = local_models[label].get("float64")
+        if d64 is None:   # 17b's row ran in float32 alone
+            Z, AUX = rollout(m64, z064, U064, enc)
+            d64 = local_model(Z, U064, AUX, m64, c64, enc)
+        m32, c32, _, U0 = particle_problem(label, "cuda", f32)
+        d32 = local_models[label]["float32"]
+        row = {"path": label, "example": ex, "codec": codec,
+               "constrained": constrained, "P": m32.n_particles,
+               "N": U0.shape[0], "nz": d32[0].shape[-1]}
+        # float64: the iteration, held against the plain version.
+        reset_all_counts()
+        k64, K64, reg64 = k1_first_finite(d64, PARTICLE_K1_REGS)
+        if k64 is None:
+            failed.append("{}: K1's float64 gains finite at no reg".format(
+                label))
+            continue
+        a64 = default_fit_alphas(f64, "cuda")
+        out64, best64 = line_search_with_argmin(m64, c64, d64[0], U064, k64,
+                                                K64, a64, enc)
+        torch.cuda.synchronize()
+        row["float64"] = {"reg": reg64, "launches": read_counts(),
+                          "best": best64}
+        plain64 = control_law(m64, d64[0], U064, k64, K64, a64, enc,
+                              cost=c64, with_aux=True)
+        errs = rest_errors(out64, plain64)
+        row["float64"]["errors"] = errs
+        row["float64"]["held"] = rest_f64_held(errs)
+        row["max_abs_err"] = max(e[0] for e in errs.values())
+        # float32: the iteration, held by the derived tolerance.
+        reset_all_counts()
+        k32, K32, reg32 = k1_first_finite(d32, PARTICLE_K1_REGS)
+        gains = "float32"
+        if k32 is None:
+            k32, K32, gains = k64.float(), K64.float(), "float64, cast"
+        a32 = default_fit_alphas(f32, "cuda")
+        out32, best32 = line_search_with_argmin(m32, c32, d32[0], U0, k32,
+                                                K32, a32, enc)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        plain32, plain_ms = timed_call(lambda: control_law(
+            m32, d32[0], U0, k32, K32, a32, enc, cost=c32, with_aux=True))
+        ref = control_law(cast_tree(m32, f64), d32[0].double(), U0.double(),
+                          k32.double(), K32.double(), a32.double(), enc,
+                          cost=cast_tree(c32, f64), with_aux=True)
+        hold = rest_f32(out32, plain32, ref)
+        row["float32"] = {"reg": reg32, "gains": gains, "launches": counts,
+                          "best": best32, "best_plain": int(torch.argmin(
+                              torch.where(torch.isfinite(plain32[2]),
+                                          plain32[2], torch.inf))),
+                          "check": hold}
+        row["launches"] = counts["K2(e)"]
+        row["plain_ms"] = plain_ms
+        # K2(e) alone, float32.
+        raw1 = raw_k2e(m32, d32[0], U0, k32, K32, a32, enc)
+        raw64 = raw_k2e(m32, *batch_of(rng, d32[0], U0, k32, K32, 64), a32,
+                        enc)
+        cyc = k2e_chain_cycles(ex, int(enc), row["nz"], m32.n_particles,
+                               "float32", constrained)
+        row.update(rest_row_times(
+            raw1, raw64,
+            k2e_work(ex, int(enc), 1, row["N"], 10, m32.n_particles, 4),
+            k2e_work(ex, int(enc), 64, row["N"], 10, m32.n_particles, 4),
+            cyc, row["N"], "float32"))
+        row["chain_cycles"] = cyc
+        if not row["float64"]["held"]:
+            failed.append("{}: K2(e) float64 off its plain version: "
+                          "{}".format(label, errs))
+        if not all(v["held"] for v in hold.values()):
+            failed.append("{}: K2(e) float32 past its derived tolerance: "
+                          "{}".format(label, hold))
+        for dname in ("float64", "float32"):
+            c = row[dname]["launches"]
+            if c["K2(e)"] != 1 or c["K1"] < 1:
+                failed.append("{}: {} iteration launched {}".format(
+                    label, dname, c))
+        emit({"phase": "19a", "card": card, **row})
+        rows.append(row)
+    return rows, failed
+
+
+def phase19b_bnn(card):
+    """19b: phase 8's trained BNN (6-200-200-8, P=100, N=25, from
+    bnn_start's state under each codec) under BNN_REST_CODECS: one
+    iteration through K1 (reg 1, raised tenfold until finite) and K2(d) in
+    float64 and float32, held and timed as in 19a."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout)
+    from pddp_tpu_torch.encoding import StateEncoding, encode
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    f32, f64 = torch.float32, torch.float64
+    N = 25
+    rows, failed = [], []
+    rng = np.random.default_rng(20)
+    models = {dt: bnn_model(torch, dt, N, True) for dt in (f32, f64)}
+    costs = {dt: CartpoleCost(device="cuda", dtype=dt) for dt in (f32, f64)}
+    for codec in BNN_REST_CODECS:
+        enc = StateEncoding[codec]
+        row = {"path": "bnn_" + codec.lower(), "codec": codec, "N": N,
+               "P": 100}
+        outs = {}
+        for dt in (f64, f32):
+            dname = str(dt).replace("torch.", "")
+            model, cost = models[dt], costs[dt]
+            z0 = encode(torch.zeros(4, dtype=dt, device="cuda"),
+                        V=1e-2 * torch.ones(4, dtype=dt, device="cuda"),
+                        encoding=enc)
+            U = torch.full((N, 1), 0.1, dtype=dt, device="cuda")
+            Z, AUX = rollout(model, z0, U, enc)
+            derivs = local_model(Z, U, AUX, model, cost, enc)
+            reset_all_counts()
+            k, K, reg = k1_first_finite(derivs, (1.0, 10.0, 100.0, 1e3))
+            if k is None:
+                failed.append("{}: K1's {} gains finite at no reg".format(
+                    row["path"], dname))
+                break
+            alphas = default_fit_alphas(dt, "cuda")
+            out, best = line_search_with_argmin(model, cost, derivs[0], U,
+                                                k, K, alphas, enc)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            plain, plain_ms = timed_call(lambda: control_law(
+                model, derivs[0], U, k, K, alphas, enc, cost=cost,
+                with_aux=True))
+            row[dname] = {"reg": reg, "launches": counts, "best": best}
+            outs[dt] = (model, cost, derivs[0], U, k, K, alphas)
+            if dt == f64:
+                errs = rest_errors(out, plain)
+                row[dname].update(errors=errs, held=rest_f64_held(errs))
+                row["max_abs_err"] = max(e[0] for e in errs.values())
+                if not row[dname]["held"]:
+                    failed.append("{}: K2(d) float64 off its plain "
+                                  "version: {}".format(row["path"], errs))
+            else:
+                ref = control_law(cast_tree(model, f64),
+                                  *(t.double() for t in (derivs[0], U, k, K,
+                                                         alphas)),
+                                  enc, cost=cast_tree(cost, f64),
+                                  with_aux=True)
+                hold = rest_f32(out, plain, ref)
+                row[dname]["check"] = hold
+                row["plain_ms"] = plain_ms
+                row["launches"] = counts["K2(d)"]
+                if not all(v["held"] for v in hold.values()):
+                    failed.append("{}: K2(d) float32 past its derived "
+                                  "tolerance: {}".format(row["path"], hold))
+            if counts["K2(d)"] != 1 or counts["K1"] < 1:
+                failed.append("{}: {} iteration launched {}".format(
+                    row["path"], dname, counts))
+        if f32 not in outs:
+            continue
+        model, cost, Zn, U, k, K, alphas = outs[f32]
+        nz = Zn.shape[-1]
+        raw1 = raw_bnn(torch, "rollout", model, f32, (Zn[None], U[None],
+                                                      k[None], K[None],
+                                                      alphas), enc)
+        raw64 = raw_bnn(torch, "rollout", model, f32,
+                        batch_of(rng, Zn, U, k, K, 64) + (alphas,), enc)
+        cyc = k2d_chain_cycles(4, nz, [6, 200, 200, 8], 100, "float32",
+                               int(enc))
+        row.update(rest_row_times(
+            raw1, raw64, bnn_work(model, 1, N, 10, 10, 4,
+                                  int(enc))["K2(d)"],
+            bnn_work(model, 64, N, 10, 10, 4, int(enc))["K2(d)"], cyc, N,
+            "float32"))
+        row["chain_cycles"] = cyc
+        row["plan"] = fb.launch_plan(model, 10, f32, enc)
+        emit({"phase": "19b", "card": card, **row})
+        rows.append(row)
+    return rows, failed
+
+
+def constrained_problem(ex, codec, device, dtype, H=CONSTRAINED_H):
+    """(model, cost, z0, U0) of a CONSTRAINED_PATHS row: the example's
+    model squashed into [-PDDP_UMAX, PDDP_UMAX] by constrain_model, its
+    cost, EXAMPLES' start under the codec, U0 = 0.1 over H steps."""
+    import importlib
+
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.utils.constraint import constrain_model
+    mod, model_cls, cost_cls, x0, dt, _ = EXAMPLES[ex]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    cls = constrain_model(-PDDP_UMAX, PDDP_UMAX)(getattr(m, model_cls))
+    model = cls(dt=dt, device=device, dtype=dtype)
+    z0 = start_state(torch.tensor(x0, dtype=dtype, device=device),
+                     StateEncoding[codec])
+    U0 = torch.full((H, model.action_size), 0.1, dtype=dtype,
+                    device=device)
+    return model, getattr(m, cost_cls)(device=device, dtype=dtype), z0, U0
+
+
+def constrained_settings(label):
+    """(H, solve options) at which 19c holds a row's float64 ends."""
+    short = CONSTRAINED_SHORT.get(label)
+    if short is None:
+        return CONSTRAINED_H, CONSTRAINED_OPTS
+    return short["H"], {"n_iterations": short["n_iterations"]}
+
+
+def constrained_cpu_solves():
+    """19c's float64 solves on the CPU through the plain versions (for
+    ``cpu_references``) at each row's ``constrained_settings``, the cost
+    summed in the scan under IGNORE_UNCERTAINTY as K2(a)-(b) sum it."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.encoding import StateEncoding
+    out = {}
+    for label, ex, codec, _ in CONSTRAINED_PATHS:
+        H, opts = constrained_settings(label)
+        model, cost, z0, U0 = constrained_problem(ex, codec, "cpu",
+                                                  torch.float64, H)
+        enc = StateEncoding[codec]
+        out[label] = solve(model, cost, z0, U0, ILQROptions(
+            **opts, cost_in_scan=enc == StateEncoding.IGNORE_UNCERTAINTY),
+            encoding=enc)
+    return out
+
+
+def phase19c_constrained(card, cpu):
+    """19c: ``solve(..., fused_rollout=True, riccati_mode="kernel")`` at
+    H=200 on each CONSTRAINED_PATHS row in float64 and float32 (its
+    wall), K1 and K2 launched once an evaluation; the float64 ends held
+    against the CPU's plain solve (``cpu``: the same ends and J within
+    CONSTRAINED_J_RTOL) at ``constrained_settings``, so for the rows of
+    CONSTRAINED_SHORT in a solve of their own, whose H=200 solve is run
+    twice and held to the same bits; then K2
+    alone at the local model of the float32 solve's result (the reg
+    doubled from its mu until the gains and the plain candidates are
+    finite, as phase 12), against its plain version in float64 (REST_TOL)
+    and float32 (rest_f32), at B=1 and B=64."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions, backward,
+                                                 control_law,
+                                                 default_fit_alphas,
+                                                 local_model, solve)
+    from pddp_tpu_torch.encoding import StateEncoding
+    f32, f64 = torch.float32, torch.float64
+    rows, failed = [], []
+    rng = np.random.default_rng(21)
+    opts = ILQROptions(**CONSTRAINED_OPTS, riccati_mode="kernel",
+                       fused_rollout=True)
+    for label, ex, codec, st in CONSTRAINED_PATHS:
+        enc = StateEncoding[codec]
+        ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+        row = {"path": label, "example": ex, "codec": codec, "stage": st,
+               "H": CONSTRAINED_H}
+        for dt in (f64, f32):
+            dname = str(dt).replace("torch.", "")
+            model, cost, z0, U0 = constrained_problem(ex, codec, "cuda", dt)
+            reset_all_counts()
+            t0 = time.perf_counter()
+            r = solve(model, cost, z0, U0, opts, encoding=enc)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            counts = read_counts()
+            row[dname] = {**_ends(r), "wall_ms": wall, "launches": counts}
+            if not (counts["K1"] == r.evals and counts["K2(" + st + ")"]
+                    == r.evals == sum(counts[s] for s in
+                                      ("K2(a)", "K2(b)", "K2(c)"))):
+                failed.append("{}: {} solve's launches {} differ from its "
+                              "{} evaluations".format(label, dname, counts,
+                                                      r.evals))
+            if dt == f64 and label in CONSTRAINED_SHORT:
+                again = solve(model, cost, z0, U0, opts, encoding=enc)
+                row[dname]["repeat_same_bits"] = all(
+                    bool(torch.equal(a, b)) for a, b in
+                    ((r.Z, again.Z), (r.U, again.U))) and (
+                        _ends(r) == _ends(again))
+                if not row[dname]["repeat_same_bits"]:
+                    failed.append("{}: a second float64 solve on the card "
+                                  "differs from the first: {} {}".format(
+                                      label, _ends(r), _ends(again)))
+                H, short = constrained_settings(label)
+                r = solve(*constrained_problem(ex, codec, "cuda", dt, H),
+                          ILQROptions(**short, riccati_mode="kernel",
+                                      fused_rollout=True), encoding=enc)
+                held = row["float64_H{}".format(H)] = _ends(r)
+            else:
+                held = row[dname]
+            if dt == f64:
+                c = cpu[label]
+                held["cpu"] = _ends(c)
+                held["J_rel"] = abs(r.J_opt - c.J_opt) / abs(c.J_opt)
+                if not (
+                        (r.state, r.iterations, r.evals)
+                        == (c.state, c.iterations, c.evals)
+                        and held["J_rel"] <= CONSTRAINED_J_RTOL):
+                    failed.append("{}: the float64 solve through the "
+                                  "kernels differs from the CPU's: "
+                                  "{}".format(label, held))
+            if dt == f32:
+                r32, model32, cost32 = r, model, cost
+        row["launches"] = row["float32"]["launches"]["K2(" + st + ")"]
+        # K2 alone at the float32 solve's result.
+        derivs = local_model(r32.Z, r32.U, (), model32, cost32, enc)
+        Zn, Un = derivs[0], r32.U
+        a32 = default_fit_alphas(f32, "cuda")
+
+        def plain_ls(m, c, Z, U, k, K, a):
+            return control_law(m, Z, U, k, K, a, enc, cost=c,
+                               cost_in_scan=ign)
+        reg = max(r32.mu, 1e-6)
+        for _ in range(64):
+            k, K, ok = backward(*derivs, reg=reg)
+            if bool(ok) and all(bool(torch.isfinite(x).all()) for x in
+                                plain_ls(model32, cost32, Zn, Un, k, K, a32)):
+                break
+            reg *= 2.0
+        row["reg"] = reg
+        kern32 = fr_call(model32, cost32, Zn, Un, k, K, a32, enc)
+        plain32, plain_ms = timed_call(
+            lambda: plain_ls(model32, cost32, Zn, Un, k, K, a32))
+        m64, c64 = cast_tree(model32, f64), cast_tree(cost32, f64)
+        ins64 = tuple(t.double() for t in (Zn, Un, k, K))
+        a64 = a32.double()
+        ref = plain_ls(m64, c64, *ins64, a64)
+        kern64 = fr_call(m64, c64, *ins64, a64, enc)
+        errs = rest_errors(kern64, ref)
+        row["float64"]["kernel"] = {"errors": errs,
+                                    "held": rest_f64_held(errs)}
+        row["max_abs_err"] = max(e[0] for e in errs.values())
+        hold = rest_f32(kern32, plain32, ref)
+        row["float32"]["kernel"] = hold
+        row["plain_ms"] = plain_ms
+        if not row["float64"]["kernel"]["held"]:
+            failed.append("{}: K2({}) float64 off its plain version: "
+                          "{}".format(label, st, errs))
+        if not all(v["held"] for v in hold.values()):
+            failed.append("{}: K2({}) float32 past its derived tolerance: "
+                          "{}".format(label, st, hold))
+        kc = cost32 if ign else None
+        raw1 = raw_k2(model32, kc, Zn, Un, k, K, a32, enc)
+        raw64 = raw_k2(model32, kc, *batch_of(rng, Zn, Un, k, K, 64), a32,
+                       enc)
+        nz = Zn.shape[-1]
+        cyc = k2_chain_cycles(ex, int(enc), nz, "float32") + (
+            LATENCY["float32"]["sincos"] + 2 * LATENCY["float32"]["fma"])
+        row.update(rest_row_times(
+            raw1, raw64,
+            k2_work(1, CONSTRAINED_H, 10, 4, False, ex, int(enc)),
+            k2_work(64, CONSTRAINED_H, 10, 4, False, ex, int(enc)),
+            cyc, CONSTRAINED_H, "float32"))
+        row["chain_cycles"] = cyc
+        emit({"phase": "19c", "card": card, **row})
+        rows.append(row)
+    return rows, failed
+
+
+def fr_call(model, cost, Z, U, k, K, alphas, enc):
+    """K2(a)-(c) as a solve's line search calls it: the cost in the kernel
+    under IGNORE_UNCERTAINTY, a post-pass otherwise."""
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+    return fr.fused_control_law(model, Z, U, k, K, alphas, enc,
+                                cost=cost if ign else None)
+
+
+def phase19_rest_of_k2(card, particles, cpu):
+    """Phase 19, the rest of K2's gate on the card: 19a K2(e) on phase
+    17's rows, 19b K2(d) under four more codecs, 19c constrain_model's
+    examples through K2(a)-(c). The particle solves of phase 17 launched
+    no K2 (pddp_tpu's gate keeps the stateful model on the scan), which is
+    checked here too."""
+    t0 = time.perf_counter()
+    a, fa = phase19a_particles(card, particles["local_models"])
+    b, fb_ = phase19b_bnn(card)
+    c, fc = phase19c_constrained(card, cpu)
+    failed = fa + fb_ + fc
+    for row in particles["rows"]:
+        if row["launches"]["K2"] != 0:
+            failed.append("{}: the particle solve launched K2: {}".format(
+                row["path"], row["launches"]))
+    res = {"phase": 19, "particles": a, "bnn": b, "constrained": c,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": 19, "seconds": res["seconds"]})
+    check(not failed, "; ".join(failed))
+    return res
+
+
 def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
-                   batched, particles, multi):
+                   batched, particles, multi, rest):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -4339,6 +5168,32 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
             >= row["roofline_ms"] else "roofline",
             "library_ms": None, "B": row["B"], "N": row["N"],
             "nz": row.get("nz", 4)})
+    # The rest of K2's gate (phase 19): K2(e) on phase 17's rows, K2(d)
+    # under four more codecs, K2(a)-(c) on constrain_model's examples; the
+    # launches of each row's float32 iteration or solve, the errors of
+    # float64, the times of float32 alone at B=1 and 64.
+    specs = (
+        ("particles", "K2(e) fused_particle_rollout {}",
+         "pddp_tpu_torch/csrc/fused_particle_rollout.cu"),
+        ("bnn", "K2(d) fused_bnn_rollout {}",
+         "pddp_tpu_torch/csrc/fused_bnn_rollout.cu"),
+        ("constrained", "K2({stage}) fused_rollout {}",
+         "pddp_tpu_torch/csrc/fused_rollout.cu"))
+    for key, name, src in specs:
+        for row in rest[key]:
+            kernels.append({
+                "name": name.format(row["path"], stage=row.get("stage")),
+                "route": "cuda", "source": src,
+                "replaces": "pddp_tpu/ops/fused_rollout.py:114",
+                "launches": row["launches"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "bound_note": "chain" if row["chain_floor_ms"]
+                >= row["roofline_ms"] else "roofline",
+                "library_ms": None, "ms_B64": row["ms_B64"],
+                "bound_ms_B64": row["bound_ms_B64"], "N": row.get(
+                    "N", row.get("H")), "codec": row["codec"]})
     return {"kernels": kernels}
 
 
@@ -4397,8 +5252,10 @@ def _run_phases(card, run, seconds, t_start):
     batched = run("16", phase16_batched, card, cpu_refs)
     particles = run("17", phase17_particles, card, cpu_refs["particles"])
     multi = run("18", phase18_multi_gpu, card)
+    rest = run("19", phase19_rest_of_k2, card, particles,
+               cpu_refs["constrained"])
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
-                             pddp, batched, particles, multi)
+                             pddp, batched, particles, multi, rest)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -1,8 +1,9 @@
 // K2 stage (d): the iLQR line search of the belief-state BNN dynamics
-// (BNNDynamicsModel under UPPER_TRIANGULAR_CHOLESKY): a closed-loop rollout
-// of A step sizes alpha over N steps, each step pushing P particles through
-// the MC-dropout MLP and moment-matching them back into a Cholesky-encoded
-// Gaussian. Three fragment entries run its device functions alone.
+// (BNNDynamicsModel under any of the five state codecs): a closed-loop
+// rollout of A step sizes alpha over N steps, each step pushing P particles
+// through the MC-dropout MLP and moment-matching them back into an encoded
+// Gaussian. Three fragment entries run its device functions alone (under
+// the Cholesky codec).
 //
 // Replaces the stateful variant of the Pallas kernel
 // pddp_tpu/ops/fused_rollout.py:114 (fused_control_law with the particle
@@ -16,13 +17,19 @@
 //
 // Per step i and candidate a:
 //   u   = U_i + (alpha k_i + K_i (z - Z_i)), clamped to the bounds if given
+//   mean, Uc = decode_mean(z), decode_covar_sqrt(z) (belief_codec.cuh)
 //   eps = solve eps Uc = prev - mean per particle, or eps_in[i] for all
 //         particles when any element is not finite or i == 0
 //   X   = mean + eps Uc; x = normalize([augment(X), constrain(u)])
 //   out = MLP(x) with each particle's dropout masks; output = X + delta(out)
-//   z   = [mean(output), triu(safe_cholesky(cov(output, ddof=1)))]
+//   z   = moment_match(output): [mean, triu(safe_cholesky(cov, ddof=1))]
+//         under the Cholesky codec, the covariance itself under FULL, the
+//         ddof=0 variances or std under VAR and STD, the mean under IGNORE
 // which is BNNDynamicsModel.step (models/bnn/model.py) in the same order of
-// operations, but for the sums of the moment match (below).
+// operations, but for the sums of the moment match (below). The Cholesky
+// codec runs bnn_rollout_kernel; the other four share
+// bnn_rollout_codec_kernel, which takes the codec at run time (it sizes no
+// register array).
 //
 // What bounds it on an H100. At the main-path shape (net 6-200-200-8,
 // P=100, A=10, N=25, f32) the MLP is 2.1 GFLOP, 0.03 ms at the 67 TFLOP/s
@@ -99,6 +106,7 @@ using pddp::round16;
 constexpr int kMaxN = 8;
 constexpr int kMaxNu = 4;
 constexpr int kMaxNz = kMaxN + kMaxN * (kMaxN + 1) / 2;
+constexpr int kMaxNzFull = kMaxN + kMaxN * kMaxN;  // any codec's
 constexpr int kMaxLayers = 6;
 constexpr int kPad = 4;            // a CTA's particles padded to this
 constexpr int kMinThreads = 128;   // threads a CTA, at least
@@ -121,6 +129,11 @@ struct Config {
 };
 
 constexpr int kConfigInts = sizeof(Config) / sizeof(int);
+// The ints a caller passes: Config's, then the rollout's codec
+// (StateEncoding's value; F1-F3 ignore it). The codec stays out of Config,
+// and reaches the rollout kernel as its last argument, so that the
+// Cholesky codec's kernel keeps the arguments it had as the only codec.
+constexpr int kCallerInts = kConfigInts + 1;
 
 // A launch's plan: the cluster, the particles and threads of a CTA, and
 // the CTA's shared memory, in elements of the kernel's type from the start
@@ -334,6 +347,15 @@ __device__ __forceinline__ void decode(const T* z, T* mean, T* Uc) {
   for (int j = 0; j < NN; ++j) mean[j] = z[j];
 }
 
+// decode under codec (encoding.decode_mean and decode_covar_sqrt).
+template <int NN, typename T>
+__device__ __forceinline__ void decode_codec(const T* z, int codec,
+                                             T* mean, T* Uc) {
+  pddp::decode_covar_sqrt<NN>(z, codec, Uc);
+#pragma unroll
+  for (int j = 0; j < NN; ++j) mean[j] = z[j];
+}
+
 // F1: eps with eps Uc = prev - mean for every particle p < P, the rows of
 // p in [p0, p0 + pc) stored in eps (row p - p0). Returns whether any
 // element of any particle is not finite, for every thread of the block
@@ -453,6 +475,70 @@ __device__ void moment_match(const T* out, int P, int n, const T* jitter,
         if (Zrow != nullptr) Zrow[e] = zr[e];
       }
       decode<NN>(zr, mean, Uc);
+    });
+  }
+  __syncthreads();
+}
+
+// moment_match under codec (utils/particles.moment_match): the mean and,
+// for the matrix codecs, the ddof=1 covariance, for the diagonal codecs
+// the ddof=0 variances, encoded by pddp::encode_moments; the sums in
+// moment_match's order.
+template <typename T>
+__device__ void moment_match_codec(const T* out, int P, int n, int codec,
+                                   const T* jitter, int n_jitter, T* M,
+                                   T* C, T* z, T* mean, T* Uc, T* Zrow) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  for (int j = warp; j < n; j += warps) {
+    T s = T(0);
+#pragma unroll 4
+    for (int p = lane; p < P; p += 32) s += out[p * n + j];
+    s = warp_sum(s);
+    if (lane == 0) M[j] = s / T(P);
+  }
+  __syncthreads();
+  const int half = threadIdx.x / 16, hl = threadIdx.x % 16;
+  const bool matrix = codec == pddp::kFull || codec == pddp::kChol;
+  const int entries = codec == pddp::kIgnore ? 0
+                      : matrix               ? n * (n + 1) / 2
+                                             : n;
+  for (int e0 = 0; e0 < entries; e0 += 2 * warps) {
+    const int e = e0 + half;
+    int r = 0, c = 0;
+    T s = T(0);
+    if (e < entries) {
+      if (matrix) {
+        int rem = e;
+        while (rem >= n - r) rem -= n - r++;
+        c = r + rem;
+      } else {
+        r = c = e;
+      }
+#pragma unroll 4
+      for (int p = hl; p < P; p += 16)
+        s += (out[p * n + r] - M[r]) * (out[p * n + c] - M[c]);
+    }
+    s = half_warp_sum(s);
+    if (e < entries && hl == 0) {
+      if (matrix) {
+        s = s / T(P - 1);
+        C[r * n + c] = s;
+        C[c * n + r] = s;
+      } else {
+        C[r] = s / T(P);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    with_n(n, [&](auto nn) {
+      constexpr int NN = decltype(nn)::value;
+      const int nz = pddp::encoded_size(codec, NN);
+      pddp::encode_moments<NN>(M, C, codec, jitter, n_jitter, z);
+      if (Zrow != nullptr)
+        for (int e = 0; e < nz; ++e) Zrow[e] = z[e];
+      decode_codec<NN>(z, codec, mean, Uc);
     });
   }
   __syncthreads();
@@ -866,6 +952,162 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_kernel(
   }
 }
 
+// K2(d) under the other codecs, a value known at run time: the kernel
+// above with decode_codec and moment_match_codec. The Cholesky codec keeps
+// a kernel of its own, free of codec branches: one template for both
+// compiled it to another register allocation, 1.5-2.2 % slower on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_codec_kernel(
+    const T* __restrict__ Z, const T* __restrict__ U,
+    const T* __restrict__ k, const T* __restrict__ K,
+    const T* __restrict__ alphas, const T* __restrict__ params,
+    const T* __restrict__ eps_in, const T* __restrict__ eps_out,
+    const T* __restrict__ bounds, T* __restrict__ Z_out,
+    T* __restrict__ U_out, T* __restrict__ AUX, int N, int A, Config cfg,
+    Plan pl, int codec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ T zc[kMaxNzFull], uc[kMaxNu], mean[kMaxN], Uc[kMaxN * kMaxN];
+  __shared__ T M[kMaxN], C[kMaxN * kMaxN], jit[kMaxJitter];
+  __shared__ T xm[kMaxF], xs[kMaxF], dxm[kMaxN], dxs[kMaxN];
+  __shared__ T lo[kMaxNu], hi[kMaxNu], ulo[kMaxNu], uhi[kMaxNu];
+  __shared__ unsigned long long bar;
+  T* sm = reinterpret_cast<T*>(g_smem);
+  T* const full0 = sm + pl.full0;
+  T* const full1 = sm + pl.full1;
+  T* eps = sm + pl.eps;
+  T* X = sm + pl.X;
+  T* out = sm + pl.out;
+  const int n = cfg.n, nu = cfg.nu, P = cfg.P;
+  const int nz = pddp::encoded_size(codec, n), O = 2 * n;
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long cl = blockIdx.x / pl.c;
+  const size_t b = cl / A;
+  const int a = static_cast<int>(cl % A);
+  const int p0 = rank * pl.ppc;
+  const int pc = max(0, min(pl.ppc, P - p0));
+  const int rows_n = pc * n;
+  const bool lead = rank == 0;
+  Z += b * (N + 1) * nz;
+  U += b * N * nu;
+  k += b * N * nu;
+  K += b * N * nu * nz;
+  Z_out += b * (N + 1) * A * nz;
+  U_out += b * N * A * nu;
+  AUX += b * N * A * P * n;
+  const T alpha = alphas[a];
+  const bool drawn_rows = cfg.sample_input != 0;
+  const bool pstd = cfg.predicted_std != 0;
+  const auto slot = [&](int i) {
+    return stage_slot(sm + pl.stage + (i & 1) * pl.stage_len, nz, nu,
+                      pl.ppc * n);
+  };
+  const auto stage = [&](int i) {
+    stage_step(slot(i), Z + (size_t)i * nz, U + (size_t)i * nu,
+               k + (size_t)i * nu, K + (size_t)i * nu * nz,
+               drawn_rows ? eps_in + ((size_t)i * P + p0) * n : nullptr,
+               pstd ? eps_out + ((size_t)i * P + p0) * n : nullptr, nz, nu,
+               rows_n);
+  };
+  stage(0);
+
+  const T* mask[kMaxLayers];
+  stage_net(cfg, pl, params, p0, pc, &bar, mask);
+  // The step's constants, in shared memory for the whole horizon.
+  if (tid < cfg.n_jitter) jit[tid] = params[cfg.jitter_off + tid];
+  if (tid < cfg.width[0]) {
+    xm[tid] = params[cfg.x_mean_off + tid];
+    xs[tid] = params[cfg.x_std_off + tid];
+  }
+  if (tid < n) {
+    dxm[tid] = params[cfg.dx_mean_off + tid];
+    dxs[tid] = params[cfg.dx_std_off + tid];
+  }
+  if (tid < nu) {
+    if (bounds != nullptr) {
+      lo[tid] = bounds[tid];
+      hi[tid] = bounds[nu + tid];
+    }
+    if (cfg.constrained) {
+      ulo[tid] = params[cfg.u_min_off + tid];
+      uhi[tid] = params[cfg.u_max_off + tid];
+    }
+  }
+  if (tid == 0) {
+    for (int e = 0; e < nz; ++e) {
+      zc[e] = Z[e];
+      if (lead) Z_out[a * nz + e] = Z[e];
+    }
+    with_n(n, [&](auto nn) {
+      decode_codec<decltype(nn)::value>(zc, codec, mean, Uc);
+    });
+  }
+  // Every CTA of the cluster runs before any stores into its peers.
+  cluster.sync();
+  wait_weights(pl, &bar);
+
+  for (int i = 0; i < N; ++i) {
+    const T* prev = (i & 1) ? full0 : full1;  // the outputs of step i - 1
+    T* next = (i & 1) ? full1 : full0;
+    const Stage<T> st = slot(i);
+    if (i + 1 < N) stage(i + 1);
+    else pddp::cp_async_commit();
+    stage_wait_previous();
+
+    // The step's noise: solved for all P particles (the fallback sees
+    // every one), kept for the CTA's own. Its barrier also publishes the
+    // staged rows.
+    const bool solve = cfg.sample_input && cfg.infer_noise && i > 0;
+    int bad = 0;
+    if (solve) bad = solve_eps(Uc, mean, prev, P, n, p0, pc, eps);
+    else __syncthreads();
+
+    // The feedback law, beside the particles.
+    if (tid < nu) {
+      const T* Ki = st.K + tid * nz;
+      T du = T(0);
+      for (int j = 0; j < nz; ++j) du += (zc[j] - st.Z[j]) * Ki[j];
+      T u = st.U[tid] + (alpha * st.k[tid] + du);
+      if (bounds != nullptr) {
+        u = u < lo[tid] ? lo[tid] : u;  // a NaN stays, as in torch.clamp
+        u = u > hi[tid] ? hi[tid] : u;
+      }
+      if (lead) U_out[((size_t)i * A + a) * nu + tid] = u;
+      if (cfg.constrained)
+        u = (uhi[tid] - ulo[tid]) / T(2) * tanh(u) +
+            (uhi[tid] + ulo[tid]) / T(2);
+      uc[tid] = u;
+    }
+    particles(n, drawn_rows, !solve || bad, st.e0, eps, mean, Uc, pc, X,
+              AUX + ((size_t)i * A + a) * P * n + (size_t)p0 * n);
+    __syncthreads();
+
+    // The MLP of the CTA's particles.
+    net_input(cfg, xm, xs, X, uc, sm + pl.act0, pl.npad, pc);
+    mlp(cfg, pl, params, mask, pl.act0, pl.act1, pc, out);
+
+    // Next-state particles, into every CTA's copy: the rolling state.
+    for (int e = tid; e < rows_n; e += blockDim.x) {
+      const int q = e / n, j = e % n, p = p0 + q;
+      T dx = out[q * O + j] * dxs[j] + dxm[j];
+      if (pstd) {
+        const T log_std = out[q * O + n + j] + log(dxs[j]);
+        dx = dx + exp(log_std) * st.eo[e];
+      }
+      const T v = X[e] + dx;
+      for (int r = 0; r < pl.c; ++r)
+        cluster.map_shared_rank(next, r)[p * n + j] = v;
+    }
+    cluster.sync();
+
+    moment_match_codec(next, P, n, codec, jit, cfg.n_jitter, M, C, zc, mean,
+                       Uc,
+                       lead ? Z_out + ((size_t)(i + 1) * A + a) * nz
+                            : nullptr);
+  }
+}
+
 // F1 entry: one block per group g of U_chol (G, n, n), deltas (G, P, n).
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads) bnn_infer_eps_kernel(
@@ -950,9 +1192,11 @@ bool valid(const Config& cfg) {
 // activations and particle arrays first; then each layer's weights and
 // bias, largest layer first, where they fit (a streamed small layer stays
 // in L1 more easily than a large one); then all masks of the CTA's
-// particles, if they fit. False when not even the first part fits.
+// particles, if they fit (the staged step's length by the codec's state
+// size). False when not even the first part fits.
 template <typename T>
-bool layout(const Config& cfg, int c, bool rollout, long budget, Plan& p) {
+bool layout(const Config& cfg, int codec, int c, bool rollout, long budget,
+            Plan& p) {
   const int P = cfg.P, n = cfg.n, L = cfg.n_layers;
   p = Plan{};
   p.ppc = (P + c - 1) / c;
@@ -976,7 +1220,7 @@ bool layout(const Config& cfg, int c, bool rollout, long budget, Plan& p) {
   p.act1 = take(long(max_in) * p.npad);
   p.full0 = p.full1 = p.eps = p.X = p.out = p.stage = -1;
   if (rollout) {
-    const long nz = n + n * (n + 1) / 2;
+    const long nz = pddp::encoded_size(codec, n);
     p.full0 = take(long(P) * n);
     p.full1 = take(long(P) * n);
     p.eps = take(long(p.ppc) * n);
@@ -1047,17 +1291,18 @@ struct Cached {
   int device;
   long clusters;
   Config cfg;
+  int codec;
   Plan plan;
 };
 
 template <typename T, typename Kernel>
-int plan_launch(Kernel kernel, Cached& cache, const Config& cfg,
+int plan_launch(Kernel kernel, Cached& cache, const Config& cfg, int codec,
                 long clusters, bool rollout, Plan& out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cache.ok && cache.device == dev && cache.clusters == clusters &&
-      memcmp(&cache.cfg, &cfg, sizeof(Config)) == 0) {
+      cache.codec == codec && memcmp(&cache.cfg, &cfg, sizeof(Config)) == 0) {
     out = cache.plan;
     return static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out.bytes));
@@ -1074,7 +1319,7 @@ int plan_launch(Kernel kernel, Cached& cache, const Config& cfg,
   Plan fit{};
   for (int c = cfg.P < kMaxCluster ? cfg.P : kMaxCluster; c >= 1; --c) {
     Plan p;
-    if (!layout<T>(cfg, c, rollout, budget, p) || p.c != c) continue;
+    if (!layout<T>(cfg, codec, c, rollout, budget, p) || p.c != c) continue;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1093,12 +1338,12 @@ int plan_launch(Kernel kernel, Cached& cache, const Config& cfg,
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fit.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cache = Cached{true, dev, clusters, cfg, fit};
+  cache = Cached{true, dev, clusters, cfg, codec, fit};
   out = fit;
   return 0;
 }
 
-template <typename T>
+template <typename T, bool ANY_CODEC>
 Cached& rollout_cache() {
   static Cached c{};
   return c;
@@ -1111,12 +1356,16 @@ Cached& mlp_cache() {
 }
 
 template <typename T>
-int plan_of(int entry, long clusters, const Config& cfg, Plan& p) {
+int plan_of(int entry, long clusters, const Config& cfg, int codec, Plan& p) {
+  if (entry == 0 && codec == pddp::kChol)
+    return plan_launch<T>(bnn_rollout_kernel<T>, rollout_cache<T, false>(),
+                          cfg, codec, clusters, true, p);
   if (entry == 0)
-    return plan_launch<T>(bnn_rollout_kernel<T>, rollout_cache<T>(), cfg,
-                          clusters, true, p);
-  return plan_launch<T>(bnn_mlp_kernel<T>, mlp_cache<T>(), cfg, clusters,
-                        false, p);
+    return plan_launch<T>(bnn_rollout_codec_kernel<T>,
+                          rollout_cache<T, true>(), cfg, codec, clusters,
+                          true, p);
+  return plan_launch<T>(bnn_mlp_kernel<T>, mlp_cache<T>(), cfg, codec,
+                        clusters, false, p);
 }
 
 bool aligned16(const void* p) {
@@ -1143,19 +1392,26 @@ int launch_rollout(const T* Z, const T* U, const T* k, const T* K,
                    void* stream) {
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
+  const int codec = cfg_ints[kConfigInts];
   if (B < 1 || N < 1 || A < 1 || cfg.nu < 1 || cfg.nu > kMaxNu ||
-      cfg.width[0] > kMaxF || !valid(cfg) || !aligned16(params))
+      cfg.width[0] > kMaxF || !valid(cfg) || !aligned16(params) ||
+      codec < pddp::kFull || codec > pddp::kIgnore)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const long clusters = long(B) * A;
-  int err = plan_of<T>(0, clusters, cfg, pl);
+  int err = plan_of<T>(0, clusters, cfg, codec, pl);
   if (err != 0) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t lc = launch_config(
       pl, clusters, static_cast<cudaStream_t>(stream), &attr);
-  err = static_cast<int>(cudaLaunchKernelEx(
-      &lc, bnn_rollout_kernel<T>, Z, U, k, K, alphas, params, eps_in,
-      eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl));
+  if (codec == pddp::kChol)
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_rollout_kernel<T>, Z, U, k, K, alphas, params, eps_in,
+        eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl));
+  else
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_rollout_codec_kernel<T>, Z, U, k, K, alphas, params, eps_in,
+        eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl, codec));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1201,7 +1457,7 @@ int launch_mlp(const T* x, const T* params, T* y, int G, const int* cfg_ints,
   if (G < 1 || !valid(cfg) || !aligned16(params))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  int err = plan_of<T>(1, G, cfg, pl);
+  int err = plan_of<T>(1, G, cfg, pddp::kChol, pl);
   if (err != 0) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t lc =
@@ -1216,10 +1472,12 @@ template <typename T>
 int report_plan(int entry, int clusters, const int* cfg_ints, int* out) {
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
-  if (clusters < 1 || !valid(cfg) || (entry != 0 && entry != 1))
+  const int codec = cfg_ints[kConfigInts];
+  if (clusters < 1 || !valid(cfg) || (entry != 0 && entry != 1) ||
+      codec < pddp::kFull || codec > pddp::kIgnore)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  const int err = plan_of<T>(entry, clusters, cfg, p);
+  const int err = plan_of<T>(entry, clusters, cfg, codec, p);
   if (err != 0) return err;
   out[0] = p.c;
   out[1] = p.ppc;
@@ -1236,7 +1494,7 @@ int report_plan(int entry, int clusters, const int* cfg_ints, int* out) {
 
 extern "C" {
 
-int pddp_bnn_config_ints() { return kConfigInts; }
+int pddp_bnn_config_ints() { return kCallerInts; }
 
 int pddp_bnn_plan_ints() { return kPlanInts; }
 

@@ -6,8 +6,12 @@
 // Replaces the Pallas kernel pddp_tpu/ops/fused_rollout.py:114
 // (fused_control_law; its pallas_call is at :261) for stateless models.
 // Pallas traced the model's and cost's jnp code into the kernel; CUDA
-// cannot, so this kernel carries its own copy of each example's step and
-// of the QR cost, as templates on (model, codec, cost):
+// cannot, so this kernel carries its own copy of each example's step
+// (examples.cuh, shared with K2(e)) and of the QR cost, as templates on
+// (model, codec, cost), each also instantiated for constrain_model's
+// subclass of the example (constrain(u) before the step, the bounds after
+// the parameters; U_out and the cost keep the unsquashed u), so that the
+// other instances keep their code:
 //   stage (a) cartpole under IGNORE_UNCERTAINTY (examples/cartpole);
 //   stage (b) pendulum, double cartpole (a 3x3 adjugate solve) and
 //             rendezvous under IGNORE_UNCERTAINTY, with the clamp;
@@ -24,7 +28,8 @@
 // the decode and re-encode arithmetic of encoding.py (the round trip is
 // not the identity in floating point): the variance models re-encode
 // decode_var(z), rendezvous re-encodes decode_covar(z), under the Cholesky
-// codec through safe_cholesky's 5-rung ladder (belief_codec.cuh). Every
+// codec through safe_cholesky's 5-rung ladder (belief_codec.cuh, which
+// holds the five codecs' decode and encode). Every
 // expression keeps the plain version's order of operations. The model's
 // and cost's parameters arrive in a small device buffer (layout in
 // ops/fused_rollout.py), so the values a caller set reach the kernel.
@@ -54,236 +59,29 @@
 
 #include "async_copy.cuh"
 #include "belief_codec.cuh"
+#include "examples.cuh"
 
 namespace {
 
 using pddp::tri;
 
-// StateEncoding's values (encoding.py).
-constexpr int kFull = 0, kChol = 1, kVar = 2, kStd = 3, kIgnore = 4;
+using pddp::Cartpole;
+using pddp::DoubleCartpole;
+using pddp::Pendulum;
+using pddp::Rendezvous;
+using pddp::kChol;
+using pddp::kFull;
+using pddp::kIgnore;
+using pddp::kStd;
+using pddp::kVar;
+using pddp::decode_covar;
+using pddp::decode_var;
+using pddp::encode_covar;
+using pddp::encode_var;
+
 // The cost carried in the kernel: none, QRCost on z, QRCost on augment(z).
 constexpr int kNoCost = 0, kQR = 1, kAugQR = 2;
-constexpr int kMaxParams = 176;  // 8 model + 2 * 8^2 + 4^2 + 8 + 4 < 176
-
-__host__ __device__ constexpr int encoded_size(int codec, int n) {
-  return codec == kFull ? n + n * n
-         : codec == kChol ? n + n * (n + 1) / 2
-         : codec == kIgnore ? n
-                            : 2 * n;
-}
-
-// The examples' mean steps: x (n), u (nu) -> x_next (n), parameters p in
-// the order of each model's PARAM_NAMES. augment() is the cost's
-// utils.angular.augment_state with the model's indices (rendezvous has no
-// angles, and its cost takes the state as it is).
-
-struct Cartpole {  // examples/cartpole/model.py
-  static constexpr int n = 4, nu = 1, n_params = 6, n_aug = 5;
-  static constexpr bool full_cov = false;
-  template <typename T>
-  __device__ static void step(const T* p, const T* x, const T* u, T* xn) {
-    const T dt = p[0], mc = p[1], mp = p[2], l = p[3], mu = p[4], g = p[5];
-    const T x_dot = x[1], theta = x[2], theta_dot = x[3];
-    const T sn = sin(theta), cs = cos(theta);
-    const T a0 = mp * l * (theta_dot * theta_dot) * sn;
-    const T a1 = g * sn;
-    const T a2 = u[0] - mu * x_dot;
-    const T a3 = T(4) * (mc + mp) - T(3) * mp * (cs * cs);
-    const T theta_dot_dot =
-        T(-3) * (a0 * cs + T(2) * ((mc + mp) * a1 + a2 * cs)) / (l * a3);
-    const T x_dot_dot = (T(2) * a0 + T(3) * mp * a1 * cs + T(4) * a2) / a3;
-    const T new_x_dot = x_dot + x_dot_dot * dt;
-    const T new_theta_dot = theta_dot + theta_dot_dot * dt;
-    xn[0] = x[0] + new_x_dot * dt;
-    xn[1] = new_x_dot;
-    xn[2] = theta + new_theta_dot * dt;
-    xn[3] = new_theta_dot;
-  }
-  template <typename T>
-  __device__ static void augment(const T* x, T* y) {
-    y[0] = x[0]; y[1] = x[1]; y[2] = x[3];
-    y[3] = sin(x[2]); y[4] = cos(x[2]);
-  }
-};
-
-struct Pendulum {  // examples/pendulum/model.py
-  static constexpr int n = 2, nu = 1, n_params = 5, n_aug = 3;
-  static constexpr bool full_cov = false;
-  template <typename T>
-  __device__ static void step(const T* p, const T* x, const T* u, T* xn) {
-    const T dt = p[0], m = p[1], l = p[2], mu = p[3], g = p[4];
-    const T theta = x[0], theta_dot = x[1];
-    const T temp = m * l;
-    T theta_dot_dot = u[0] - mu * theta_dot - T(0.5) * temp * g * sin(theta);
-    theta_dot_dot = T(3) * theta_dot_dot / (temp * l);
-    xn[0] = theta + theta_dot * dt;
-    xn[1] = theta_dot + theta_dot_dot * dt;
-  }
-  template <typename T>
-  __device__ static void augment(const T* x, T* y) {
-    y[0] = x[1]; y[1] = sin(x[0]); y[2] = cos(x[0]);
-  }
-};
-
-// Determinant of the 2x2 minor of the 3x3 A without row i and column j,
-// as utils.linalg.small_det expands it: a d - b c.
-template <typename T>
-__device__ __forceinline__ T minor2(const T (&A)[3][3], int i, int j) {
-  const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
-  const int c0 = j == 0 ? 1 : 0, c1 = j == 2 ? 1 : 2;
-  return A[r0][c0] * A[r1][c1] - A[r0][c1] * A[r1][c0];
-}
-
-struct DoubleCartpole {  // examples/double_cartpole/model.py
-  static constexpr int n = 6, nu = 1, n_params = 8, n_aug = 8;
-  static constexpr bool full_cov = false;
-  template <typename T>
-  __device__ static void step(const T* p, const T* x, const T* u, T* xn) {
-    const T dt = p[0], mc = p[1], mp1 = p[2], mp2 = p[3], l1 = p[4],
-            l2 = p[5], mu = p[6], g = p[7];
-    const T x_dot = x[1], theta1 = x[2], theta1_dot = x[3], theta2 = x[4],
-            theta2_dot = x[5];
-    const T sin_theta1 = sin(theta1), cos_theta1 = cos(theta1);
-    const T sin_theta2 = sin(theta2), cos_theta2 = cos(theta2);
-    const T sin_dtheta = sin(theta1 - theta2);
-    const T cos_dtheta = cos(theta1 - theta2);
-    const T a0 = mp2 + T(2) * mc;
-    const T a1 = mc * l2;
-    const T a2 = l1 * (theta1_dot * theta1_dot);
-    const T a3 = a1 * (theta2_dot * theta2_dot);
-    const T A[3][3] = {
-        {T(2) * (mp1 + mp2 + mc), -a0 * l1 * cos_theta1, -a1 * cos_theta2},
-        {T(-3) * a0 * cos_theta1, (T(2) * a0 + T(2) * mc) * l1,
-         T(3) * a1 * cos_dtheta},
-        {T(-3) * cos_theta2, T(3) * l1 * cos_dtheta, T(2) * l2}};
-    const T b[3] = {
-        T(2) * u[0] - T(2) * mu * x_dot - a0 * a2 * sin_theta1 -
-            a3 * sin_theta2,
-        T(3) * a0 * g * sin_theta1 - T(3) * a3 * sin_dtheta,
-        T(3) * a2 * sin_dtheta + T(3) * g * sin_theta2};
-    // small_solve: (adj(A) / det(A)) b, the determinant expanded along the
-    // first row and adj[j][i] the (i, j) cofactor.
-    const T det = A[0][0] * minor2(A, 0, 0) - A[0][1] * minor2(A, 0, 1) +
-                  A[0][2] * minor2(A, 0, 2);
-    T sol[3];
-    for (int r = 0; r < 3; ++r) {
-      T s = T(0);
-      for (int c = 0; c < 3; ++c) {
-        const T m = minor2(A, c, r);
-        s += (((r + c) % 2 == 0) ? m : -m) / det * b[c];
-      }
-      sol[r] = s;
-    }
-    const T new_x_dot = x_dot + sol[0] * dt;
-    const T new_theta1_dot = theta1_dot + sol[1] * dt;
-    const T new_theta2_dot = theta2_dot + sol[2] * dt;
-    xn[0] = x[0] + new_x_dot * dt;
-    xn[1] = new_x_dot;
-    xn[2] = theta1 + new_theta1_dot * dt;
-    xn[3] = new_theta1_dot;
-    xn[4] = theta2 + new_theta2_dot * dt;
-    xn[5] = new_theta2_dot;
-  }
-  template <typename T>
-  __device__ static void augment(const T* x, T* y) {
-    y[0] = x[0]; y[1] = x[1]; y[2] = x[3]; y[3] = x[5];
-    y[4] = sin(x[2]); y[5] = cos(x[2]); y[6] = sin(x[4]); y[7] = cos(x[4]);
-  }
-};
-
-struct Rendezvous {  // examples/rendezvous/model.py
-  static constexpr int n = 8, nu = 4, n_params = 3, n_aug = 8;
-  static constexpr bool full_cov = true;  // re-encodes decode_covar(z)
-  template <typename T>
-  __device__ static void step(const T* p, const T* x, const T* u, T* xn) {
-    const T dt = p[0], m = p[1], alpha = p[2];
-    for (int j = 0; j < 4; ++j) {
-      xn[j] = x[j] + x[j + 4] * dt;
-      T acc = x[j + 4] * (T(1) - alpha * dt / m);
-      acc = acc + u[j] * dt / m;
-      xn[j + 4] = x[j + 4] + acc * dt;
-    }
-  }
-};
-
-// decode_var of the belief part of z (n values).
-template <typename T, int n, int codec>
-__device__ __forceinline__ void decode_var(const T* z, T* v) {
-  const T* o = z + n;
-  for (int j = 0; j < n; ++j) {
-    if constexpr (codec == kVar) {
-      v[j] = o[j];
-    } else if constexpr (codec == kStd) {
-      v[j] = o[j] * o[j];
-    } else if constexpr (codec == kFull) {
-      v[j] = o[j * n + j];
-    } else {  // the squared columns of the upper factor, summed
-      T s = T(0);
-      for (int i = 0; i <= j; ++i) s += o[tri(i, j, n)] * o[tri(i, j, n)];
-      v[j] = s;
-    }
-  }
-}
-
-// encode(mean, V=v): the belief part of z.
-template <typename T, int n, int codec>
-__device__ __forceinline__ void encode_var(const T* v, T* z) {
-  T* o = z + n;
-  if constexpr (codec == kVar) {
-    for (int j = 0; j < n; ++j) o[j] = v[j];
-  } else if constexpr (codec == kStd) {
-    for (int j = 0; j < n; ++j) o[j] = sqrt(v[j]);
-  } else if constexpr (codec == kFull) {
-    for (int r = 0; r < n; ++r)
-      for (int c = 0; c < n; ++c) o[r * n + c] = r == c ? v[r] : T(0);
-  } else {  // diag(sqrt(max(v, 0))), keeping a NaN
-    for (int r = 0; r < n; ++r)
-      for (int c = r; c < n; ++c)
-        o[tri(r, c, n)] = r == c ? sqrt(v[r] < T(0) ? T(0) : v[r]) : T(0);
-  }
-}
-
-// decode_covar of the belief part of z (n x n, row-major).
-template <typename T, int n, int codec>
-__device__ __forceinline__ void decode_covar(const T* z, T* C) {
-  const T* o = z + n;
-  if constexpr (codec == kFull) {
-    for (int e = 0; e < n * n; ++e) C[e] = o[e];
-  } else if constexpr (codec == kChol) {  // U^T U
-    for (int r = 0; r < n; ++r)
-      for (int c = 0; c < n; ++c) {
-        T s = T(0);
-        for (int k = 0; k <= (r < c ? r : c); ++k)
-          s += o[tri(k, r, n)] * o[tri(k, c, n)];
-        C[r * n + c] = s;
-      }
-  } else {
-    T v[n];
-    decode_var<T, n, codec>(z, v);
-    for (int r = 0; r < n; ++r)
-      for (int c = 0; c < n; ++c) C[r * n + c] = r == c ? v[r] : T(0);
-  }
-}
-
-// encode(mean, C=C): the belief part of z.
-template <typename T, int n, int codec>
-__device__ __forceinline__ void encode_covar(const T* C, T* z) {
-  T* o = z + n;
-  if constexpr (codec == kFull) {
-    for (int e = 0; e < n * n; ++e) o[e] = C[e];
-  } else if constexpr (codec == kChol) {
-    // safe_cholesky's default ladder (utils.linalg.JITTER_LEVELS); C is
-    // symmetric as decoded, so its symmetrization is exact.
-    const T jitter[5] = {T(1e-12), T(1e-9), T(1e-6), T(1e-3), T(1e-1)};
-    T L[n * n];
-    pddp::safe_cholesky_lower<n>(C, jitter, 5, L);
-    pddp::triu_flatten_lower_t(L, n, o);
-  } else {
-    T v[n];
-    for (int j = 0; j < n; ++j) v[j] = C[j * n + j];
-    encode_var<T, n, codec>(v, z);
-  }
-}
+constexpr int kMaxParams = 176;  // 8 model + 2 * 8^2 + 4^2 + 8 + 4 + 2 * 4
 
 // One model step of the encoded state z, in place.
 template <typename T, class M, int codec>
@@ -364,7 +162,7 @@ struct Args {
 // first step), its actions (W a step) and its stage costs (W a step).
 template <class M, int codec, int cost>
 struct K2Shape {
-  static constexpr int n = M::n, nu = M::nu, nz = encoded_size(codec, n);
+  static constexpr int n = M::n, nu = M::nu, nz = pddp::encoded_size(codec, n);
   static constexpr int ny = cost == kAugQR ? M::n_aug : n;
   // Parameter layout: the model's, then Q, R, Q_term, x_goal, u_goal.
   static constexpr int kQ = M::n_params, kR = kQ + ny * ny;
@@ -378,18 +176,22 @@ struct K2Shape {
   }
 };
 
-template <typename T, class M, int codec, int cost>
+// Constrained: constrain_model's subclass, its bounds after the parameters
+// (an instance of its own, so that the others keep their code).
+template <typename T, class M, int codec, int cost, bool Constrained>
 __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
     fused_rollout_kernel(const Args<T> g) {
   using S = K2Shape<M, codec, cost>;
   constexpr int nz = S::nz, nu = S::nu;
   constexpr int n_params = S::n_params;
-  static_assert(n_params <= kMaxParams, "parameter buffer");
+  constexpr int n_all = n_params + (Constrained ? 2 * nu : 0);
+  static_assert(n_all <= kMaxParams, "parameter buffer");
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
-  // The parameters, once per block: the only block barrier.
+  // The parameters, once per block: the only block barrier. A constrained
+  // model's bounds follow them (its lower, then its upper bounds).
   T* const p = reinterpret_cast<T*>(smem_raw);
-  for (int e = threadIdx.x; e < n_params; e += blockDim.x) p[e] = g.params[e];
+  for (int e = threadIdx.x; e < n_all; e += blockDim.x) p[e] = g.params[e];
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -401,7 +203,7 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
   const int Aw = A - a0 < 32 ? A - a0 : 32;
   const long warp_elems = pddp::round16(S::warp_elems(C, W) * long(sizeof(T))) /
                           long(sizeof(T));
-  T* const ring = p + pddp::round16(long(n_params) * long(sizeof(T))) /
+  T* const ring = p + pddp::round16(long(n_all) * long(sizeof(T))) /
                           long(sizeof(T)) +
                   warp * warp_elems;
   T* const outZ = ring + long(pddp::kStages) * C * S::n_nominal;
@@ -480,7 +282,16 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
           }
           u[m] = um;
         }
-        model_step<T, M, codec>(p, z, u);
+        if constexpr (Constrained) {
+          T uc[nu];
+#pragma unroll
+          for (int m = 0; m < nu; ++m)
+            uc[m] = pddp::constrain(u[m], p[n_params + m],
+                                    p[n_params + nu + m]);
+          model_step<T, M, codec>(p, z, uc);
+        } else {
+          model_step<T, M, codec>(p, z, u);
+        }
 #pragma unroll
         for (int e = 0; e < nz; ++e)
           outZ[((j + 1) * Aw + lane) * nz + e] = z[e];
@@ -517,22 +328,22 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
   }
 }
 
-template <typename T, class M, int codec, int cost>
+template <typename T, class M, int codec, int cost, bool Constrained>
 int launch_one(Args<T> g, cudaStream_t stream) {
   using S = K2Shape<M, codec, cost>;
   const long warps = long(g.B) * g.G;
   const pddp::Plan p = pddp::plan<T>(
-      warps, g.N, S::n_params,
+      warps, g.N, S::n_params + (Constrained ? 2 * S::nu : 0),
       [W = g.W](int chunk) { return S::warp_elems(chunk, W); });
   if (p.bytes > pddp::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static long allowed = 48 * 1024;  // per instance
   const cudaError_t err = pddp::allow_smem(
-      fused_rollout_kernel<T, M, codec, cost>, p.bytes, allowed);
+      fused_rollout_kernel<T, M, codec, cost, Constrained>, p.bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   g.C = p.chunk;
   const long blocks = (warps + p.warps - 1) / p.warps;
   if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
-  fused_rollout_kernel<T, M, codec, cost>
+  fused_rollout_kernel<T, M, codec, cost, Constrained>
       <<<unsigned(blocks), 32 * p.warps, p.bytes, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
@@ -585,7 +396,7 @@ template <typename T>
 int launch(const T* Z, const T* U, const T* k, const T* K, const T* alphas,
            const T* params, const T* bounds, T* Z_out, T* U_out, T* J_out,
            int B, int N, int A, int model, int codec, int cost,
-           void* stream_ptr) {
+           int constrained, void* stream_ptr) {
   if (B < 1 || N < 1 || A < 1 || (cost != kNoCost && !J_out))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args<T> g{Z, U, k, K, alphas, params, bounds, Z_out, U_out, J_out,
@@ -594,7 +405,11 @@ int launch(const T* Z, const T* U, const T* k, const T* K, const T* alphas,
   return static_cast<int>(visit(
       model, codec, cost, cudaErrorInvalidValue, [&](auto inst) -> long {
         using I = decltype(inst);
-        return launch_one<T, typename I::M, I::codec, I::cost>(g, stream);
+        if (constrained)
+          return launch_one<T, typename I::M, I::codec, I::cost, true>(
+              g, stream);
+        return launch_one<T, typename I::M, I::codec, I::cost, false>(
+            g, stream);
       }));
 }
 
@@ -603,7 +418,9 @@ int launch(const T* Z, const T* U, const T* k, const T* K, const T* alphas,
 extern "C" {
 
 // model: 0 cartpole, 1 pendulum, 2 double cartpole, 3 rendezvous; codec:
-// StateEncoding's value; cost: 0 none, 1 QRCost, 2 augmented QRCost.
+// StateEncoding's value; cost: 0 none, 1 QRCost, 2 augmented QRCost;
+// constrained: constrain_model's subclass, its bounds (lower, then upper,
+// nu each) after the parameters and the cost in params.
 // Z (B, N+1, nz), U and k (B, N, nu), K (B, N, nu, nz), alphas (A);
 // bounds (2, nu) or null; Z_out (B, N+1, A, nz), U_out (B, N, A, nu),
 // J_out (B, A) or null without a cost. The launch picks its warps a block
@@ -614,9 +431,10 @@ int pddp_fused_rollout_f32(const float* Z, const float* U, const float* k,
                            const float* params, const float* bounds,
                            float* Z_out, float* U_out, float* J_out, int B,
                            int N, int A, int model, int codec, int cost,
-                           void* stream) {
+                           int constrained, void* stream) {
   return launch<float>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
-                       J_out, B, N, A, model, codec, cost, stream);
+                       J_out, B, N, A, model, codec, cost, constrained,
+                       stream);
 }
 #endif
 
@@ -626,9 +444,10 @@ int pddp_fused_rollout_f64(const double* Z, const double* U, const double* k,
                            const double* params, const double* bounds,
                            double* Z_out, double* U_out, double* J_out, int B,
                            int N, int A, int model, int codec, int cost,
-                           void* stream) {
+                           int constrained, void* stream) {
   return launch<double>(Z, U, k, K, alphas, params, bounds, Z_out, U_out,
-                        J_out, B, N, A, model, codec, cost, stream);
+                        J_out, B, N, A, model, codec, cost, constrained,
+                        stream);
 }
 #endif
 

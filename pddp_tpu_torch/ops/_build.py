@@ -36,6 +36,7 @@ SOURCES = {
     "backward_kernel": "backward_kernel.cu",
     "fused_rollout": "fused_rollout.cu",
     "fused_bnn_rollout": "fused_bnn_rollout.cu",
+    "fused_particle_rollout": "fused_particle_rollout.cu",
 }
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,8 +3,10 @@
 
 Port of the stateful variant of ``pddp_tpu/ops/fused_rollout.py:
 fused_control_law``: the closed-loop rollout of all A step sizes of a
-``BNNDynamicsModel`` under UPPER_TRIANGULAR_CHOLESKY, with the model's
-rolling state (the previous particle outputs) and the per-step noise aux.
+``BNNDynamicsModel`` under any of the five codecs (the noise inference
+through the codec's factor, the moment match into the codec), with the
+model's rolling state (the previous particle outputs) and the per-step
+noise aux.
 The kernel returns trajectories and aux only; the cost is a batched
 post-pass, as in ``pddp_tpu``'s belief-state line search.
 
@@ -25,7 +27,8 @@ import ctypes
 import torch
 
 from ..controllers.ilqr import control_law
-from ..encoding import StateEncoding, decode_covar_sqrt
+from ..encoding import (StateEncoding, decode_covar_sqrt,
+                        infer_encoded_state_size)
 from ..models.bnn import BNNDynamicsModel, infer_eps as plain_infer_eps
 from ..models.bnn.model import moment_match as plain_moment_match
 from ..utils.linalg import JITTER_LEVELS
@@ -40,7 +43,9 @@ launches = {"rollout": 0, "infer_eps": 0, "moment_match": 0, "mlp": 0}
 
 MAX_N, MAX_NU, MAX_LAYERS = 8, 4, 6
 
-#: csrc/fused_bnn_rollout.cu:Config, field by field (name, count).
+#: csrc/fused_bnn_rollout.cu:Config, field by field (name, count), then
+#: the rollout's codec (StateEncoding's value), which the library keeps
+#: out of Config.
 _CONFIG_FIELDS = (
     ("n", 1), ("nu", 1), ("P", 1), ("n_layers", 1),
     ("width", MAX_LAYERS + 1), ("w_off", MAX_LAYERS), ("b_off", MAX_LAYERS),
@@ -49,7 +54,7 @@ _CONFIG_FIELDS = (
     ("dx_mean_off", 1), ("dx_std_off", 1), ("u_min_off", 1),
     ("u_max_off", 1), ("jitter_off", 1), ("n_jitter", 1),
     ("predicted_std", 1), ("sample_input", 1), ("infer_noise", 1),
-    ("constrained", 1))
+    ("constrained", 1), ("codec", 1))
 
 
 def _widths(net):
@@ -59,16 +64,14 @@ def _widths(net):
 
 def supports(model, encoding=None):
     """Whether the kernel covers ``model`` under ``encoding``: a
-    ``BNNDynamicsModel`` (exact type) under UPPER_TRIANGULAR_CHOLESKY
-    with state size <= 8, action size <= 4, at most 6 linear layers, an
+    ``BNNDynamicsModel`` (exact type) under any of the five codecs with
+    state size <= 8, action size <= 4, at most 6 linear layers, an
     output of width 2 n, ReLU, at least two particles and the net at full
     precision (no ``compute_dtype`` or ``matmul_dtype``), its particles
     not sharded over ranks (the kernel sums over its own). The launch plan
     (cluster, particles and shared memory of a CTA) is the library's: a
     shape it cannot plan makes the launch raise."""
-    if type(model) is not BNNDynamicsModel:
-        return False
-    if encoding != StateEncoding.UPPER_TRIANGULAR_CHOLESKY:
+    if type(model) is not BNNDynamicsModel or encoding is None:
         return False
     net = model.net
     return (model.state_size <= MAX_N and model.action_size <= MAX_NU
@@ -122,13 +125,14 @@ class _Packer:
         return buf, _config_ints(self.cfg)
 
 
-def _params(model, dtype, device):
+def _params(model, dtype, device, encoding):
     """(parameter buffer, config ints) of ``model`` for the rollout."""
-    return _pack(model, dtype, device).done()
+    return _pack(model, dtype, device, encoding).done()
 
 
-def _pack(model, dtype, device):
-    """The packer holding ``model``'s rollout parameters and config."""
+def _pack(model, dtype, device, encoding):
+    """The packer holding ``model``'s rollout parameters and config under
+    ``encoding``."""
     pk = _Packer(dtype, device)
     n, nu = model.state_size, model.action_size
     pk.net(model.net, model.n_particles, n)
@@ -149,7 +153,7 @@ def _pack(model, dtype, device):
         nonang=list(nai), predicted_std=int(model.use_predicted_std),
         sample_input=int(model.sample_input_distribution),
         infer_noise=int(model.infer_noise_variables),
-        constrained=int(model.constrained))
+        constrained=int(model.constrained), codec=int(encoding))
     return pk
 
 
@@ -229,9 +233,8 @@ def fused_bnn_control_law(model, Z, U, k, K, alphas,
          AUX (N, ..., A, P, n)), the layout of ``control_law``.
     """
     if not supports(model, encoding):
-        raise ValueError("the BNN rollout kernel covers BNNDynamicsModel "
-                         "under UPPER_TRIANGULAR_CHOLESKY only (see "
-                         "supports)")
+        raise ValueError("the BNN rollout kernel does not cover this "
+                         "model (see supports)")
     if Z.device.type == "cpu":
         return control_law(model, Z, U, k, K, alphas, encoding,
                            u_min=u_min, u_max=u_max, with_aux=True)
@@ -248,11 +251,11 @@ def fused_bnn_control_law(model, Z, U, k, K, alphas,
                          "{} steps".format(N, model.eps_in.shape[0]))
     for name, t, shape in zip(
             ("Z", "U", "k", "K", "alphas"), ins + (alphas,),
-            ((B, N + 1, n + n * (n + 1) // 2), (B, N, nu), (B, N, nu),
-             (B, N, nu, nz), (A,))):
+            ((B, N + 1, infer_encoded_state_size(n, encoding)), (B, N, nu),
+             (B, N, nu), (B, N, nu, nz), (A,))):
         _check(name, t, shape, dtype, device)
     fn = _function("rollout", dtype)
-    params, cfg = _params(model, dtype, device)
+    params, cfg = _params(model, dtype, device, encoding)
     eps_in = model.eps_in.to(dtype=dtype, device=device).contiguous()
     eps_out = (model.eps_out.to(dtype=dtype, device=device).contiguous()
                if model.use_predicted_std else None)
@@ -375,16 +378,17 @@ def mlp(net, x):
     return y
 
 
-def launch_plan(model, clusters, dtype, entry="rollout"):
-    """The library's launch plan of K2(d) (``entry="rollout"``, one cluster
-    per (solve, candidate): ``clusters`` = B * A) or of F3 (``"mlp"``, one
-    per group of its P particles) for the ``BNNDynamicsModel`` ``model``
+def launch_plan(model, clusters, dtype, encoding, entry="rollout"):
+    """The library's launch plan of K2(d) (``entry="rollout"`` under
+    ``encoding``, one cluster per (solve, candidate): ``clusters`` = B * A)
+    or of F3 (``"mlp"``, one per group of its P particles; ``encoding``
+    unused) for the ``BNNDynamicsModel`` ``model``
     on the current CUDA device: {"cluster": CTAs a cluster,
     "particles_per_cta", "threads": threads a CTA, "smem_bytes": dynamic
     shared memory a CTA, "masks_resident", "weights_resident": one flag a
     layer}. Raises where the library cannot plan the shape."""
     if entry == "rollout":
-        cfg = _pack(model, dtype, "cpu").cfg
+        cfg = _pack(model, dtype, "cpu", encoding).cfg
     else:
         pk = _Packer(dtype, "cpu")
         pk.net(model.net, model.n_particles, model.state_size)

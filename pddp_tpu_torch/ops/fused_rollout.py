@@ -3,12 +3,13 @@
 Port of ``pddp_tpu/ops/fused_rollout.py:fused_control_law``. Pallas traced
 any model's jnp code into its kernel; a CUDA kernel carries its own copy
 of the model and cost, so ``supports_fused_rollout`` admits what the
-port's kernels cover, and ``solve`` takes the plain line search for
-anything else:
+port's kernels cover (``pddp_tpu``'s gate for the models it ships), and
+``solve`` takes the plain line search for anything else:
 
  * ``csrc/fused_rollout.cu``, one template per (model, codec, cost), for
-   the exact types of the four example models (cartpole, pendulum,
-   double cartpole, rendezvous):
+   the four example models (cartpole, pendulum, double cartpole,
+   rendezvous) and their ``constrain_model`` subclasses (instances of
+   their own, the bounds in ``param_buffer``; ``ops/_examples.py``):
    stage (a), the cartpole under IGNORE_UNCERTAINTY; stage (b), the other
    three under IGNORE_UNCERTAINTY (the cost, a ``QRCost`` on the state or
    on its angular augmentation, is accumulated inside the kernel); stage
@@ -16,9 +17,18 @@ anything else:
    state sizes up to ``SMALL_N``, as ``pddp_tpu``'s gate has it), which
    returns trajectories only: a cost, if given, is a batched post-pass;
  * stage (d), ``csrc/fused_bnn_rollout.cu`` (``ops/fused_bnn_rollout.py``):
-   the stateful belief-state BNN under the Cholesky codec, admitted only
-   with ``allow_stateful=True`` as in ``pddp_tpu``; the cost, if given, is
-   a batched post-pass.
+   the stateful belief-state BNN under any of the five codecs;
+ * stage (e), ``csrc/fused_particle_rollout.cu``
+   (``ops/fused_particle_rollout.py``): the stateful
+   ``ParticleDynamicsModel`` over an example of (a)-(c), under any of the
+   five codecs.
+
+The stateful stages are admitted only with ``allow_stateful=True``, as in
+``pddp_tpu``, and never take a cost in the kernel: a cost, if given, is a
+batched post-pass. Still refused, each with the ``ValueError`` of
+``fused_control_law``: any other model type or subclass, a BNN with
+``compute_dtype``/``matmul_dtype`` or with its particles sharded, a
+particle model over anything but an example.
 
 The plain version is ``controllers.ilqr.control_law`` (under
 IGNORE_UNCERTAINTY with the cost accumulated in the loop, the kernel's
@@ -35,34 +45,25 @@ import torch
 from ..controllers.ilqr import control_law, trajectory_cost
 from ..costs.quadratic import QRCost
 from ..encoding import StateEncoding, infer_encoded_state_size
-from ..examples import cartpole, double_cartpole, pendulum, rendezvous
 from ..examples.cartpole import CartpoleCost, CartpoleDynamicsModel
-from ..examples.double_cartpole import (DoubleCartpoleCost,
-                                        DoubleCartpoleDynamicsModel)
-from ..examples.pendulum import PendulumCost, PendulumDynamicsModel
-from ..examples.rendezvous import RendezvousCost, RendezvousDynamicsModel
+from ..examples.double_cartpole import DoubleCartpoleCost
+from ..examples.pendulum import PendulumCost
+from ..examples.rendezvous import RendezvousCost
 from ..utils.linalg import SMALL_N
-from . import fused_bnn_rollout
+from . import fused_bnn_rollout, fused_particle_rollout
+from . import _examples
 from ._build import load_library
 
 __all__ = ["fused_control_law", "supports_fused_rollout", "stage",
-           "param_buffer", "launches"]
+           "stateful_stage", "param_buffer", "launches"]
 
-#: kernel launches made by ``fused_control_law``, per stage.
+#: K2(a)-(c) launches made by ``fused_control_law``, per stage; (d) and
+#: (e) are counted where they launch, in ``fused_bnn_rollout.launches``
+#: and ``fused_particle_rollout.launches``.
 launches = {"a": 0, "b": 0, "c": 0}
 
 _SYMBOLS = {torch.float32: "pddp_fused_rollout_f32",
             torch.float64: "pddp_fused_rollout_f64"}
-
-#: the kernel's model index of each example, and its parameters' names.
-_MODELS = {CartpoleDynamicsModel: 0, PendulumDynamicsModel: 1,
-           DoubleCartpoleDynamicsModel: 2, RendezvousDynamicsModel: 3}
-_PARAM_NAMES = {
-    CartpoleDynamicsModel: cartpole.model.PARAM_NAMES,
-    PendulumDynamicsModel: pendulum.model.PARAM_NAMES,
-    DoubleCartpoleDynamicsModel: double_cartpole.model.PARAM_NAMES,
-    RendezvousDynamicsModel: rendezvous.model.PARAM_NAMES,
-}
 
 #: costs the kernel carries: QRCost's own __call__, or exactly augment ->
 #: QRCost (``call_is_augmented_qr``).
@@ -92,9 +93,12 @@ def _cost_kind(model, cost, encoding):
 
 def stage(model, cost, encoding):
     """K2's stage for (model, cost, encoding): "a", "b" or "c", or None
-    where ``csrc/fused_rollout.cu`` does not cover it. Exact types: a
-    subclass may change the arithmetic the kernel carries."""
-    if type(model) not in _MODELS or encoding is None:
+    where ``csrc/fused_rollout.cu`` does not cover it. The four examples'
+    exact types and their ``constrain_model`` subclasses
+    (``_examples.example_of``): any other subclass may change the
+    arithmetic the kernel carries."""
+    base = _examples.example_of(model)[0]
+    if base is None or encoding is None:
         return None
     if encoding in _MATRIX_CODECS and model.state_size > SMALL_N:
         return None
@@ -102,17 +106,27 @@ def stage(model, cost, encoding):
         return None
     if encoding != StateEncoding.IGNORE_UNCERTAINTY:
         return "c"
-    return "a" if type(model) is CartpoleDynamicsModel else "b"
+    return "a" if base is CartpoleDynamicsModel else "b"
+
+
+def stateful_stage(model, encoding):
+    """"d" for the BNN (``fused_bnn_rollout.supports``), "e" for the
+    particle model (``fused_particle_rollout.supports``), else None."""
+    if fused_bnn_rollout.supports(model, encoding):
+        return "d"
+    if fused_particle_rollout.supports(model, encoding):
+        return "e"
+    return None
 
 
 def supports_fused_rollout(model, cost, encoding=None, allow_stateful=False):
     """Whether (model, cost, encoding) runs in a kernel: stages (a)-(c)
-    (see ``stage``) or, only with ``allow_stateful``, stage (d), a
-    stateful ``BNNDynamicsModel`` under the Cholesky codec (any cost: it
-    runs as a post-pass)."""
+    (see ``stage``) or, only with ``allow_stateful``, the stateful stages
+    (d), the belief-state BNN, and (e), the particle model over an
+    example, under any codec (any cost: it runs as a post-pass)."""
     if stage(model, cost, encoding) is not None:
         return True
-    return allow_stateful and fused_bnn_rollout.supports(model, encoding)
+    return allow_stateful and stateful_stage(model, encoding) is not None
 
 
 def param_buffer(model, cost, dtype, device):
@@ -120,18 +134,13 @@ def param_buffer(model, cost, dtype, device):
     order of its module's ``PARAM_NAMES``), then, where the kernel
     carries the cost, its Q (ny x ny), R (nu x nu), Q_term (ny x ny),
     x_goal (ny) and u_goal (nu), ny the state size or, for an augmented
-    cost, the augmented size. Under stage (a) that is 63 values."""
-    parts = [getattr(model, n).reshape(1)
-             for n in _PARAM_NAMES[type(model)]]
+    cost, the augmented size (under stage (a) 63 values in all), then a
+    ``constrain_model`` subclass's lower and upper bounds (nu each)."""
+    ny = None
     if cost is not None:
-        nu = model.action_size
         ny = (len(model.non_angular_indices) + 2 * len(model.angular_indices)
               if type(cost).call_is_augmented_qr else model.state_size)
-        parts += [cost.Q.reshape(ny * ny), cost.R.reshape(nu * nu),
-                  cost.Q_term.reshape(ny * ny),
-                  cost.x_goal.reshape(-1).expand(ny),
-                  cost.u_goal.reshape(-1).expand(nu)]
-    return torch.cat([p.to(dtype=dtype, device=device) for p in parts])
+    return _examples.param_buffer(model, cost, dtype, device, ny)
 
 
 _FUNCTIONS: dict = {}
@@ -141,7 +150,7 @@ def _function(dtype):
     fn = _FUNCTIONS.get(dtype)
     if fn is None:
         fn = getattr(load_library("fused_rollout", dtype), _SYMBOLS[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FUNCTIONS[dtype] = fn
@@ -165,7 +174,8 @@ def fused_control_law(model, Z, U, k, K, alphas,
     Args mirror ``controllers.ilqr.control_law``; requires
     ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``.
     Inputs may carry one leading batch dim B of solves (stages (a)-(c):
-    one warp per 32 candidates of a solve); ``alphas`` and the bounds are
+    one warp per 32 candidates of a solve; (d) a thread-block cluster and
+    (e) a thread block per candidate); ``alphas`` and the bounds are
     shared by the batch. Under
     IGNORE_UNCERTAINTY ``cost_opts`` reach the plain version only: the
     kernel's QR costs take no options.
@@ -173,16 +183,19 @@ def fused_control_law(model, Z, U, k, K, alphas,
     Returns:
         (Z_new (..., N+1, A, nz), U_new (..., N, A, nu))
         [, J (..., A) when cost is given]
-        [, AUX when with_aux: for the examples (); for the BNN the step
-        noise (N, ..., A, P, n)].
+        [, AUX when with_aux: for the examples (); for the BNN and the
+        particle model the step noise (N, ..., A, P, n)].
     """
     st = stage(model, cost, encoding)
     if st is None:
-        if not fused_bnn_rollout.supports(model, encoding):
+        st = stateful_stage(model, encoding)
+        if st is None:
             raise ValueError("no fused rollout kernel covers this model, "
                              "cost and encoding (see supports_fused_rollout)")
-        Z_b, U_b, AUX_b = fused_bnn_rollout.fused_bnn_control_law(
-            model, Z, U, k, K, alphas, encoding, u_min=u_min, u_max=u_max)
+        law = (fused_bnn_rollout.fused_bnn_control_law if st == "d" else
+               fused_particle_rollout.fused_particle_control_law)
+        Z_b, U_b, AUX_b = law(model, Z, U, k, K, alphas, encoding,
+                              u_min=u_min, u_max=u_max)
         result = (Z_b, U_b)
         if cost is not None:
             result += (trajectory_cost(cost, Z_b, U_b, encoding, cost_opts),)
@@ -239,7 +252,8 @@ def fused_control_law(model, Z, U, k, K, alphas,
                  None if bounds is None else bounds.data_ptr(),
                  Z_out.data_ptr(), U_out.data_ptr(),
                  None if J_out is None else J_out.data_ptr(),
-                 B, N, A, _MODELS[type(model)], int(encoding), kind,
+                 B, N, A, _examples.MODELS[_examples.example_of(model)[0]],
+                 int(encoding), kind, int(_examples.example_of(model)[1]),
                  stream)
     if err != 0:
         raise RuntimeError("K2({}) (fused_rollout) launch failed: CUDA error "

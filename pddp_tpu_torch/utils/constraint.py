@@ -76,8 +76,11 @@ def constrain_model(min_bounds, max_bounds):
     """Class decorator constraining a dynamics model's actions: ``apply``
     squashes ``u`` through tanh into [min, max] before the dynamics, and
     the subclass (named ``"Constrained" + cls.__name__``) gains
-    ``constrain(u)``. A subclass is another type to K2's exact-type gate
-    (``ops.fused_rollout.stage``), so its line search runs the scan."""
+    ``constrain(u)``. The subclass is marked with the class it subclassed
+    (``_constrain_base``) and its bounds (``_constrain_bounds``), so that
+    the line-search kernels, which carry the four examples' arithmetic,
+    admit the constrained examples (``ops/_examples.example_of``); a
+    further subclass is another type, whose line search runs the scan."""
     def decorator(cls):
         class Constrained(cls):
             def apply(self, z, u, i, aux,
@@ -89,6 +92,8 @@ def constrain_model(min_bounds, max_bounds):
             def constrain(self, u):
                 return _constrain_like(u, min_bounds, max_bounds)
 
+        Constrained._constrain_base = cls
+        Constrained._constrain_bounds = (min_bounds, max_bounds)
         Constrained.__name__ = "Constrained" + cls.__name__
         Constrained.__qualname__ = Constrained.__name__
         return Constrained

@@ -36,7 +36,9 @@ saving K2(d)'s (Z, U, AUX) and F3's output on the same seeded inputs, so
 that the summary gives the largest difference between the parent's and
 the change's outputs. With ``--main-path-only`` a turn times the
 wrappers' host time and the cartpole main path alone, for many short
-turns; with ``--bnn-only`` K2(d) and F3 alone; with ``--k1-block`` K1's
+turns; with ``--bnn-only`` K2(d) and F3 alone; with ``--k2-only`` K2(a)-(c)
+at every path and K2(d) and F3 (the K2 lines above), without K1, the host
+times or the paths; with ``--k1-block`` K1's
 block kernel alone at the belief codecs' widths (``chip_smoke.
 K1_BLOCK_TIMED``: nz = 20, 27, 42 at nu = 1, 44 and 72 at nu = 4; phase
 13's inputs, H=200, reg=10) for one solve and for 64, each turn saving its
@@ -95,6 +97,51 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _adapt_to_tree(cs):
+    """Let chip_smoke's launchers drive a tree from before K2's codecs
+    (K2(d) packed without an encoding, K2(a)-(c) launched without the
+    constrained flag): the BNN packer takes and drops the encoding, and
+    ``cs.raw_k2`` launches without the flag."""
+    import inspect
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    if "encoding" not in inspect.signature(fb._params).parameters:
+        params = fb._params
+        fb._params = lambda model, dtype, device, encoding=None: params(
+            model, dtype, device)
+    try:
+        import pddp_tpu_torch.ops._examples  # noqa: F401
+    except ImportError:
+        cs.raw_k2 = _raw_k2_flagless
+
+
+def _raw_k2_flagless(model, cost, Z, U, k, K, alphas, enc=None):
+    """chip_smoke.raw_k2 for a K2(a)-(c) library without the constrained
+    flag."""
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    enc = StateEncoding.IGNORE_UNCERTAINTY if enc is None else enc
+    if Z.dim() == 2:
+        Z, U, k, K = (t[None] for t in (Z, U, k, K))
+    B, N, A = U.shape[0], U.shape[1], alphas.shape[0]
+    nz, nu = Z.shape[-1], U.shape[-1]
+    kind = fr._cost_kind(model, cost, enc)
+    params = fr.param_buffer(model, cost if kind else None, Z.dtype,
+                             Z.device)
+    outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
+            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, A))]
+    fn = fr._function(Z.dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        CS.check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, params)),
+                    None, outs[0].data_ptr(), outs[1].data_ptr(),
+                    outs[2].data_ptr() if kind else None, B, N, A,
+                    fr._MODELS[type(model)], int(enc), kind, stream) == 0,
+                 "K2 launch")
+    return launch
 
 
 def _takes_regs(bk, block=False):
@@ -448,7 +495,7 @@ def output_differences(out_dir):
 
 
 def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
-         k1_block=False, ends=False):
+         k1_block=False, ends=False, k2_only=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import pddp_tpu_torch
@@ -459,6 +506,7 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
         os.path.abspath(tree)), pddp_tpu_torch.__file__
     global CS
     CS = cs = _chip_smoke()
+    _adapt_to_tree(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build_all()
@@ -478,7 +526,8 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
         out["seconds"] = time.perf_counter() - t0
         print(json.dumps(out), flush=True)
         return
-    for name, (nz, nu, N) in ({} if main_path_only else K1_SHAPES).items():
+    for name, (nz, nu, N) in ({} if main_path_only or k2_only
+                              else K1_SHAPES).items():
         row = {}
         for B in (1, BATCH):
             ins = cs.k1_inputs(np.random.default_rng(nz * 10 + nu), B, N, nz,
@@ -501,6 +550,10 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
                 model, cost, *first_iteration_inputs(name)[1], alphas, enc),
                 200)
         out["k2"][name] = row
+    if k2_only:
+        out["seconds"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+        return
     out["host"] = host_times()
     for name in ("cartpole",) if main_path_only else PATHS:
         out["paths"][name] = path_times(name)
@@ -519,6 +572,8 @@ def main():
                     help="time the wrappers and the main path alone")
     ap.add_argument("--bnn-only", action="store_true",
                     help="time K2(d) and F3 alone")
+    ap.add_argument("--k2-only", action="store_true",
+                    help="time K2(a)-(c) at the paths, K2(d) and F3 alone")
     ap.add_argument("--k1-block", action="store_true",
                     help="time K1's block kernel and the entry point alone")
     ap.add_argument("--ends", action="store_true",
@@ -533,7 +588,7 @@ def main():
         return 1
     if args.tree:
         turn(args.tree, args.label, args.main_path_only, args.bnn_only,
-             args.out, args.k1_block, args.ends)
+             args.out, args.k1_block, args.ends, args.k2_only)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -551,6 +606,7 @@ def main():
                                    os.path.abspath(args.out), "later")]
                               + ["--main-path-only"] * args.main_path_only
                               + ["--bnn-only"] * args.bnn_only
+                              + ["--k2-only"] * args.k2_only
                               + ["--k1-block"] * args.k1_block
                               + ["--ends"] * (args.k1_block and first),
                               capture_output=True, text=True,

@@ -255,14 +255,16 @@ def test_step_moment_match_and_jacobians_match_jax(models):
 
 def test_fused_gate_and_cpu_wrappers(models):
     """pddp_tpu's gate: the stateful BNN runs in K2 only with
-    allow_stateful; on CPU tensors K2(d) and F1-F3 run their plain
-    versions, and launch nothing."""
+    allow_stateful, under any codec; on CPU tensors K2(d) and F1-F3 run
+    their plain versions, and launch nothing."""
     _, tm = models
     tc = CartpoleCost(device="cpu", dtype=torch.float64)
     assert not supports_fused_rollout(tm, tc, CH)
     assert supports_fused_rollout(tm, tc, CH, allow_stateful=True)
-    assert not supports_fused_rollout(
+    assert supports_fused_rollout(
         tm, tc, StateEncoding.VARIANCE_ONLY, allow_stateful=True)
+    assert not supports_fused_rollout(
+        tm, tc, StateEncoding.VARIANCE_ONLY)
     assert supports_fused_rollout(
         CartpoleDynamicsModel(device="cpu"), CartpoleCost(device="cpu"),
         StateEncoding.IGNORE_UNCERTAINTY)
@@ -308,7 +310,8 @@ def test_packed_parameters_start_on_16_bytes(dtype):
     model = cls.init(seed=2, n_particles=13, horizon=3, dtype=dtype,
                      device="cpu", chol_jitter=(1e-12, 1e-6, 1e-3))
     assert fb.supports(model, StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
-    pk = fb._pack(model, dtype, "cpu")
+    pk = fb._pack(model, dtype, "cpu",
+                  StateEncoding.UPPER_TRIANGULAR_CHOLESKY)
     itemsize = torch.empty((), dtype=dtype).element_size()
     assert pk.cfg["constrained"] == 1 and min(pk.cfg["m_off"]) >= 0
     assert all(s * itemsize % 16 == 0 for s in pk.starts)

@@ -115,10 +115,11 @@ def test_k2_kernel_matches_plain_on_card(cuda, dtype, tol, bounds):
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
 
 
-def _bnn(cuda, dtype, N, P=16, hidden=(32, 32), gains=True):
+def _bnn(cuda, dtype, N, P=16, hidden=(32, 32), gains=True, enc=None):
     """A seeded untrained BNN, its start belief, and finite gains of one
     reg=1 backward pass around U = 0.1 (computed on the CPU; none
-    without ``gains``)."""
+    without ``gains``), under the codec ``enc`` (the Cholesky codec's by
+    default)."""
     from pddp_tpu_torch.encoding import encode
     from pddp_tpu_torch.models.bnn import bnn_dynamics_model_factory
     cls = bnn_dynamics_model_factory(4, 1, list(hidden), angular_indices=(2,),
@@ -128,12 +129,13 @@ def _bnn(cuda, dtype, N, P=16, hidden=(32, 32), gains=True):
                         device=cuda, chol_jitter=(1e-12, 1e-6)), None
     m = cls.init(seed=3, n_particles=P, horizon=N + 1, dtype=torch.float64,
                  device="cpu", chol_jitter=(1e-12, 1e-6))
+    enc = CH if enc is None else enc
     z0 = encode(torch.zeros(4, dtype=torch.float64),
-                V=1e-2 * torch.ones(4, dtype=torch.float64), encoding=CH)
+                V=1e-2 * torch.ones(4, dtype=torch.float64), encoding=enc)
     U = torch.full((N, 1), 0.1, dtype=torch.float64)
-    Z, AUX = rollout(m, z0, U, CH)
+    Z, AUX = rollout(m, z0, U, enc)
     cost = CartpoleCost(device="cpu", dtype=torch.float64)
-    k, K, ok = backward(*local_model(Z, U, AUX, m, cost, CH), reg=1.0)
+    k, K, ok = backward(*local_model(Z, U, AUX, m, cost, enc), reg=1.0)
     assert bool(ok)
     m_dev = cls.init(seed=3, n_particles=P, horizon=N + 1, dtype=dtype,
                      device=cuda, chol_jitter=(1e-12, 1e-6))
@@ -172,7 +174,7 @@ def test_k2d_bnn_kernel_matches_plain_on_card(cuda, dtype, tol, B, P, A,
                        with_aux=True)
     torch.cuda.synchronize()
     assert fb.launches["rollout"] == n + 1
-    assert fb.launch_plan(model, B * A, dtype)["cluster"] >= 1
+    assert fb.launch_plan(model, B * A, dtype, CH)["cluster"] >= 1
     for a, w in zip(got, want):
         assert bool(torch.isfinite(w).all())
         assert float((a - w).abs().max()) <= tol * float(w.abs().max())
@@ -914,3 +916,171 @@ def test_particle_sharded_solve_on_card(nccl_world):
     assert abs(r.J_opt - ref.J_opt) <= 1e-9 * abs(ref.J_opt)
     for a, b in ((r.Z, ref.Z), (r.U, ref.U)):
         assert float(((a - b).abs() - 1e-7 * b.abs()).max()) <= 1e-10
+
+
+def _f32_held(got, want, ref):
+    """float32 against its plain version ``want`` by chip_smoke.py's rule
+    (``f32_derived``, phase 19's floor): each output within the larger of
+    the floor and twice the float32 plain version's own distance to the
+    float64 plain version ``ref`` on the same inputs, relative to its
+    largest value."""
+    from chip_smoke import REST_F32_FLOOR, f32_derived, rel_err
+    for a, w, r in zip(got, want, ref):
+        assert bool(torch.isfinite(a).all())
+        assert f32_derived(rel_err(a.double(), r)[1],
+                           rel_err(w.double(), r)[1], rel_err(a, w)[1],
+                           REST_F32_FLOOR)["held"]
+
+
+def _cast(model, dtype):
+    """The particle model over the cartpole with its noise and the
+    inner model's parameters cast to ``dtype``."""
+    from pddp_tpu_torch.examples.cartpole.model import PARAM_NAMES
+    inner = CartpoleDynamicsModel(*(getattr(model.inner, n).to(dtype)
+                                    for n in PARAM_NAMES),
+                                  device=model.eps.device, dtype=dtype)
+    return model.replace(inner=inner, eps=model.eps.to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("codec", ["VARIANCE_ONLY",
+                                   "UPPER_TRIANGULAR_CHOLESKY",
+                                   "IGNORE_UNCERTAINTY"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_k2e_particle_kernel_matches_plain_on_card(cuda, dtype, codec, B):
+    """K2(e) through ``fused_control_law`` against ``control_law`` with
+    the particle model over the cartpole (P=37, N=12, ten alphas), one
+    row of each codec family: float64 each output within 1e-10 of its
+    largest value, float32 by ``_f32_held``; one launch."""
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.utils.particles import particulate_model
+    enc, f64, N = StateEncoding[codec], torch.float64, 12
+    rng = np.random.default_rng(5)
+    inner = CartpoleDynamicsModel(dt=0.05, device=cuda, dtype=f64)
+    m64 = particulate_model(inner, eps=rng.standard_normal((N + 1, 37, 4)),
+                            n_particles=37, horizon=N + 1)
+    cost = CartpoleCost(device=cuda, dtype=f64)
+    x0 = torch.tensor([0.0, 0.0, 0.2, 0.0], dtype=f64, device=cuda)
+    z0 = x0 if enc == IGN else encode(x0, V=1e-2 * torch.ones_like(x0),
+                                      encoding=enc)
+    U = torch.as_tensor(0.1 + 0.05 * rng.standard_normal((N, 1)),
+                        device=cuda)
+    Z, AUX = rollout(m64, z0, U, enc)
+    k, K, ok = backward(*local_model(Z, U, AUX, m64, cost, enc), reg=10.0)
+    assert bool(ok)
+    ins = [t.to(dtype) for t in (Z, U, k, K)]
+    if B > 1:
+        ins = [(t * torch.as_tensor(1.0 + 0.01 * rng.standard_normal(
+            (B,) + t.shape), dtype=dtype, device=cuda)).contiguous()
+            for t in ins]
+    model = _cast(m64, dtype)
+    cost_t = CartpoleCost(device=cuda, dtype=dtype)
+    alphas = default_fit_alphas(dtype, cuda)
+    n = fpr.launches["rollout"]
+    got = fr.fused_control_law(model, *ins, alphas, enc, cost=cost_t,
+                               with_aux=True)
+    torch.cuda.synchronize()
+    assert fpr.launches["rollout"] == n + 1
+
+    def plain(m, c, ts, a):
+        return control_law(m, *ts, a, enc, cost=c, with_aux=True)
+    want = plain(model, cost_t, ins, alphas)
+    if dtype == f64:
+        for a, w in zip(got, want):
+            assert bool(torch.isfinite(w).all())
+            assert float((a - w).abs().max()) <= 1e-10 * float(
+                w.abs().max())
+    else:
+        ref = plain(_cast(model, f64), cost, [t.double() for t in ins],
+                    alphas.double())
+        _f32_held(got, want, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("codec", ["FULL_COVARIANCE_MATRIX",
+                                   "VARIANCE_ONLY"])
+def test_k2d_bnn_kernel_other_codecs_on_card(cuda, dtype, codec):
+    """K2(d) under the full covariance and VARIANCE_ONLY against
+    control_law with the same model, three steps, P=37: float64 each
+    output within 1e-10 of its largest value, float32 by ``_f32_held``
+    against the float64 model's plain version; one launch."""
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    enc = StateEncoding[codec]
+    model, ins = _bnn(cuda, dtype, 3, P=37, enc=enc)
+    alphas = default_fit_alphas(dtype, cuda)
+    n = fb.launches["rollout"]
+    got = fb.fused_bnn_control_law(model, *ins, alphas, enc)
+    torch.cuda.synchronize()
+    assert fb.launches["rollout"] == n + 1
+    want = control_law(model, *ins, alphas, enc, with_aux=True)
+    if dtype == torch.float64:
+        for a, w in zip(got, want):
+            assert bool(torch.isfinite(w).all())
+            assert float((a - w).abs().max()) <= 1e-10 * float(
+                w.abs().max())
+    else:
+        m64, _ = _bnn(cuda, torch.float64, 3, P=37, gains=False)
+        ref = control_law(m64, *(t.double() for t in ins), alphas.double(),
+                          enc, with_aux=True)
+        _f32_held(got, want, ref)
+
+
+@pytest.mark.gpu
+def test_constrained_k2a_solve_on_card(cuda):
+    """``solve(..., riccati_mode="kernel", fused_rollout=True)`` on
+    constrain_model's cartpole (actions squashed into [-10, 10]), float64,
+    H=60, against the CPU's plain solve: the same state, iterations and
+    evaluations, J within 1e-10 relative; K2(a) and K1 launched once an
+    evaluation."""
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.utils.constraint import constrain_model
+    cls = constrain_model(-10.0, 10.0)(CartpoleDynamicsModel)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = cls(dt=0.05, device=dev, dtype=torch.float64)
+        cost = CartpoleCost(device=dev, dtype=torch.float64)
+        z0 = torch.tensor([0.0, 0.0, 0.1, 0.0], dtype=torch.float64,
+                          device=dev)
+        U0 = torch.full((60, 1), 0.1, dtype=torch.float64, device=dev)
+        opts = (ILQROptions(n_iterations=10, cost_in_scan=True) if dev == "cpu"
+                else ILQROptions(n_iterations=10, riccati_mode="kernel",
+                                 fused_rollout=True))
+        n = (bk.launches, fr.launches["a"])
+        runs[str(dev)] = solve(model, cost, z0, U0, opts, encoding=IGN)
+        counts = (bk.launches - n[0], fr.launches["a"] - n[1])
+    kern, plain = runs[str(cuda)], runs["cpu"]
+    assert counts == (kern.evals, kern.evals)
+    assert (kern.state, kern.iterations, kern.evals) == (
+        plain.state, plain.iterations, plain.evals)
+    assert abs(kern.J_opt - plain.J_opt) <= 1e-10 * abs(plain.J_opt)
+
+
+@pytest.mark.gpu
+@pytest.mark.xfail(strict=True, reason=(
+    "a fault of the port on the card (ROADMAP.md C): the float32 local "
+    "model of chip_smoke.py's Cholesky particle cartpole row has L_z and "
+    "L_zz not finite at step 4 on an H100, finite on the CPU and in "
+    "pddp_tpu (tests/test_torch_particle_f32.py)"))
+def test_particle_f32_chol_local_model_on_card_matches_cpu(cuda):
+    """L_z and L_zz of the float32 local model of phase 17's Cholesky
+    particle cartpole row (P=100, N=50, numpy seeds 17 and 18) on the card
+    against the CPU's: finite, within 1e-4 of the largest value (the
+    other arrays of that local model agree to ~1e-6)."""
+    import chip_smoke as cs
+    CH = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    derivs = {}
+    for device in ("cpu", cuda):
+        model, cost, z0, U0 = cs.particle_problem("cartpole_chol", device,
+                                                  torch.float32)
+        Z, AUX = rollout(model, z0, U0, CH)
+        derivs[str(device)] = local_model(Z, U0, AUX, model, cost, CH)
+    for name in ("L_z", "L_zz"):
+        i = cs.LOCAL_NAMES.index(name)
+        got = derivs["cuda"][i].cpu().double()
+        want = derivs["cpu"][i].double()
+        assert bool(torch.isfinite(want).all())
+        assert bool(torch.isfinite(got).all()), name
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), name

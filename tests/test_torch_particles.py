@@ -278,7 +278,7 @@ def test_constrain_model_matches_jax():
     jm = j_cls(dt=0.05)
     tm = t_cls(dt=0.05, device="cpu", dtype=torch.float64)
     assert isinstance(tm, tcp.CartpoleDynamicsModel)
-    assert fr.stage(tm, None, StateEncoding.IGNORE_UNCERTAINTY) is None
+    assert fr.stage(tm, None, StateEncoding.IGNORE_UNCERTAINTY) == "a"
     u = np.array([[-4.0], [0.3], [7.0]])
     _close(tm.constrain(torch.as_tensor(u)), jm.constrain(jnp.asarray(u)))
     for enc in (StateEncoding.IGNORE_UNCERTAINTY, StateEncoding.VARIANCE_ONLY):
