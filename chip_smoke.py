@@ -3628,15 +3628,19 @@ LOCAL_NAMES = ("Z", "F_z", "F_u", "L", "L_z", "L_u", "L_zz", "L_uz", "L_uu")
 
 
 def particle_f32_report(Z, derivs, r, cpu):
-    """Where the float32 Cholesky particle row parts from pddp_tpu
-    (ROADMAP C): the plain backward's ok at each reg of PARTICLE_K1_REGS
-    on the card, on the CPU (``cpu``) and in pddp_tpu's stored run; the
-    card's rollout of U0 against pddp_tpu's; each array of the card's
-    local model against the CPU's (largest difference over largest
-    value, whether it is finite, and the steps where the card's is not);
-    the solve's ends on the card and in pddp_tpu. Reported, not held."""
+    """The float32 Cholesky particle row against pddp_tpu's stored run:
+    the plain backward's ok at each reg of PARTICLE_K1_REGS on the card,
+    on the CPU (``cpu``) and in pddp_tpu; the card's rollout of U0 against
+    pddp_tpu's; each array of the card's local model against the CPU's
+    (largest difference over largest value, whether it is finite, and the
+    steps where the card's is not); the solve's ends on the card beside
+    pddp_tpu's. ``held``: the card's gains are finite at every reg where
+    pddp_tpu's are (at every one: its stored run), as the CPU's are; on
+    the card the first rung of the cost's augmented covariance fails at
+    step 4, so this holds only while a failed rung carries no derivative
+    (``utils.linalg.safe_cholesky``)."""
     import torch
-    from pddp_tpu_torch.controllers.ilqr import backward
+    from pddp_tpu_torch.controllers.ilqr import backward, iLQRState
     with np.load(PARTICLE_F32) as npz:
         ref = dict(npz)
     local = {}
@@ -3648,16 +3652,17 @@ def particle_f32_report(Z, derivs, r, cpu):
                        "finite_cpu": bool(torch.isfinite(b).all()),
                        "nonfinite_steps_card": (~fin).nonzero().flatten()
                        .tolist()}
-    return {"ok_per_reg": {
-                "card": [bool(backward(*derivs, reg=reg)[2])
-                         for reg in PARTICLE_K1_REGS],
-                "cpu": cpu["ok"],
-                "pddp_tpu": [bool(v) for v in ref["ok"]]},
+    ok = {"card": [bool(backward(*derivs, reg=reg)[2])
+                   for reg in PARTICLE_K1_REGS],
+          "cpu": cpu["ok"], "pddp_tpu": [bool(v) for v in ref["ok"]]}
+    return {"ok_per_reg": ok,
+            "held": ok["card"] == ok["pddp_tpu"] == ok["cpu"],
             "Z_vs_pddp_tpu": rel_err(Z.cpu().double(),
                                      torch.as_tensor(ref["Z"]).double()),
             "local_model_card_vs_cpu": local,
             "solve": {"card": _ends(r),
-                      "pddp_tpu": {"state": int(ref["solve_state"]),
+                      "pddp_tpu": {"state": iLQRState(
+                                       int(ref["solve_state"])).name,
                                    "iterations": int(ref["solve_iterations"]),
                                    "evals": int(ref["solve_evals"]),
                                    "J": float(ref["solve_J"])}}}
@@ -3797,6 +3802,10 @@ def phase17_particles(card, cpu):
             with timer(label + " against pddp_tpu's float32"):
                 f32_report = particle_f32_report(Z, derivs, r,
                                                  cpu["f32_cartpole_chol"])
+            want(f32_report["held"],
+                 "{}: the card's float32 gains are not finite at every reg "
+                 "where pddp_tpu's are: {}".format(
+                     label, f32_report["ok_per_reg"]))
         with timer(label + " K1 check and times"):
             checks = {"float32": particle_k1_check(derivs)}
             k1 = particle_k1_times(derivs, checks["float32"]["reg"],
@@ -4569,9 +4578,9 @@ def rest_row_times(raw1, raw64, work1, work64, cycles, N, dtype_name):
 def phase19a_particles(card, local_models):
     """19a: one iteration of each phase-17 row (PARTICLE_ROWS, P=100,
     N=50) through K1 and K2(e): the local model of U0 (phase 17's), K1 at
-    the first reg of PARTICLE_K1_REGS that gives finite gains (a float32
-    row whose gains are finite at no reg takes its float64 row's, cast:
-    ROADMAP C), and ``fused_control_law`` with the cost as a post-pass and
+    the first reg of PARTICLE_K1_REGS that gives finite gains (each type
+    its own; a row whose gains are finite at no reg fails), and
+    ``fused_control_law`` with the cost as a post-pass and
     the argmin; in float64 and float32, each against the plain
     ``control_law`` (REST_TOL; float32 rest_f32), and K2(e) alone at B=1
     and B=64."""
@@ -4617,9 +4626,10 @@ def phase19a_particles(card, local_models):
         # float32: the iteration, held by the derived tolerance.
         reset_all_counts()
         k32, K32, reg32 = k1_first_finite(d32, PARTICLE_K1_REGS)
-        gains = "float32"
         if k32 is None:
-            k32, K32, gains = k64.float(), K64.float(), "float64, cast"
+            failed.append("{}: K1's float32 gains finite at no reg".format(
+                label))
+            continue
         a32 = default_fit_alphas(f32, "cuda")
         out32, best32 = line_search_with_argmin(m32, c32, d32[0], U0, k32,
                                                 K32, a32, enc)
@@ -4631,7 +4641,7 @@ def phase19a_particles(card, local_models):
                           k32.double(), K32.double(), a32.double(), enc,
                           cost=cast_tree(c32, f64), with_aux=True)
         hold = rest_f32(out32, plain32, ref)
-        row["float32"] = {"reg": reg32, "gains": gains, "launches": counts,
+        row["float32"] = {"reg": reg32, "launches": counts,
                           "best": best32, "best_plain": int(torch.argmin(
                               torch.where(torch.isfinite(plain32[2]),
                                           plain32[2], torch.inf))),

@@ -180,18 +180,34 @@ def safe_cholesky(C, jitter_levels=JITTER_LEVELS):
     Every rung is factorized and the smallest jitter whose factor is
     finite wins; where every rung fails, the diagonal square root of the
     variances clamped at 1e-12 is returned, so the result is never NaN
-    unless C holds a NaN. Differentiable under ``torch.func``.
+    unless C holds a NaN.
+
+    The rungs are factorized on C's values alone (detached, so outside
+    autograd and every ``torch.func`` transform), which picks each
+    matrix's jitter; then C + jitter I is factorized once more, with its
+    derivative, and the identity in place of a matrix whose every rung
+    failed. So the derivative comes through the selected rung alone: a
+    failed rung's NaN cannot reach it, as it would through a ``where``
+    over every rung (the backward of a NaN rung's square root turns the
+    zero cotangent ``where`` gives it into NaN). The value is that
+    rung's factor, bit for bit.
     """
     C = _sym(C)
     n = C.shape[-1]
     eye = torch.eye(n, dtype=C.dtype, device=C.device)
-    diag = torch.diagonal(C, dim1=-2, dim2=-1).clamp(min=1e-12)
-    result = torch.sqrt(diag)[..., :, None] * eye
+    values = C.detach()
+    jitter = torch.zeros(C.shape[:-2], dtype=C.dtype, device=C.device)
+    found = torch.zeros(C.shape[:-2], dtype=torch.bool, device=C.device)
     for j in reversed(jitter_levels):
-        U = _cholesky_upper(C + j * eye)
-        ok = torch.isfinite(U).all(dim=-1).all(dim=-1)
-        result = torch.where(ok[..., None, None], U, result)
-    return result
+        ok = torch.isfinite(_cholesky_upper(values + j * eye)).all(
+            dim=-1).all(dim=-1)
+        jitter = torch.where(ok, j, jitter)
+        found = found | ok
+    found = found[..., None, None]
+    U = _cholesky_upper(torch.where(found, C + jitter[..., None, None] * eye,
+                                    eye))
+    diag = torch.diagonal(C, dim1=-2, dim2=-1).clamp(min=1e-12)
+    return torch.where(found, U, torch.sqrt(diag)[..., :, None] * eye)
 
 
 def psd_clamp(Q, floor=1e-12, extra=0.0):

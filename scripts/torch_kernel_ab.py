@@ -38,7 +38,19 @@ the change's outputs. With ``--main-path-only`` a turn times the
 wrappers' host time and the cartpole main path alone, for many short
 turns; with ``--bnn-only`` K2(d) and F3 alone; with ``--k2-only`` K2(a)-(c)
 at every path and K2(d) and F3 (the K2 lines above), without K1, the host
-times or the paths; with ``--k1-block`` K1's
+times or the paths; with ``--k2e-only`` K2(e), the particle line search,
+alone at chip_smoke.py's phase 19a rows (``PARTICLE_ROWS``: P=100, N=50,
+ten alphas; the five rows' local models and gains, made once by this
+checkout before the turns and read by every turn, so that both sides
+launch on the same inputs) for one solve and for 64 (``chip_smoke.
+batch_of``), in float32, and each row's float32 and float64 outputs at
+B=1 saved for the summary's largest parent-change difference and whether
+the float64 outputs have the same bits:
+
+    python3 scripts/torch_kernel_ab.py --parent build/parent --k2e-only \
+        --order change,parent,parent,change,change,parent,parent,change
+
+(each turn builds only K2(e)'s library); with ``--k1-block`` K1's
 block kernel alone at the belief codecs' widths (``chip_smoke.
 K1_BLOCK_TIMED``: nz = 20, 27, 42 at nu = 1, 44 and 72 at nu = 4; phase
 13's inputs, H=200, reg=10) for one solve and for 64, each turn saving its
@@ -494,8 +506,101 @@ def output_differences(out_dir):
     return out
 
 
+def k2e_inputs(out_dir):
+    """Each phase-19a row's inputs, made as chip_smoke.py's phase 19a makes
+    them but with the plain backward in place of K1 (whose library this
+    turn does not build): the local model of U0 and the gains at the first
+    reg of PARTICLE_K1_REGS that keeps them finite, in float32 and
+    float64, saved to out_dir/k2e_inputs.pt for every turn."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (backward, local_model,
+                                                 rollout)
+    from pddp_tpu_torch.encoding import StateEncoding
+    saved = {}
+    for label, _, codec, _ in CS.PARTICLE_ROWS:
+        enc = StateEncoding[codec]
+        for dtype in (torch.float32, torch.float64):
+            model, cost, z0, U0 = CS.particle_problem(label, "cuda", dtype)
+            Z, AUX = rollout(model, z0, U0, enc)
+            derivs = local_model(Z, U0, AUX, model, cost, enc)
+            for reg in CS.PARTICLE_K1_REGS:
+                k, K, ok = backward(*derivs, reg=reg)
+                if bool(ok):
+                    break
+            if not bool(ok):
+                raise RuntimeError("{} {}: gains finite at no reg"
+                                   .format(label, dtype))
+            key = "{}_{}".format(label, str(dtype).replace("torch.", ""))
+            saved[key] = {"Z": derivs[0].cpu(), "U": U0.cpu(),
+                          "k": k.cpu(), "K": K.cpu(), "reg": reg}
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "k2e_inputs.pt"))
+
+
+def k2e_times(label, out_dir, inputs_dir):
+    """K2(e) alone at each phase-19a row, float32, B=1 and 64 (CUDA
+    events), on the saved inputs; its float32 and float64 outputs at B=1
+    saved to out_dir."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    inputs = torch.load(os.path.join(inputs_dir, "k2e_inputs.pt"))
+    res, saved = {}, {}
+    for row, _, codec, _ in CS.PARTICLE_ROWS:
+        enc = StateEncoding[codec]
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).replace("torch.", "")
+            ins = inputs["{}_{}".format(row, dname)]
+            model = CS.particle_problem(row, "cuda", dtype)[0]
+            Z, U, k, K = (ins[n].to("cuda") for n in ("Z", "U", "k", "K"))
+            alphas = default_fit_alphas(dtype, "cuda")
+            out = fpr.fused_particle_control_law(model, Z, U, k, K, alphas,
+                                                 enc)
+            for name, t in zip(("Z", "U", "AUX"), out):
+                saved["{}_{}_{}".format(row, dname, name)] = t.cpu()
+            if dtype != torch.float32:
+                continue
+            batch = CS.batch_of(np.random.default_rng(19), Z, U, k, K, BATCH)
+            res[row] = {
+                "B1": CS.events_ms(CS.raw_k2e(model, Z, U, k, K, alphas,
+                                              enc), 200),
+                "B{}".format(BATCH): CS.events_ms(
+                    CS.raw_k2e(model, *batch, alphas, enc), 50)}
+    torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, label + "_k2e.pt"))
+    return res
+
+
+def k2e_output_differences(out_dir):
+    """The largest |parent - change| of each saved K2(e) output, relative
+    to its largest value, and whether the float64 outputs are the same
+    bits (the first turn of each side)."""
+    import torch
+    a = torch.load(os.path.join(out_dir, "parent_k2e.pt"))
+    b = torch.load(os.path.join(out_dir, "change_k2e.pt"))
+    out = {k: float((a[k] - b[k]).abs().max() / a[k].abs().max())
+           for k in sorted(a)}
+    out["float64_same_bits"] = all(torch.equal(a[k], b[k]) for k in a
+                                   if "_float64_" in k)
+    return out
+
+
+def build_k2e():
+    """Builds K2(e)'s two libraries at once, through the tree's own
+    `ops/_build.py`."""
+    from pddp_tpu_torch.ops import _build
+    name = "fused_particle_rollout"
+    jobs = [(_build._start(name, d)) for d in _build.DTYPES
+            if not _build._target(name, d).exists()]
+    for job in jobs:
+        _build._finish(name, *job)
+
+
 def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
-         k1_block=False, ends=False, k2_only=False):
+         k1_block=False, ends=False, k2_only=False, k2e_only=False,
+         inputs_dir=None):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import pddp_tpu_torch
@@ -509,10 +614,21 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
     _adapt_to_tree(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build_all()
+    if k2e_only:
+        build_k2e()
+    else:
+        _build.build_all()
     build_s = time.perf_counter() - t0
     out = {"tree": label, "build_s": build_s, "k1": {}, "k2": {},
-           "paths": {}, "bnn": {}, "k1_block": {}}
+           "paths": {}, "bnn": {}, "k1_block": {}, "k2e": {}}
+    if k2e_only:
+        if label == "inputs":
+            k2e_inputs(out_dir)
+        else:
+            out["k2e"] = k2e_times(label, out_dir, inputs_dir)
+        out["seconds"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+        return
     if k1_block:
         out["k1_block"] = k1_block_times(label, out_dir)
         if ends:
@@ -574,6 +690,10 @@ def main():
                     help="time K2(d) and F3 alone")
     ap.add_argument("--k2-only", action="store_true",
                     help="time K2(a)-(c) at the paths, K2(d) and F3 alone")
+    ap.add_argument("--k2e-only", action="store_true",
+                    help="time K2(e) alone at phase 19a's rows")
+    ap.add_argument("--inputs", help="with --k2e-only and --tree: where "
+                    "the rows' inputs were saved")
     ap.add_argument("--k1-block", action="store_true",
                     help="time K1's block kernel and the entry point alone")
     ap.add_argument("--ends", action="store_true",
@@ -588,7 +708,8 @@ def main():
         return 1
     if args.tree:
         turn(args.tree, args.label, args.main_path_only, args.bnn_only,
-             args.out, args.k1_block, args.ends, args.k2_only)
+             args.out, args.k1_block, args.ends, args.k2_only,
+             args.k2e_only, args.inputs)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -596,6 +717,15 @@ def main():
         check=True).stdout.strip()
     print(card, flush=True)
     trees = {"parent": os.path.abspath(args.parent), "change": HERE}
+    out_dir = os.path.abspath(args.out)
+    if args.k2e_only:  # the rows' inputs, made once by this checkout
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--tree", HERE, "--label", "inputs",
+                               "--k2e-only", "--out", out_dir],
+                              capture_output=True, text=True, cwd=HERE)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
     turns = []
     for label in args.order.split(","):
         first = not any(t["tree"] == label for t in turns)
@@ -607,6 +737,8 @@ def main():
                               + ["--main-path-only"] * args.main_path_only
                               + ["--bnn-only"] * args.bnn_only
                               + ["--k2-only"] * args.k2_only
+                              + ["--k2e-only", "--inputs", out_dir]
+                              * args.k2e_only
                               + ["--k1-block"] * args.k1_block
                               + ["--ends"] * (args.k1_block and first),
                               capture_output=True, text=True,
@@ -633,6 +765,15 @@ def main():
         return out
 
     first = turns[0]
+    if args.k2e_only:
+        summary = {"card": card, "order": args.order,
+                   "k2e": {r: {s: spread(lambda t: t["k2e"][r][s])
+                               for s in first["k2e"][r]}
+                           for r in first["k2e"]},
+                   "k2e_output_max_rel_diff": k2e_output_differences(
+                       out_dir)}
+        print(json.dumps({"summary": summary}), flush=True)
+        return 0
     summary = {"card": card, "order": args.order,
                "k1": {n: {s: best(lambda t: t["k1"][n][s])
                           for s in first["k1"][n]} for n in first["k1"]},

@@ -12,7 +12,9 @@ cartpole's [x, x', theta', sin, cos] moments, ``utils.angular.
 _augment_covar``) plus each jitter of ``JITTER_LEVELS``: a negative
 pivot makes that rung's factor NaN. Then the steps where the local
 model's L_z is not finite, on the device's own rollout and, with both
-devices, on the other device's. Prints one JSON object.
+devices, on the other device's: on an H100 the first rung fails at step
+4, and L_z stays finite there only because ``utils.linalg.safe_cholesky``
+gives a failed rung no derivative. Prints one JSON object.
 """
 
 from __future__ import annotations

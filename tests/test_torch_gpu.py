@@ -933,59 +933,96 @@ def _f32_held(got, want, ref):
 
 
 def _cast(model, dtype):
-    """The particle model over the cartpole with its noise and the
-    inner model's parameters cast to ``dtype``."""
-    from pddp_tpu_torch.examples.cartpole.model import PARAM_NAMES
-    inner = CartpoleDynamicsModel(*(getattr(model.inner, n).to(dtype)
-                                    for n in PARAM_NAMES),
-                                  device=model.eps.device, dtype=dtype)
+    """The particle model with its noise and the inner model's parameters
+    cast to ``dtype`` (a ``constrain_model`` subclass stays one)."""
+    from pddp_tpu_torch.ops._examples import PARAM_NAMES, example_of
+    names = PARAM_NAMES[example_of(model.inner)[0]]
+    inner = type(model.inner)(*(getattr(model.inner, n).to(dtype)
+                                for n in names),
+                              device=model.eps.device, dtype=dtype)
     return model.replace(inner=inner, eps=model.eps.to(dtype))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("codec", ["VARIANCE_ONLY",
-                                   "UPPER_TRIANGULAR_CHOLESKY",
-                                   "IGNORE_UNCERTAINTY"])
-@pytest.mark.parametrize("B", [1, 3])
-def test_k2e_particle_kernel_matches_plain_on_card(cuda, dtype, codec, B):
-    """K2(e) through ``fused_control_law`` against ``control_law`` with
-    the particle model over the cartpole (P=37, N=12, ten alphas), one
-    row of each codec family: float64 each output within 1e-10 of its
-    largest value, float32 by ``_f32_held``; one launch."""
-    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+_K2E_PROBLEMS: dict = {}
+
+
+def _k2e_problem(cuda, ex, codec, P, infer, constrained, N, x0):
+    """(float64 particle model, cost, Z, U, k, K) of a ``_k2e_check`` case,
+    made once for every dtype and batch that shares it."""
+    import importlib
+
+    from pddp_tpu_torch.utils.constraint import constrain_model
     from pddp_tpu_torch.utils.particles import particulate_model
-    enc, f64, N = StateEncoding[codec], torch.float64, 12
+    key = (ex, codec, P, infer, constrained, N, tuple(x0))
+    if key in _K2E_PROBLEMS:
+        return _K2E_PROBLEMS[key]
+    mod, model_cls, cost_cls, _, dt = _EXAMPLES[ex]
+    m = importlib.import_module("pddp_tpu_torch.examples." + mod)
+    cls = getattr(m, model_cls)
+    if constrained:
+        cls = constrain_model(-10.0, 10.0)(cls)
+    enc, f64 = StateEncoding[codec], torch.float64
     rng = np.random.default_rng(5)
-    inner = CartpoleDynamicsModel(dt=0.05, device=cuda, dtype=f64)
-    m64 = particulate_model(inner, eps=rng.standard_normal((N + 1, 37, 4)),
-                            n_particles=37, horizon=N + 1)
-    cost = CartpoleCost(device=cuda, dtype=f64)
-    x0 = torch.tensor([0.0, 0.0, 0.2, 0.0], dtype=f64, device=cuda)
-    z0 = x0 if enc == IGN else encode(x0, V=1e-2 * torch.ones_like(x0),
-                                      encoding=enc)
-    U = torch.as_tensor(0.1 + 0.05 * rng.standard_normal((N, 1)),
+    inner = cls(dt=dt, device=cuda, dtype=f64)
+    n, nu = inner.state_size, inner.action_size
+    m64 = particulate_model(inner, eps=rng.standard_normal((N + 1, P, n)),
+                            n_particles=P, horizon=N + 1,
+                            infer_noise_variables=infer)
+    cost = getattr(m, cost_cls)(device=cuda, dtype=f64)
+    x = torch.tensor(x0, dtype=f64, device=cuda)
+    z0 = x if enc == IGN else encode(x, V=1e-2 * torch.ones_like(x),
+                                     encoding=enc)
+    U = torch.as_tensor(0.1 + 0.05 * rng.standard_normal((N, nu)),
                         device=cuda)
     Z, AUX = rollout(m64, z0, U, enc)
-    k, K, ok = backward(*local_model(Z, U, AUX, m64, cost, enc), reg=10.0)
+    derivs = local_model(Z, U, AUX, m64, cost, enc)
+    for reg in 10.0**np.arange(1, 11):
+        k, K, ok = backward(*derivs, reg=float(reg))
+        if bool(ok):
+            break
     assert bool(ok)
+    _K2E_PROBLEMS[key] = (m64, cost, Z, U, k, K)
+    return _K2E_PROBLEMS[key]
+
+
+def _k2e_check(cuda, dtype, ex, codec, P, B, infer=True, bounds=None,
+               constrained=False, N=12, x0=None):
+    """K2(e) through ``fused_control_law`` against ``control_law`` with
+    the particle model over example ``ex`` (``constrain_model(-10, 10)``'s
+    subclass where ``constrained``), P particles, N steps, ten alphas, B
+    solves (the gains perturbed by 1 % each), noise inference on or off,
+    the actions clamped to ``bounds`` where given, from ``x0`` (by
+    default the example's start in ``_EXAMPLES``) with variances 1e-2:
+    float64 each output within 1e-10 of its largest value, float32 by
+    ``_f32_held``; one launch. The gains are the plain backward's on the
+    float64 local model of a rollout, at the first reg of 10, 100, ...
+    that keeps them finite (``_k2e_problem``)."""
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    m64, cost, Z, U, k, K = _k2e_problem(
+        cuda, ex, codec, P, infer, constrained, N,
+        _EXAMPLES[ex][3] if x0 is None else x0)
+    enc, f64 = StateEncoding[codec], torch.float64
+    rng = np.random.default_rng(6)
     ins = [t.to(dtype) for t in (Z, U, k, K)]
     if B > 1:
         ins = [(t * torch.as_tensor(1.0 + 0.01 * rng.standard_normal(
             (B,) + t.shape), dtype=dtype, device=cuda)).contiguous()
             for t in ins]
+    lo, hi = (None, None) if bounds is None else (
+        torch.tensor(b, dtype=dtype, device=cuda) for b in bounds)
     model = _cast(m64, dtype)
-    cost_t = CartpoleCost(device=cuda, dtype=dtype)
+    cost_t = type(cost)(device=cuda, dtype=dtype)
     alphas = default_fit_alphas(dtype, cuda)
-    n = fpr.launches["rollout"]
+    n_launch = fpr.launches["rollout"]
     got = fr.fused_control_law(model, *ins, alphas, enc, cost=cost_t,
-                               with_aux=True)
+                               u_min=lo, u_max=hi, with_aux=True)
     torch.cuda.synchronize()
-    assert fpr.launches["rollout"] == n + 1
+    assert fpr.launches["rollout"] == n_launch + 1
 
-    def plain(m, c, ts, a):
-        return control_law(m, *ts, a, enc, cost=c, with_aux=True)
-    want = plain(model, cost_t, ins, alphas)
+    def plain(mm, c, ts, a, b_lo, b_hi):
+        return control_law(mm, *ts, a, enc, cost=c, u_min=b_lo, u_max=b_hi,
+                           with_aux=True)
+    want = plain(model, cost_t, ins, alphas, lo, hi)
     if dtype == f64:
         for a, w in zip(got, want):
             assert bool(torch.isfinite(w).all())
@@ -993,8 +1030,59 @@ def test_k2e_particle_kernel_matches_plain_on_card(cuda, dtype, codec, B):
                 w.abs().max())
     else:
         ref = plain(_cast(model, f64), cost, [t.double() for t in ins],
-                    alphas.double())
+                    alphas.double(), *(None if b is None else b.double()
+                                       for b in (lo, hi)))
         _f32_held(got, want, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("codec", ["FULL_COVARIANCE_MATRIX",
+                                   "VARIANCE_ONLY",
+                                   "UPPER_TRIANGULAR_CHOLESKY",
+                                   "STANDARD_DEVIATION_ONLY",
+                                   "IGNORE_UNCERTAINTY"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_k2e_particle_kernel_matches_plain_on_card(cuda, dtype, codec, B):
+    """K2(e) with the particle model over the cartpole (P=37, N=12, ten
+    alphas) under each codec, one solve and three (``_k2e_check``), the
+    pole started at 0.8 rad. The gains swing the pole through 0 rad;
+    started at 0.1 or 0.2 rad, a step lands close to 0 rad, where the
+    cost's float32 variance of the pole's cosine (about v sin^2(theta))
+    cancels below its rounding, so that STANDARD_DEVIATION_ONLY's square
+    root of it is NaN for the kernel's or the plain version's states
+    alike (PERF.md §7)."""
+    _k2e_check(cuda, dtype, "cartpole", codec, 37, B,
+               x0=[0.0, 0.0, 0.8, 0.0])
+
+
+# K2(e) at the shapes its launch bounds, staging and belief warp must
+# survive: (example, codec, P, noise inference, bounds, constrained).
+K2E_SHAPES = [
+    ("rendezvous", "FULL_COVARIANCE_MATRIX", 37, True, None, False),
+    ("cartpole", "VARIANCE_ONLY", 2, True, None, False),
+    ("cartpole", "UPPER_TRIANGULAR_CHOLESKY", 1024, True, None, False),
+    ("rendezvous", "FULL_COVARIANCE_MATRIX", 1024, True, None, False),
+    ("cartpole", "UPPER_TRIANGULAR_CHOLESKY", 37, False, None, False),
+    ("cartpole", "UPPER_TRIANGULAR_CHOLESKY", 37, True, (-0.05, 0.05),
+     False),
+    ("cartpole", "UPPER_TRIANGULAR_CHOLESKY", 37, True, None, True),
+    ("double_cartpole", "VARIANCE_ONLY", 200, False, (-0.5, 0.5), True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ex,codec,P,infer,bounds,constrained", K2E_SHAPES)
+def test_k2e_particle_kernel_shapes_on_card(cuda, dtype, ex, codec, P, infer,
+                                            bounds, constrained):
+    """K2(e) against its plain version (``_k2e_check``, two solves) at
+    the rendezvous under the full covariance (nz = 72, the widest staged
+    step and the 8 x 8 ladder), 2 and 1024 particles (the smallest block
+    and the 1024-thread instance), noise inference off, the actions
+    clamped, and a ``constrain_model`` inner model."""
+    _k2e_check(cuda, dtype, ex, codec, P, 2, infer=infer, bounds=bounds,
+               constrained=constrained)
 
 
 @pytest.mark.gpu
@@ -1058,16 +1146,15 @@ def test_constrained_k2a_solve_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.xfail(strict=True, reason=(
-    "a fault of the port on the card (ROADMAP.md C): the float32 local "
-    "model of chip_smoke.py's Cholesky particle cartpole row has L_z and "
-    "L_zz not finite at step 4 on an H100, finite on the CPU and in "
-    "pddp_tpu (tests/test_torch_particle_f32.py)"))
 def test_particle_f32_chol_local_model_on_card_matches_cpu(cuda):
     """L_z and L_zz of the float32 local model of phase 17's Cholesky
     particle cartpole row (P=100, N=50, numpy seeds 17 and 18) on the card
     against the CPU's: finite, within 1e-4 of the largest value (the
-    other arrays of that local model agree to ~1e-6)."""
+    other arrays of that local model agree to ~1e-6). On an H100 the
+    first rung of the cost's augmented 5 x 5 covariance fails at step 4
+    (its last pivot -4.18e-12), so the ladder takes a later one there, and
+    L_z and L_zz stay finite only while that failed rung carries no
+    derivative (``utils.linalg.safe_cholesky``)."""
     import chip_smoke as cs
     CH = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
     derivs = {}
