@@ -696,10 +696,14 @@ def phase0_build(card):
     entries = [r["entry"] for r in kernels["fused_particle_rollout"]]
     check(all(any("particle_rollout_kernelI" + t in e for e in entries)
               for t in "fd"), "ptxas reported no K2(e) instance")
+    sass = k2d_sass_report(_build._target("fused_bnn_rollout", "f32"))
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(next(iter(report.values()))["seconds"], 3),
-          "ptxas": kernels})
+          "k2d_sass": sass, "ptxas": kernels})
+    check(len(sass["hmma"]) == 4 and all(v > 0 for v in
+                                         sass["hmma"].values()),
+          "a float32 bfloat16 instance has no HMMA: {}".format(sass))
 
 
 def phase1_k1():
@@ -4979,8 +4983,576 @@ def phase19_rest_of_k2(card, particles, cpu):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: K2(d) and F3 under the BNN's bfloat16 knobs
+# ---------------------------------------------------------------------------
+
+BF16_KNOBS = ("compute_dtype", "matmul_dtype")
+BF16_CODECS = ("UPPER_TRIANGULAR_CHOLESKY", "VARIANCE_ONLY",
+               "STANDARD_DEVIATION_ONLY", "FULL_COVARIANCE_MATRIX",
+               "IGNORE_UNCERTAINTY")
+# float64: kernel and plain version round the same operands at the same
+# points and sum the exact bfloat16 products in float64 in another order;
+# a rounding to bfloat16 lands elsewhere only where that order moves a sum
+# across a rounding boundary (about 2^-45 of the sums at K = 200).
+BF16_F64_TOL = 1e-10
+# float32 (``bf16_derived``): the kernel against the float64 plain
+# version of the same knob on the same inputs within the larger of this
+# floor (float32's order of sums over a 25-step chain, as REST_F32_FLOOR)
+# and twice the float32 plain version's own distance there.
+BF16_F32_FLOOR = 1e-5
+# Dense bfloat16 tensor-core peak of one H100 SXM at 700 W (NVIDIA's data
+# sheet; mma.sync reaches part of it, wgmma all of it).
+PEAK_BF16_FLOPS = 989e12
+# Cycles of one m16n8k16 mma.sync's result on the chain (the H100's
+# HMMA latency, about 32 cycles; an assumption of the chain floor).
+MMA_LATENCY = 32
+# 20d: each examples_torch script on the card, its depth cut: iLQR
+# iterations, training steps, MPC ticks and frames (its widths, particles,
+# batch and horizons are the script's), so that phase 20 stays near 90 s.
+# The experiment and its three problem scripts run one MPC trial
+# (max_trials 1 of 5) cut to its first tick; phase 15b runs the
+# experiment's cartpole trial deeper. parallel_solves runs its B=256,
+# H=100 batch at 1 iteration of 10 (max_evals 3 of 30): at 2 it took
+# 29.0 s of phase 20's 117 on an NVIDIA H100 80GB HBM3 at 700 W, on a
+# host that ran known_dynamics 1.3x slower than the one before (PERF.md).
+SCRIPT_CUTS = {
+    "known_dynamics": {"n_iterations": 1},
+    "experiment": {"max_trials": 1, "n_iterations": 1, "train_n_iter": 20,
+                   "mpc_ticks": 1},
+    "parallel_solves": {"n_iterations": 1, "max_evals": 3},
+    "animation": {"iterations": 3},
+    "mpc_animation": {"iterations": 3}}
+# The scripts that set fused_rollout on the card: 20d fails unless their
+# line searches launched K2.
+SCRIPT_FUSED = ("known_dynamics", "animation", "mpc_animation")
+# Scripts whose outputs are not finite, as pddp_tpu's are not: the double
+# cartpole's env (dt = 0.1) under the experiment's first exploration
+# actions, uniform in [-20, 20], leaves float32's range at the same step in
+# both packages (tests/golden/double_cartpole_explore.npz, held by
+# tests/test_torch_example_scripts.py), so its trials, model and fit carry
+# NaN; the script runs to its end all the same.
+SCRIPT_NONFINITE = ("double_cartpole",)
+
+
+def bf16_derived(out, plain, ref, floor):
+    """f32_derived's rule for a float32 output under a bfloat16 knob:
+    ``out`` against ``ref``, the float64 plain version of the same knob on
+    the same inputs, within the larger of ``floor`` and twice the float32
+    plain version ``plain``'s own distance to ``ref``, in two norms, each
+    relative to ``ref``'s: the largest error, and the root mean square,
+    which sees what the output's own rounding to bfloat16 under
+    compute_dtype hides from the largest error (one flipped rounding there
+    is as large as the knob's whole effect). No cap as f32_derived's: a
+    bfloat16 net's own distance is up to ~2e-2 on AUX, and phase 20 shows
+    instead that the full-precision kernel fails this rule."""
+    import torch
+
+    def rms(a, b):
+        return float((a.double() - b).norm() / max(float(b.norm()),
+                                                   1e-300))
+
+    res = {}
+    for norm, dist in (("max", lambda a, b: rel_err(a.double(), b)[1]),
+                       ("rms", rms)):
+        k, p = dist(out, ref), dist(plain, ref)
+        tol = max(floor, 2.0 * p)
+        res[norm] = {"kernel_vs_f64": k, "plain_vs_f64": p, "tol": tol,
+                     "held": k <= tol}
+    res["held"] = all(res[n]["held"] for n in ("max", "rms")) and bool(
+        torch.isfinite(out).all())
+    return res
+
+
+def knob_model(model, knob):
+    """``model`` with its net under ``knob`` = torch.bfloat16."""
+    import copy
+
+    import torch
+    net = copy.copy(model.net)
+    setattr(net, knob, torch.bfloat16)
+    return model.replace(net=net)
+
+
+def k2d_bf16_chain_cycles(n, nz, widths, P, dtype_name, codec=1):
+    """k2d_chain_cycles with each layer's K-long FMA chain replaced, in
+    float32, by its ceil(K / 16) dependent mma.sync (MMA_LATENCY each) and
+    the epilogue's four roundings and adds; float64 keeps the FMA chain
+    and adds the epilogue's."""
+    lat = LATENCY[dtype_name]
+    base = k2d_chain_cycles(n, nz, widths, P, dtype_name, codec)
+    layers = len(widths) - 1
+    if dtype_name == "float64":
+        return base + 4 * layers * lat["fma"]
+    fma_layers = (sum(widths[:-1]) + 2 * layers) * lat["fma"]
+    mma = sum(-(-K // 16) * MMA_LATENCY + 4 * lat["fma"]
+              for K in widths[:-1])
+    return base - fma_layers + mma
+
+
+def bf16_bound(model, B, N, A, dtype_name, codec, entry="K2(d)", G=10):
+    """(bound ms, by, roofline ms, chain ms) of K2(d) (or F3) under a knob:
+    float32 moves bfloat16 weights (half bnn_work's) and runs the MLP's
+    products at PEAK_BF16_FLOPS, the rest at float32's peak; float64 as
+    bnn_work at float64's peak. K2(d) adds its chain floor."""
+    itemsize = 4 if dtype_name == "float32" else 8
+    nbytes, flops = bnn_work(model, B, N, A, G, itemsize, codec)[entry]
+    widths = [6, 200, 200, 8]
+    products = 2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    mlp = model.n_particles * products * (B * A * N if entry == "K2(d)"
+                                          else G)
+    if dtype_name == "float32":
+        nbytes -= 2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = mlp / PEAK_BF16_FLOPS + (flops - mlp) / PEAK_FLOPS["float32"]
+        roof = 1e3 * max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+    else:
+        roof, by = bound_ms(nbytes, flops, dtype_name)
+    if entry != "K2(d)":
+        return roof, by, roof, 0.0
+    nz = {0: 20, 1: 14, 2: 8, 3: 8, 4: 4}[codec]
+    chain = chain_ms(k2d_bf16_chain_cycles(4, nz, widths, model.n_particles,
+                                           dtype_name, codec),
+                     N, max_sm_clock_mhz())
+    return max(roof, chain), (by if roof >= chain else "operations"), \
+        roof, chain
+
+
+def sass_functions(lib):
+    """{function: [instruction, ...]} of ``cuobjdump -sass lib``, each
+    instruction's text without its address and encoding."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append(m.group(1))
+    return funcs
+
+
+def k2d_sass_report(lib):
+    """The HMMA count of each float32 knob instance (K2(d)'s and F3's) and
+    the instruction count of the Cholesky kernel at full precision
+    (``scripts/torch_kernel_ab.py --bnn-only`` compares its SASS with
+    another checkout's)."""
+    funcs = sass_functions(lib)
+    hmma = {}
+    for name, ins in funcs.items():
+        m = re.search(r"(bnn_rollout_codec_kernel|bnn_mlp_kernel)IfLi([12])E",
+                      name)
+        if m:
+            hmma["{}<float, {}>".format(m.group(1), BF16_KNOBS[
+                int(m.group(2)) - 1])] = sum("HMMA" in i for i in ins)
+    chol = [ins for name, ins in funcs.items()
+            if "bnn_rollout_kernelIfE" in name]
+    check(len(chol) == 1, "no single bnn_rollout_kernel<float> in the SASS")
+    return {"hmma": hmma, "chol_instructions": len(chol[0])}
+
+
+def phase20a_f3(card):
+    """20a: F3 under each knob against the net's plain forward at G=10
+    groups of P=100 (6-200-200-8, phase 8's trained weights), in float64
+    (BF16_F64_TOL) and float32 (bf16_derived against the float64 plain
+    version of the float32 net, with the full-precision F3 on the same
+    inputs required to fail it), timed beside its plain version and its
+    bound."""
+    import torch
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    rows, failed = [], []
+    rng = np.random.default_rng(20)
+    x64 = torch.as_tensor(rng.standard_normal((10, 100, 6)),
+                          dtype=torch.float64, device="cuda")
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        full = bnn_model(torch, dt, 25, True)
+        x = x64.to(dt).contiguous()
+        for knob in BF16_KNOBS:
+            model = knob_model(full, knob)
+            reset_counts(fb.launches)
+            got = fb.mlp(model.net, x)
+            plain = model.net(x)
+            torch.cuda.synchronize()
+            err = rel_err(got, plain)
+            row = {"phase": "20a", "knob": knob, "dtype": dname,
+                   "G": 10, "P": 100, "abs_err": err[0], "rel_err": err[1],
+                   "launches": fb.launches["mlp"],
+                   "finite": bool(torch.isfinite(got).all())}
+            if dt == torch.float64:
+                row["held"] = err[1] <= BF16_F64_TOL
+            else:
+                ref = cast_tree(model, torch.float64).net(x.double())
+                row["check"] = bf16_derived(got, plain, ref, BF16_F32_FLOOR)
+                row["full_precision_check"] = bf16_derived(
+                    fb.mlp(full.net, x), plain, ref, BF16_F32_FLOOR)
+                row["held"] = (row["check"]["held"]
+                               and not row["full_precision_check"]["held"])
+                raw = raw_bnn(torch, "mlp", model, dt, (x,))
+                bound, by, _, _ = bf16_bound(model, 1, 25, 10, dname, 1,
+                                             "F3")
+                row.update(ms=events_ms(raw, 20),
+                           plain_ms=events_ms(lambda: model.net(x), 20),
+                           bound_ms=bound, bound_by=by,
+                           plan=fb.launch_plan(model, 10, dt, None, "mlp"))
+            row["held"] = row["held"] and row["finite"] and \
+                row["launches"] == 1
+            if not row["held"]:
+                failed.append("20a {} {}: F3 off its plain version, or the "
+                              "full-precision F3 as near: {}".format(
+                                  knob, dname, row))
+            emit(row)
+            rows.append(row)
+    return rows, failed
+
+
+def bf16_codec_inputs(torch, enc, N=25):
+    """Phase 19b's inputs under ``enc``, in float32 and, cast up, in
+    float64: the full-precision trained model, the rollout of U = 0.1
+    from bnn_start's state, its local model and K1's gains at the first
+    finite reg of (1, 10, 100, 1e3). Returns {dtype: (model, (Z, U, k,
+    K), alphas)} and the reg."""
+    from pddp_tpu_torch.controllers.ilqr import (default_fit_alphas,
+                                                 local_model, rollout)
+    from pddp_tpu_torch.encoding import encode
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    f32, f64 = torch.float32, torch.float64
+    model = bnn_model(torch, f32, N, True)
+    cost = CartpoleCost(device="cuda", dtype=f32)
+    z0 = encode(torch.zeros(4, dtype=f32, device="cuda"),
+                V=1e-2 * torch.ones(4, dtype=f32, device="cuda"),
+                encoding=enc)
+    U = torch.full((N, 1), 0.1, dtype=f32, device="cuda")
+    Z, AUX = rollout(model, z0, U, enc)
+    derivs = local_model(Z, U, AUX, model, cost, enc)
+    k, K, reg = k1_first_finite(derivs, (1.0, 10.0, 100.0, 1e3))
+    check(k is not None, "20b: K1's gains finite at no reg")
+    ins = (derivs[0], U, k, K)
+    alphas = default_fit_alphas(f32, "cuda")
+    return {f32: (model, ins, alphas),
+            f64: (cast_tree(model, f64), tuple(t.double() for t in ins),
+                  alphas.double())}, reg
+
+
+def phase20b_k2d(card):
+    """20b: under each knob and each codec, the line search of one
+    iteration (bf16_codec_inputs; K2(d) with the cost as a post-pass and
+    the argmin, every count from zero) against control_law on the same
+    inputs, float64 within BF16_F64_TOL; float32 by bf16_derived against
+    the float64 rows' plain version (the float32 model and inputs cast
+    up), with the full-precision K2(d) on the same inputs required to
+    fail it; float32 timed alone at B=1 and 64 beside its bound, its plan
+    and, in the same call, the full-precision instance."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import control_law
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    rows, failed = [], []
+    rng = np.random.default_rng(21)
+    N = 25
+    for codec in BF16_CODECS:
+        enc = StateEncoding[codec]
+        t_codec = time.perf_counter()
+        cases, reg = bf16_codec_inputs(torch, enc, N)
+        plain64 = {}
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).replace("torch.", "")
+            full, ins, alphas = cases[dt]
+            cost = CartpoleCost(device="cuda", dtype=dt)
+            for knob in BF16_KNOBS:
+                model = knob_model(full, knob)
+                reset_all_counts()
+                out, best = line_search_with_argmin(model, cost, *ins,
+                                                    alphas, enc)
+                torch.cuda.synchronize()
+                launches = read_counts()["K2(d)"]
+                got = (out[0], out[1], out[3])
+                plain, plain_ms = timed_call(lambda: control_law(
+                    model, *ins, alphas, enc, with_aux=True))
+                torch.cuda.synchronize()
+                row = {"phase": "20b", "knob": knob, "codec": codec,
+                       "dtype": dname, "N": N, "P": 100, "A": 10,
+                       "reg": reg, "launches": launches, "best": best,
+                       "finite": all(bool(torch.isfinite(t).all())
+                                     for t in got)}
+                errs = {name: rel_err(a, p) for name, a, p in
+                        zip(("Z", "U", "AUX"), got, plain)}
+                row["errors"] = errs
+                row["max_abs_err"] = max(e[0] for e in errs.values())
+                if dt == torch.float64:
+                    row["held"] = all(e[1] <= BF16_F64_TOL
+                                      for e in errs.values())
+                    plain64[knob] = plain
+                else:
+                    out_full = fr.fused_control_law(
+                        full, *ins, alphas, enc, cost=cost, with_aux=True)
+                    ref = plain64[knob]
+                    row["check"] = {
+                        name: bf16_derived(a, p, r, BF16_F32_FLOOR)
+                        for name, a, p, r in zip(("Z", "U", "AUX"), got,
+                                                 plain, ref)}
+                    row["full_precision_check"] = {
+                        name: bf16_derived(a, p, r, BF16_F32_FLOOR)
+                        for name, a, p, r in zip(
+                            ("Z", "U", "AUX"),
+                            (out_full[0], out_full[1], out_full[3]), plain,
+                            ref)}
+                    row["held"] = (
+                        all(v["held"] for v in row["check"].values())
+                        and not all(v["held"] for v in
+                                    row["full_precision_check"].values()))
+                    Zn, U, k, K = ins
+                    one = (Zn[None], U[None], k[None], K[None], alphas)
+                    many = batch_of(rng, Zn, U, k, K, 64) + (alphas,)
+                    b1 = bf16_bound(model, 1, N, 10, dname, int(enc))
+                    b64 = bf16_bound(model, 64, N, 10, dname, int(enc))
+                    row.update(
+                        ms=events_ms(raw_bnn(torch, "rollout", model, dt,
+                                             one, enc), 20),
+                        ms_B64=events_ms(raw_bnn(torch, "rollout", model,
+                                                 dt, many, enc), 5),
+                        plain_ms=plain_ms, bound_ms=b1[0], bound_by=b1[1],
+                        roofline_ms=b1[2], chain_floor_ms=b1[3],
+                        bound_ms_B64=b64[0], bound_by_B64=b64[1],
+                        plan=fb.launch_plan(model, 10, dt, enc),
+                        plan_B64=fb.launch_plan(model, 640, dt, enc))
+                    if knob == BF16_KNOBS[0]:
+                        row["full_precision_ms"] = events_ms(raw_bnn(
+                            torch, "rollout", full, dt, one, enc), 20)
+                        row["full_precision_ms_B64"] = events_ms(raw_bnn(
+                            torch, "rollout", full, dt, many, enc), 5)
+                row["held"] = (row["held"] and row["finite"]
+                               and launches == 1)
+                if not row["held"]:
+                    failed.append("20b {} {} {}: K2(d) off its plain "
+                                  "version, or the full-precision K2(d) "
+                                  "as near: {}".format(knob, codec, dname,
+                                                       row))
+                row["codec_seconds"] = time.perf_counter() - t_codec
+                emit(row)
+                rows.append(row)
+    return rows, failed
+
+
+def phase20c_iteration(card):
+    """20c: one BNN iteration under each knob in float32 at full width
+    (phase 8's: trained 6-200-200-8, P=100, N=25, A=10, the Cholesky
+    codec): the rollout, the local model through the knob net's
+    Jacobians, K1 at nz=14, K2(d)'s bfloat16 instance with the cost as a
+    post-pass, the argmin; every count from zero, then timed (one turn,
+    host clock) beside the same iteration through the plain versions."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (backward, control_law,
+                                                 default_fit_alphas,
+                                                 local_model, rollout,
+                                                 trajectory_cost)
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.examples.cartpole import CartpoleCost
+    from pddp_tpu_torch.ops import backward_kernel as bk
+    ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
+    dt, N = torch.float32, 25
+    rows, failed = [], []
+    cost = CartpoleCost(device="cuda", dtype=dt)
+    alphas = default_fit_alphas(dt, "cuda")
+    for knob in BF16_KNOBS:
+        model = knob_model(bnn_model(torch, dt, N, True), knob)
+        z0, U0 = bnn_start(torch, dt, N)
+
+        def iteration(kernels):
+            Z0, AUX0 = rollout(model, z0, U0, ch)
+            derivs = local_model(Z0, U0, AUX0, model, cost, ch)
+            if kernels:
+                k, K, reg = k1_first_finite(derivs, (1.0, 10.0, 100.0))
+                out, best = line_search_with_argmin(model, cost, derivs[0],
+                                                    U0, k, K, alphas, ch)
+                return out, best, reg
+            for reg in (1.0, 10.0, 100.0):
+                k, K, ok = backward(*derivs, reg=reg)
+                if bool(ok):
+                    break
+            Z_b, U_b, AUX_b = control_law(model, derivs[0], U0, k, K,
+                                          alphas, ch, with_aux=True)
+            J = trajectory_cost(cost, Z_b, U_b, ch)
+            best = int(torch.argmin(torch.where(torch.isfinite(J), J,
+                                                torch.inf)))
+            return (Z_b, U_b, J, AUX_b), best, reg
+
+        reset_all_counts()
+        out, best, reg = iteration(True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        row = {"phase": "20c", "knob": knob, "dtype": "float32", "N": N,
+               "P": 100, "A": 10, "reg": reg, "best": best,
+               "launches": counts}
+        ok = (counts["K1"] >= 1 and counts["K2(d)"] == 1
+              and tuple(out[0].shape) == (N + 1, 10, 14)
+              and bool(torch.isfinite(out[0][:, best]).all())
+              and bool(torch.isfinite(out[2][best])))
+        walls = {}
+        for kernels in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iteration(kernels)
+            torch.cuda.synchronize()
+            walls["kernels" if kernels else "plain"] = \
+                1e3 * (time.perf_counter() - t0)
+        row.update(iteration_ms=walls["kernels"],
+                   plain_iteration_ms=walls["plain"], held=ok)
+        if not ok:
+            failed.append("20c {}: the iteration did not run through K1 "
+                          "and K2(d): {}".format(knob, row))
+        emit(row)
+        rows.append(row)
+    return rows, failed
+
+
+def phase20d_scripts(card):
+    """20d: each examples_torch script through its own run or main on
+    the card at SCRIPT_CUTS, no matplotlib (the card's machine has none):
+    its wall (host clock to synchronize) and the K1 and K2 launches it
+    made, every count from zero; its outputs finite."""
+    import functools
+
+    import torch
+    from examples_torch import (animation, cartpole, double_cartpole,
+                                experiment, known_dynamics, mpc_animation,
+                                parallel_solves, pendulum)
+    from pddp_tpu_torch.controllers import PDDPController
+    from pddp_tpu_torch.examples.problems import SampleProblems
+    saved = sys.modules.get("matplotlib", False)
+    sys.modules["matplotlib"] = None   # the scripts then draw nothing
+    cut = SCRIPT_CUTS["experiment"]
+
+    class CutTrials(PDDPController):
+        """PDDPController with each MPC trial cut to its first ticks."""
+
+        def _apply_controller(self, controller, H, *args, **kwargs):
+            if kwargs.get("mpc"):
+                H = min(H, cut["mpc_ticks"])
+            return super()._apply_controller(controller, H, *args,
+                                             **kwargs)
+
+    def finite(tree):
+        if hasattr(tree, "J_opt"):    # an ILQRResult
+            return finite(tree.J_opt)
+        if isinstance(tree, torch.Tensor):
+            return bool(torch.isfinite(tree).all())
+        if isinstance(tree, (list, tuple)):
+            return all(finite(t) for t in tree)
+        return True
+
+    def known():
+        return [known_dynamics.run(p, device="cuda",
+                                   **SCRIPT_CUTS["known_dynamics"])
+                for p in SampleProblems]
+
+    def pddp(script):
+        def go():
+            if script is experiment:
+                return experiment.run(
+                    SampleProblems.CARTPOLE, max_trials=cut["max_trials"],
+                    n_iterations=cut["n_iterations"], quiet=True,
+                    device="cuda")[:3]
+            return script.main(["--device", "cuda"])[:3]
+        return go
+
+    def animate(script):
+        def go():
+            script.ITERATIONS = SCRIPT_CUTS[script.__name__.split(".")[-1]][
+                "iterations"]
+            return script.main(["--device", "cuda"])
+        return go
+
+    runs = [("known_dynamics", known),
+            ("experiment", pddp(experiment)),
+            ("cartpole", pddp(cartpole)),
+            ("pendulum", pddp(pendulum)),
+            ("double_cartpole", pddp(double_cartpole)),
+            ("parallel_solves", lambda: parallel_solves.main(
+                ["--device", "cuda"])),
+            ("animation", animate(animation)),
+            ("mpc_animation", animate(mpc_animation))]
+    rows, failed = [], []
+    patched = {"PDDPController": experiment.PDDPController,
+               "run": experiment.run, "TRAIN_N_ITER": experiment.TRAIN_N_ITER,
+               "ITERATIONS": (animation.ITERATIONS,
+                              mpc_animation.ITERATIONS),
+               "OPTIONS": parallel_solves.OPTIONS}
+    parallel_solves.OPTIONS = SCRIPT_CUTS["parallel_solves"]
+    experiment.PDDPController = CutTrials
+    experiment.TRAIN_N_ITER = cut["train_n_iter"]
+    experiment.run = functools.partial(
+        patched["run"], max_trials=cut["max_trials"],
+        n_iterations=cut["n_iterations"], quiet=True)
+    try:
+        for name, fn in runs:
+            reset_all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+                ok, err = finite(out), None
+            except Exception as e:  # reported, and the phase fails
+                ok, err = False, "{}: {}".format(type(e).__name__, e)
+            counts = read_counts()
+            row = {"phase": "20d", "script": "examples_torch/{}.py".format(
+                name), "wall_s": time.perf_counter() - t0,
+                "launches": counts, "finite": ok,
+                "cut": SCRIPT_CUTS.get(name, cut)}
+            k2 = sum(counts["K2(" + st + ")"] for st in "abc")
+            if err is None and name in SCRIPT_FUSED and k2 == 0:
+                err = "fused_rollout set and no K2 launch"
+            if err is not None:
+                row["error"] = err[:2000]
+            if err is not None or (not ok
+                                   and name not in SCRIPT_NONFINITE):
+                failed.append("20d {}: {}".format(name, err or
+                                                  "non-finite output"))
+            emit(row)
+            rows.append(row)
+    finally:
+        experiment.PDDPController = patched["PDDPController"]
+        experiment.run = patched["run"]
+        experiment.TRAIN_N_ITER = patched["TRAIN_N_ITER"]
+        animation.ITERATIONS, mpc_animation.ITERATIONS = \
+            patched["ITERATIONS"]
+        parallel_solves.OPTIONS = patched["OPTIONS"]
+        if saved is False:
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = saved
+    return rows, failed
+
+
+def phase20_bf16(card):
+    """Phase 20 (20a-20d, then {"phase": 20, "seconds"}): K2(d) and F3
+    under the BNN's bfloat16 knobs, and the examples_torch scripts."""
+    t0 = time.perf_counter()
+    f3, failed = phase20a_f3(card)
+    k2d, more = phase20b_k2d(card)
+    failed += more
+    it, more = phase20c_iteration(card)
+    failed += more
+    scripts, more = phase20d_scripts(card)
+    failed += more
+    emit({"phase": 20, "seconds": time.perf_counter() - t0,
+          "failed": failed})
+    check(not failed, "phase 20: {}".format(failed))
+    return {"f3": f3, "k2d": k2d, "iteration": it, "scripts": scripts}
+
+
 def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
-                   batched, particles, multi, rest):
+                   batched, particles, multi, rest, bf16):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -5204,6 +5776,49 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
                 "library_ms": None, "ms_B64": row["ms_B64"],
                 "bound_ms_B64": row["bound_ms_B64"], "N": row.get(
                     "N", row.get("H")), "codec": row["codec"]})
+    # The bfloat16 knobs (phase 20): K2(d)'s and F3's float32 instances on
+    # the tensor cores, timed in float32 (20a, 20b), their errors those of
+    # float64 against the plain version; K2(d)'s launches under the
+    # Cholesky codec those of 20c's iteration (the path), under the other
+    # codecs 20b's; F3 runs inline in K2(d) and launches no time there.
+    src = "pddp_tpu_torch/csrc/fused_bnn_rollout.cu"
+    path = {r["knob"]: r["launches"] for r in bf16["iteration"]}
+    for knob in BF16_KNOBS:
+        f3 = {r["dtype"]: r for r in bf16["f3"] if r["knob"] == knob}
+        kernels.append({
+            "name": "F3 bnn_mlp bf16 {}".format(knob), "route": "cuda",
+            "source": src,
+            "replaces": "scripts/probe_kernel_mlp_batch.py:86",
+            "launches": 0,
+            "max_abs_err": f3["float64"]["abs_err"],
+            "ms": f3["float32"]["ms"], "plain_ms": f3["float32"]["plain_ms"],
+            "bound_ms": f3["float32"]["bound_ms"],
+            "bound_by": f3["float32"]["bound_by"], "library_ms": None,
+            "G": 10, "P": 100})
+        for codec in BF16_CODECS:
+            rows = {r["dtype"]: r for r in bf16["k2d"]
+                    if r["knob"] == knob and r["codec"] == codec}
+            one = rows["float32"]
+            chol = codec == "UPPER_TRIANGULAR_CHOLESKY"
+            kernels.append({
+                "name": "K2(d) fused_bnn_rollout bf16 {} {}".format(
+                    knob, codec.lower()),
+                "route": "cuda", "source": src,
+                "replaces": "pddp_tpu/ops/fused_rollout.py:114",
+                "launches": path[knob]["K2(d)"] if chol
+                else one["launches"],
+                "max_abs_err": rows["float64"]["max_abs_err"],
+                "ms": one["ms"], "plain_ms": one["plain_ms"],
+                "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+                "bound_note": "chain" if one["chain_floor_ms"]
+                >= one["roofline_ms"] else "roofline",
+                "library_ms": None, "ms_B64": one["ms_B64"],
+                "bound_ms_B64": one["bound_ms_B64"],
+                "full_precision_ms": one.get("full_precision_ms"),
+                "full_precision_ms_B64": one.get("full_precision_ms_B64"),
+                "cluster": one["plan"]["cluster"],
+                "threads_per_cta": one["plan"]["threads"],
+                "N": one["N"], "codec": codec})
     return {"kernels": kernels}
 
 
@@ -5264,8 +5879,9 @@ def _run_phases(card, run, seconds, t_start):
     multi = run("18", phase18_multi_gpu, card)
     rest = run("19", phase19_rest_of_k2, card, particles,
                cpu_refs["constrained"])
+    bf16 = run("20", phase20_bf16, card)
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
-                             pddp, batched, particles, multi, rest)
+                             pddp, batched, particles, multi, rest, bf16)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -84,10 +84,33 @@
 //    normalization constants and the jitter ladder once, and the state
 //    size is a constant of the compiler in the per-particle and Cholesky
 //    code (an instance per n <= 8), so those vectors stay in registers.
-// Tensor cores (3xTF32 or FP64 mma for the MLP) are not used: the port
-// keeps full f32.
+// At full precision the tensor cores (3xTF32 or FP64 mma for the MLP) are
+// not used: the port keeps full f32.
+//
+// The net's bfloat16 knobs (BayesianMLP's compute_dtype or matmul_dtype =
+// torch.bfloat16, models/bnn/network.py) have instances of their own (the
+// knob a template parameter; the no-knob code is as above, and the
+// Cholesky codec's no-knob kernel is bnn_rollout_kernel unchanged):
+//  * compute_dtype: the net input rounded to bfloat16; each layer
+//    bf16(bf16(x W) + b), the product's sum at the model's precision and
+//    rounded once, then the mask multiplied in bfloat16 and the ReLU; the
+//    output taken back to the model's type;
+//  * matmul_dtype: only the products' operands (the activations and W)
+//    rounded to bfloat16, the sums, bias, mask and ReLU at full precision.
+// Every rounding is to nearest even, a double through float first, as
+// torch's .to(torch.bfloat16) does it. Everything outside the net (noise
+// inference, moment match, codec, feedback law, bounds) is unchanged.
+// float32 instances run every layer on the tensor cores: mma.sync
+// m16n8k16 with bfloat16 operands and float32 sums (layer_mma), W staged
+// as bfloat16, transposed and padded by the wrapper (85.6 KB for
+// 6-200-200-8 where float32 takes 171 KB), the activations staged
+// particle-major as bfloat16 A fragments. There is no bfloat16 product
+// with float64 sums, so the float64 instances keep the FMA layer loop on
+// operands rounded at the same points (the products exact, the sums
+// float64); they exist to hold the card to the CPU.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -130,10 +153,34 @@ struct Config {
 
 constexpr int kConfigInts = sizeof(Config) / sizeof(int);
 // The ints a caller passes: Config's, then the rollout's codec
-// (StateEncoding's value; F1-F3 ignore it). The codec stays out of Config,
-// and reaches the rollout kernel as its last argument, so that the
-// Cholesky codec's kernel keeps the arguments it had as the only codec.
-constexpr int kCallerInts = kConfigInts + 1;
+// (StateEncoding's value; F1-F3 ignore it), then the net's knob (kKnob*;
+// K2(d) and F3 take it). The codec stays out of Config, and reaches the
+// rollout kernel as its last argument, so that the Cholesky codec's kernel
+// keeps the arguments it had as the only codec; the knob picks the
+// instance on the host.
+constexpr int kCallerInts = kConfigInts + 2;
+
+// The net's precision: full, compute_dtype or matmul_dtype at bfloat16.
+constexpr int kKnobNone = 0, kKnobCompute = 1, kKnobMatmul = 2;
+
+// Row stride, in bfloat16 elements, of a bfloat16 MMA operand of K
+// columns (activations particle-major, W transposed): K padded to the
+// MMA's depth of 16, plus 8, so that stride / 2 words is 4 mod 8 and the 8
+// rows a fragment load touches fall on distinct shared-memory banks.
+// Mirrored by ops/fused_bnn_rollout.py:_bf16_stride.
+__host__ __device__ constexpr int bf16_stride(int K) {
+  return (K + 15) / 16 * 16 + 8;
+}
+
+// Elements of T that layer (K -> O)'s weights take in the parameter buffer
+// and in shared memory: K x O, or, for the float32 MMA instances, W^T as
+// bfloat16, round8(O) rows of bf16_stride(K).
+template <typename T, int KNOB>
+__host__ __device__ constexpr long w_elems(int K, int O) {
+  return KNOB != kKnobNone && sizeof(T) == 4
+             ? long((O + 7) / 8 * 8) * bf16_stride(K) / 2
+             : long(K) * O;
+}
 
 // A launch's plan: the cluster, the particles and threads of a CTA, and
 // the CTA's shared memory, in elements of the kernel's type from the start
@@ -218,6 +265,43 @@ __device__ __forceinline__ T warp_sum(T s) {
   return s;
 }
 
+// x rounded to bfloat16 (to nearest even) and back; a double through
+// float first, as torch's .to(torch.bfloat16) rounds it.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ double bf16r(double x) {
+  return static_cast<double>(bf16r(static_cast<float>(x)));
+}
+
+// lo and hi rounded to bfloat16 in one 32-bit word, lo in the low half
+// (the element of the lower index in an MMA fragment).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <bool SMEM>
+__device__ __forceinline__ unsigned ldw(const unsigned* p) {
+  if constexpr (SMEM) return *p;
+  else return __ldg(p);
+}
+
+// d += A B on the tensor cores: A 16 x 16 (row-major fragments a0-a3),
+// B 16 x 8 (column-major fragments b0, b1), bfloat16; d 16 x 8 float32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
+                                         unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 // The weights' bulk copies: thread 0 arms the barrier with the bytes to
 // come and issues the copies; every thread waits for them in wait_weights.
 __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
@@ -275,7 +359,7 @@ __device__ void copy_part(T* dst, const T* src, long elems,
 // masks of the CTA's particles [p0, p0 + pc) (plain loads), and returns
 // each hidden layer's mask rows of those particles (row q = particle
 // p0 + q), or nullptr where the layer has none. Ends in __syncthreads.
-template <typename T>
+template <typename T, int KNOB = kKnobNone>
 __device__ void stage_net(const Config& cfg, const Plan& pl,
                           const T* __restrict__ params, int p0, int pc,
                           unsigned long long* bar, const T** mask) {
@@ -286,7 +370,8 @@ __device__ void stage_net(const Config& cfg, const Plan& pl,
     for (int l = 0; l < cfg.n_layers; ++l) {
       if (pl.w_s[l] < 0) continue;
       const int K = cfg.width[l], O = cfg.width[l + 1];
-      copy_part(sm + pl.w_s[l], params + cfg.w_off[l], long(K) * O, bar);
+      copy_part(sm + pl.w_s[l], params + cfg.w_off[l], w_elems<T, KNOB>(K, O),
+                bar);
       copy_part(sm + pl.b_s[l], params + cfg.b_off[l], long(O), bar);
     }
   }
@@ -551,7 +636,10 @@ __device__ void moment_match_codec(const T* out, int P, int n, int codec,
 // ReLU, feature-major into nxt; the last layer writes x W + b as rows
 // rows[q * O + o] of the CTA's pc particles. VEC: O is a multiple of 4,
 // so a weight row's 4 columns, the bias and a mask row load as one vector.
-template <typename T, int TP, int TO, bool SMEM_W, bool VEC>
+// KNOB (float64 under a bfloat16 knob): in, W and, under compute_dtype, b
+// and the mask hold bfloat16 values; the epilogue rounds as the knob says.
+template <typename T, int TP, int TO, bool SMEM_W, bool VEC,
+          int KNOB = kKnobNone>
 __device__ __forceinline__ void layer(int in_off, int ldp, int K, int O,
                                       const T* W, const T* bias,
                                       const T* mask, int pc, bool last,
@@ -624,8 +712,12 @@ __device__ __forceinline__ void layer(int in_off, int ldp, int K, int O,
       for (int t = 0; t < TP; ++t)
 #pragma unroll
         for (int j = 0; j < TO; ++j)
-          if (q0 + t < pc && o0 + j < O)
-            rows[(q0 + t) * O + o0 + j] = acc[t][j] + b[j];
+          if (q0 + t < pc && o0 + j < O) {
+            if constexpr (KNOB == kKnobCompute)
+              rows[(q0 + t) * O + o0 + j] = bf16r(bf16r(acc[t][j]) + b[j]);
+            else
+              rows[(q0 + t) * O + o0 + j] = acc[t][j] + b[j];
+          }
       continue;
     }
     T v[TO][TP];
@@ -647,9 +739,19 @@ __device__ __forceinline__ void layer(int in_off, int ldp, int K, int O,
       }
 #pragma unroll
       for (int j = 0; j < TO; ++j) {
-        T x = acc[t][j] + b[j];
-        if (mask != nullptr) x = x * m[j];
-        v[j][t] = x < T(0) ? T(0) : x;  // ReLU that keeps a NaN
+        if constexpr (KNOB == kKnobCompute) {
+          T x = bf16r(bf16r(acc[t][j]) + b[j]);
+          if (mask != nullptr) x = bf16r(x * m[j]);
+          v[j][t] = x < T(0) ? T(0) : x;
+        } else if constexpr (KNOB == kKnobMatmul) {
+          T x = acc[t][j] + b[j];
+          if (mask != nullptr) x = x * m[j];
+          v[j][t] = bf16r(x < T(0) ? T(0) : x);  // the next operand
+        } else {
+          T x = acc[t][j] + b[j];
+          if (mask != nullptr) x = x * m[j];
+          v[j][t] = x < T(0) ? T(0) : x;  // ReLU that keeps a NaN
+        }
       }
     }
 #pragma unroll
@@ -666,54 +768,140 @@ __device__ __forceinline__ void layer(int in_off, int ldp, int K, int O,
   }
 }
 
-template <typename T, int TP, int TO, bool SMEM_W>
+template <typename T, int TP, int TO, bool SMEM_W, int KNOB = kKnobNone>
 __device__ __forceinline__ void layer_vec(int in, int ldp, int K, int O,
                                           const T* W, const T* bias,
                                           const T* mask, int pc, bool last,
                                           int nxt, T* rows) {
   if (O % 4 == 0)
-    layer<T, TP, TO, SMEM_W, true>(in, ldp, K, O, W, bias, mask, pc, last,
-                                   nxt, rows);
+    layer<T, TP, TO, SMEM_W, true, KNOB>(in, ldp, K, O, W, bias, mask, pc,
+                                         last, nxt, rows);
   else
-    layer<T, TP, TO, SMEM_W, false>(in, ldp, K, O, W, bias, mask, pc, last,
-                                    nxt, rows);
+    layer<T, TP, TO, SMEM_W, false, KNOB>(in, ldp, K, O, W, bias, mask, pc,
+                                          last, nxt, rows);
 }
 
+// The activations' row stride (bfloat16 elements) of the MMA instances:
+// the widest layer input.
+__device__ __forceinline__ int act_stride(const Config& cfg) {
+  int w = 0;
+  for (int l = 0; l < cfg.n_layers; ++l) w = max(w, cfg.width[l]);
+  return bf16_stride(w);
+}
 
-// F3 over the CTA's pc particles: the shared memory at offset act0 holds
-// the net input feature-major (padded to pl.npad particles); the last
-// layer's rows go to rows. act0 and act1 are overwritten.
-template <typename T>
-__device__ void mlp(const Config& cfg, const Plan& pl,
-                    const T* __restrict__ params, const T* const* mask,
-                    int act0, int act1, int pc, T* rows) {
-  const T* sm = reinterpret_cast<const T*>(g_smem);
+constexpr int kMmaTiles = 4;  // 8-wide output tiles a warp item carries
+
+// One linear layer on the tensor cores (float32 instances under a
+// bfloat16 knob). in holds the layer input particle-major as bfloat16
+// (row q, stride s_act elements; rows and columns past the CTA's particles
+// and K are zero up to Mp rows and K padded to 16), Wt the weights
+// transposed (round8(O) rows of bf16_stride(K), zero past K). A warp item
+// is an m-tile of 16 particles by kMmaTiles n-tiles of 8 outputs, its K
+// steps of 16 one mma.sync each per n-tile, the n-tiles' sums independent.
+// Hidden layers write relu(mask (x W + b)) as bfloat16 into nxt, particle-
+// major, zeros in the columns O .. round16(O) that the next layer's
+// padded K reads (rounded as the knob says); the last layer writes x W +
+// b as rows[q * O + o] of the CTA's pc particles.
+template <int KNOB, bool SMEM_W>
+__device__ __forceinline__ void layer_mma(int in_off, int nxt_off, int s_act,
+                                          int K, int O, const unsigned* Wt,
+                                          const float* bias,
+                                          const float* mask, int pc, int Mp,
+                                          bool last, float* rows) {
+  const unsigned* in = reinterpret_cast<const unsigned*>(g_smem) + in_off;
+  unsigned* nxt = reinterpret_cast<unsigned*>(g_smem) + nxt_off;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sa = s_act / 2, sw = bf16_stride(K) / 2;  // in 32-bit words
+  const int mtiles = Mp / 16, ksteps = (K + 15) / 16;
+  const int ntiles = last ? (O + 7) / 8 : (O + 15) / 16 * 2;
+  const int items = mtiles * ((ntiles + kMmaTiles - 1) / kMmaTiles);
+  for (int item = threadIdx.x >> 5; item < items;
+       item += blockDim.x >> 5) {
+    const int m0 = (item % mtiles) * 16;
+    const int n00 = (item / mtiles) * kMmaTiles * 8;
+    float d[kMmaTiles][4];
+#pragma unroll
+    for (int j = 0; j < kMmaTiles; ++j)
+      d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+    const unsigned* a_lo = in + (m0 + g) * sa + t;
+    const unsigned* a_hi = a_lo + 8 * sa;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const unsigned a0 = a_lo[8 * ks], a1 = a_hi[8 * ks];
+      const unsigned a2 = a_lo[8 * ks + 4], a3 = a_hi[8 * ks + 4];
+#pragma unroll
+      for (int j = 0; j < kMmaTiles; ++j) {
+        const int n0 = n00 + 8 * j;
+        if (n0 >= O) continue;  // the same for the whole warp
+        const unsigned* b = Wt + (n0 + g) * sw + 8 * ks + t;
+        mma_bf16(d[j], a0, a1, a2, a3, ldw<SMEM_W>(b), ldw<SMEM_W>(b + 4));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMmaTiles; ++j) {
+      const int o = n00 + 8 * j + 2 * t;
+      if (n00 + 8 * j >= ntiles * 8) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = m0 + g + 8 * h;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = d[j][2 * h + e];
+          if (o + e >= O) {
+            v[e] = 0.f;
+            continue;
+          }
+          const float bo = bias[o + e];
+          if (last) {
+            v[e] = KNOB == kKnobCompute ? bf16r(bf16r(x) + bo) : x + bo;
+            continue;
+          }
+          const float m =
+              mask == nullptr ? 1.f : q < pc ? mask[q * O + o + e] : 0.f;
+          if constexpr (KNOB == kKnobCompute) {
+            x = bf16r(bf16r(x) + bo);
+            if (mask != nullptr) x = bf16r(x * m);
+          } else {
+            x = x + bo;
+            if (mask != nullptr) x = x * m;
+          }
+          v[e] = x < 0.f ? 0.f : x;  // ReLU that keeps a NaN
+        }
+        if (!last)
+          nxt[q * sa + o / 2] = pack_bf16x2(v[0], v[1]);
+        else if (q < pc)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (o + e < O) rows[q * O + o + e] = v[e];
+      }
+    }
+  }
+}
+
+// F3 on the tensor cores: mlp below for the float32 instances under a
+// bfloat16 knob; the input at offset act0 is particle-major bfloat16 (see
+// layer_mma), pl.npad rows.
+template <int KNOB>
+__device__ void mlp_mma(const Config& cfg, const Plan& pl,
+                        const float* __restrict__ params,
+                        const float* const* mask, int act0, int act1, int pc,
+                        float* rows) {
+  const float* sm = reinterpret_cast<const float*>(g_smem);
+  const int s_act = act_stride(cfg);
   int in = act0, nxt = act1;
   for (int l = 0; l < cfg.n_layers; ++l) {
     const int K = cfg.width[l], O = cfg.width[l + 1];
     const bool last = l == cfg.n_layers - 1;
-    const T* mk = last ? nullptr : mask[l];
-    const bool wide =
-        2 * (pl.npad / 4) * ((O + 3) / 4) >= static_cast<int>(blockDim.x);
-    if (pl.w_s[l] >= 0) {
-      const T* W = sm + pl.w_s[l];
-      const T* b = sm + pl.b_s[l];
-      if (wide)
-        layer_vec<T, 4, 4, true>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
-                                 rows);
-      else
-        layer_vec<T, 1, 1, true>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
-                                 rows);
-    } else {
-      const T* W = params + cfg.w_off[l];
-      const T* b = params + cfg.b_off[l];
-      if (wide)
-        layer_vec<T, 4, 4, false>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
-                                  rows);
-      else
-        layer_vec<T, 1, 1, false>(in, pl.npad, K, O, W, b, mk, pc, last, nxt,
-                                  rows);
-    }
+    const float* mk = last ? nullptr : mask[l];
+    if (pl.w_s[l] >= 0)
+      layer_mma<KNOB, true>(in, nxt, s_act, K, O,
+                            reinterpret_cast<const unsigned*>(sm + pl.w_s[l]),
+                            sm + pl.b_s[l], mk, pc, pl.npad, last, rows);
+    else
+      layer_mma<KNOB, false>(
+          in, nxt, s_act, K, O,
+          reinterpret_cast<const unsigned*>(params + cfg.w_off[l]),
+          params + cfg.b_off[l], mk, pc, pl.npad, last, rows);
     __syncthreads();
     const int s = in;
     in = nxt;
@@ -721,32 +909,108 @@ __device__ void mlp(const Config& cfg, const Plan& pl,
   }
 }
 
+
+// F3 over the CTA's pc particles: the shared memory at offset act0 holds
+// the net input feature-major (padded to pl.npad particles); the last
+// layer's rows go to rows. act0 and act1 are overwritten. Under a knob,
+// float32 runs mlp_mma, float64 the layers below with the knob's rounding.
+template <typename T, int KNOB = kKnobNone>
+__device__ void mlp(const Config& cfg, const Plan& pl,
+                    const T* __restrict__ params, const T* const* mask,
+                    int act0, int act1, int pc, T* rows) {
+  if constexpr (KNOB != kKnobNone && sizeof(T) == 4) {
+    mlp_mma<KNOB>(cfg, pl, params, mask, act0, act1, pc, rows);
+  } else {
+    const T* sm = reinterpret_cast<const T*>(g_smem);
+    int in = act0, nxt = act1;
+    for (int l = 0; l < cfg.n_layers; ++l) {
+      const int K = cfg.width[l], O = cfg.width[l + 1];
+      const bool last = l == cfg.n_layers - 1;
+      const T* mk = last ? nullptr : mask[l];
+      const bool wide =
+          2 * (pl.npad / 4) * ((O + 3) / 4) >= static_cast<int>(blockDim.x);
+      if (pl.w_s[l] >= 0) {
+        const T* W = sm + pl.w_s[l];
+        const T* b = sm + pl.b_s[l];
+        if (wide)
+          layer_vec<T, 4, 4, true, KNOB>(in, pl.npad, K, O, W, b, mk, pc,
+                                         last, nxt, rows);
+        else
+          layer_vec<T, 1, 1, true, KNOB>(in, pl.npad, K, O, W, b, mk, pc,
+                                         last, nxt, rows);
+      } else {
+        const T* W = params + cfg.w_off[l];
+        const T* b = params + cfg.b_off[l];
+        if (wide)
+          layer_vec<T, 4, 4, false, KNOB>(in, pl.npad, K, O, W, b, mk, pc,
+                                          last, nxt, rows);
+        else
+          layer_vec<T, 1, 1, false, KNOB>(in, pl.npad, K, O, W, b, mk, pc,
+                                          last, nxt, rows);
+      }
+      __syncthreads();
+      const int s = in;
+      in = nxt;
+      nxt = s;
+    }
+  }
+}
+
 // The net input of the CTA's pc particles X (pc x n) and the constrained
 // action uc, normalized by the input's mean xm and std xs, feature-major
-// into act (padded with zeros to npad).
-template <typename T>
+// into act (padded with zeros to npad). Under a knob the input is rounded
+// to bfloat16; the float32 instances store it particle-major as the MMA's
+// A operand (layer_mma), zeros past pc rows and F columns.
+template <typename T, int KNOB = kKnobNone>
 __device__ void net_input(const Config& cfg, const T* xm, const T* xs,
                           const T* X, const T* uc, T* act, int npad,
                           int pc) {
   const int n = cfg.n, naug = cfg.n_nonang + 2 * cfg.n_ang;
   const int F = cfg.width[0];
-  for (int e = threadIdx.x; e < F * npad; e += blockDim.x) {
-    const int f = e / npad, q = e % npad;
-    T v = T(0);
-    if (q < pc) {
-      const T* x = X + q * n;
-      if (f < cfg.n_nonang) {
-        v = x[cfg.nonang[f]];
-      } else if (f < naug) {
-        const int g = f - cfg.n_nonang;
-        const T th = x[cfg.ang[g / 2]];
-        v = (g & 1) ? cos(th) : sin(th);
-      } else {
-        v = uc[f - naug];
+  if constexpr (KNOB != kKnobNone && sizeof(T) == 4) {
+    const auto value = [&](int f, int q) {
+      float v = 0.f;
+      if (q < pc && f < F) {
+        const float* x = X + q * n;
+        if (f < cfg.n_nonang) {
+          v = x[cfg.nonang[f]];
+        } else if (f < naug) {
+          const int g = f - cfg.n_nonang;
+          const float th = x[cfg.ang[g / 2]];
+          v = (g & 1) ? cos(th) : sin(th);
+        } else {
+          v = uc[f - naug];
+        }
+        v = (v - xm[f]) / xs[f];
       }
-      v = (v - xm[f]) / xs[f];
+      return v;
+    };
+    const int words = (F + 15) / 16 * 8, sa = act_stride(cfg) / 2;
+    unsigned* a = reinterpret_cast<unsigned*>(act);
+    for (int e = threadIdx.x; e < npad * words; e += blockDim.x) {
+      const int q = e / words, f = 2 * (e % words);
+      a[q * sa + f / 2] = pack_bf16x2(value(f, q), value(f + 1, q));
     }
-    act[e] = v;
+  } else {
+    for (int e = threadIdx.x; e < F * npad; e += blockDim.x) {
+      const int f = e / npad, q = e % npad;
+      T v = T(0);
+      if (q < pc) {
+        const T* x = X + q * n;
+        if (f < cfg.n_nonang) {
+          v = x[cfg.nonang[f]];
+        } else if (f < naug) {
+          const int g = f - cfg.n_nonang;
+          const T th = x[cfg.ang[g / 2]];
+          v = (g & 1) ? cos(th) : sin(th);
+        } else {
+          v = uc[f - naug];
+        }
+        v = (v - xm[f]) / xs[f];
+        if constexpr (KNOB != kKnobNone) v = bf16r(v);
+      }
+      act[e] = v;
+    }
   }
   __syncthreads();
 }
@@ -956,8 +1220,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_kernel(
 // above with decode_codec and moment_match_codec. The Cholesky codec keeps
 // a kernel of its own, free of codec branches: one template for both
 // compiled it to another register allocation, 1.5-2.2 % slower on an
-// NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
-template <typename T>
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md). KNOB: the net's bfloat16 knob
+// (kKnob*); under a knob this kernel takes the Cholesky codec too.
+template <typename T, int KNOB>
 __global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_codec_kernel(
     const T* __restrict__ Z, const T* __restrict__ U,
     const T* __restrict__ k, const T* __restrict__ K,
@@ -1013,7 +1278,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_codec_kernel(
   stage(0);
 
   const T* mask[kMaxLayers];
-  stage_net(cfg, pl, params, p0, pc, &bar, mask);
+  stage_net<T, KNOB>(cfg, pl, params, p0, pc, &bar, mask);
   // The step's constants, in shared memory for the whole horizon.
   if (tid < cfg.n_jitter) jit[tid] = params[cfg.jitter_off + tid];
   if (tid < cfg.width[0]) {
@@ -1084,8 +1349,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bnn_rollout_codec_kernel(
     __syncthreads();
 
     // The MLP of the CTA's particles.
-    net_input(cfg, xm, xs, X, uc, sm + pl.act0, pl.npad, pc);
-    mlp(cfg, pl, params, mask, pl.act0, pl.act1, pc, out);
+    net_input<T, KNOB>(cfg, xm, xs, X, uc, sm + pl.act0, pl.npad, pc);
+    mlp<T, KNOB>(cfg, pl, params, mask, pl.act0, pl.act1, pc, out);
 
     // Next-state particles, into every CTA's copy: the rolling state.
     for (int e = tid; e < rows_n; e += blockDim.x) {
@@ -1150,8 +1415,8 @@ __global__ void __launch_bounds__(kMaxThreads) bnn_moment_match_kernel(
 }
 
 // F3 entry: net inputs x (G, P, F) -> outputs (G, P, O); one cluster of
-// pl.c CTAs per group, the particles split as in K2(d).
-template <typename T>
+// pl.c CTAs per group, the particles split as in K2(d). KNOB as in K2(d).
+template <typename T, int KNOB>
 __global__ void __launch_bounds__(kMaxThreads, 1) bnn_mlp_kernel(
     const T* __restrict__ x, const T* __restrict__ params,
     T* __restrict__ y, Config cfg, Plan pl) {
@@ -1162,15 +1427,30 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bnn_mlp_kernel(
   const int p0 = static_cast<int>(blockIdx.x % pl.c) * pl.ppc;
   const int pc = max(0, min(pl.ppc, P - p0));
   const T* mask[kMaxLayers];
-  stage_net(cfg, pl, params, p0, pc, &bar, mask);
+  stage_net<T, KNOB>(cfg, pl, params, p0, pc, &bar, mask);
   T* act0 = sm + pl.act0;
-  for (int e = threadIdx.x; e < F * pl.npad; e += blockDim.x) {
-    const int f = e / pl.npad, q = e % pl.npad;
-    act0[e] = q < pc ? x[(g * P + p0 + q) * F + f] : T(0);
+  if constexpr (KNOB != kKnobNone && sizeof(T) == 4) {
+    const int words = (F + 15) / 16 * 8, sa = act_stride(cfg) / 2;
+    unsigned* a = reinterpret_cast<unsigned*>(act0);
+    const auto at = [&](int q, int f) {
+      return q < pc && f < F ? x[(g * P + p0 + q) * F + f] : T(0);
+    };
+    for (int e = threadIdx.x; e < pl.npad * words; e += blockDim.x) {
+      const int q = e / words, f = 2 * (e % words);
+      a[q * sa + f / 2] = pack_bf16x2(at(q, f), at(q, f + 1));
+    }
+  } else {
+    for (int e = threadIdx.x; e < F * pl.npad; e += blockDim.x) {
+      const int f = e / pl.npad, q = e % pl.npad;
+      T v = q < pc ? x[(g * P + p0 + q) * F + f] : T(0);
+      if constexpr (KNOB != kKnobNone) v = bf16r(v);
+      act0[e] = v;
+    }
   }
   __syncthreads();
   wait_weights(pl, &bar);
-  mlp(cfg, pl, params, mask, pl.act0, pl.act1, pc, y + (g * P + p0) * O);
+  mlp<T, KNOB>(cfg, pl, params, mask, pl.act0, pl.act1, pc,
+               y + (g * P + p0) * O);
 }
 
 // ---------------------------------------------------------------------------
@@ -1193,15 +1473,19 @@ bool valid(const Config& cfg) {
 // bias, largest layer first, where they fit (a streamed small layer stays
 // in L1 more easily than a large one); then all masks of the CTA's
 // particles, if they fit (the staged step's length by the codec's state
-// size). False when not even the first part fits.
-template <typename T>
+// size). False when not even the first part fits. Under a knob in float32
+// (the MMA instances) the activations are bfloat16, npad rows (the
+// particles padded to the MMA's 16) of act_stride, and the weights W^T in
+// bfloat16 (w_elems).
+template <typename T, int KNOB>
 bool layout(const Config& cfg, int codec, int c, bool rollout, long budget,
             Plan& p) {
+  constexpr bool mma = KNOB != kKnobNone && sizeof(T) == 4;
   const int P = cfg.P, n = cfg.n, L = cfg.n_layers;
   p = Plan{};
   p.ppc = (P + c - 1) / c;
   p.c = (P + p.ppc - 1) / p.ppc;
-  p.npad = (p.ppc + kPad - 1) / kPad * kPad;
+  p.npad = mma ? (p.ppc + 15) / 16 * 16 : (p.ppc + kPad - 1) / kPad * kPad;
   int max_in = 0, max_out = 0;
   for (int l = 0; l < L; ++l) {
     max_in = cfg.width[l] > max_in ? cfg.width[l] : max_in;
@@ -1216,8 +1500,10 @@ bool layout(const Config& cfg, int codec, int c, bool rollout, long budget,
     off += r16(elems);
     return static_cast<int>(o);
   };
-  p.act0 = take(long(max_in) * p.npad);
-  p.act1 = take(long(max_in) * p.npad);
+  const long act = mma ? long(p.npad) * bf16_stride(max_in) / 2
+                       : long(max_in) * p.npad;
+  p.act0 = take(act);
+  p.act1 = take(act);
   p.full0 = p.full1 = p.eps = p.X = p.out = p.stage = -1;
   if (rollout) {
     const long nz = pddp::encoded_size(codec, n);
@@ -1244,7 +1530,7 @@ bool layout(const Config& cfg, int codec, int c, bool rollout, long budget,
                                              cfg.width[best + 1]))
         best = l;
     placed[best] = true;
-    const long w = long(cfg.width[best]) * cfg.width[best + 1];
+    const long w = w_elems<T, KNOB>(cfg.width[best], cfg.width[best + 1]);
     const long bias = cfg.width[best + 1];
     if (!fits(r16(w) + r16(bias))) continue;
     p.w_s[best] = take(w);
@@ -1258,7 +1544,7 @@ bool layout(const Config& cfg, int codec, int c, bool rollout, long budget,
     for (int l = 0; l + 1 < L; ++l)
       if (cfg.m_off[l] >= 0) p.m_s[l] = take(long(p.ppc) * cfg.width[l + 1]);
   p.bytes = static_cast<int>(off * long(sizeof(T)));
-  const int tiles = (p.npad / 4) * ((max_out + 3) / 4);
+  const int tiles = ((p.ppc + kPad - 1) / kPad) * ((max_out + 3) / 4);
   int t = (tiles + 31) / 32 * 32;
   p.threads = t < kMinThreads ? kMinThreads : t > kMaxThreads ? kMaxThreads : t;
   return true;
@@ -1295,7 +1581,7 @@ struct Cached {
   Plan plan;
 };
 
-template <typename T, typename Kernel>
+template <typename T, int KNOB, typename Kernel>
 int plan_launch(Kernel kernel, Cached& cache, const Config& cfg, int codec,
                 long clusters, bool rollout, Plan& out) {
   int dev = 0;
@@ -1319,7 +1605,8 @@ int plan_launch(Kernel kernel, Cached& cache, const Config& cfg, int codec,
   Plan fit{};
   for (int c = cfg.P < kMaxCluster ? cfg.P : kMaxCluster; c >= 1; --c) {
     Plan p;
-    if (!layout<T>(cfg, codec, c, rollout, budget, p) || p.c != c) continue;
+    if (!layout<T, KNOB>(cfg, codec, c, rollout, budget, p) || p.c != c)
+      continue;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1343,30 +1630,44 @@ int plan_launch(Kernel kernel, Cached& cache, const Config& cfg, int codec,
   return 0;
 }
 
-template <typename T, bool ANY_CODEC>
+template <typename T, bool ANY_CODEC, int KNOB>
 Cached& rollout_cache() {
   static Cached c{};
   return c;
 }
 
-template <typename T>
+template <typename T, int KNOB>
 Cached& mlp_cache() {
   static Cached c{};
   return c;
 }
 
-template <typename T>
-int plan_of(int entry, long clusters, const Config& cfg, int codec, Plan& p) {
-  if (entry == 0 && codec == pddp::kChol)
-    return plan_launch<T>(bnn_rollout_kernel<T>, rollout_cache<T, false>(),
-                          cfg, codec, clusters, true, p);
+template <typename T, int KNOB>
+int plan_knob(int entry, long clusters, const Config& cfg, int codec,
+              Plan& p) {
+  if (entry == 0 && codec == pddp::kChol && KNOB == kKnobNone)
+    return plan_launch<T, KNOB>(bnn_rollout_kernel<T>,
+                                rollout_cache<T, false, KNOB>(), cfg, codec,
+                                clusters, true, p);
   if (entry == 0)
-    return plan_launch<T>(bnn_rollout_codec_kernel<T>,
-                          rollout_cache<T, true>(), cfg, codec, clusters,
-                          true, p);
-  return plan_launch<T>(bnn_mlp_kernel<T>, mlp_cache<T>(), cfg, codec,
-                        clusters, false, p);
+    return plan_launch<T, KNOB>(bnn_rollout_codec_kernel<T, KNOB>,
+                                rollout_cache<T, true, KNOB>(), cfg, codec,
+                                clusters, true, p);
+  return plan_launch<T, KNOB>(bnn_mlp_kernel<T, KNOB>, mlp_cache<T, KNOB>(),
+                              cfg, codec, clusters, false, p);
 }
+
+template <typename T>
+int plan_of(int entry, long clusters, const Config& cfg, int codec, int knob,
+            Plan& p) {
+  if (knob == kKnobCompute)
+    return plan_knob<T, kKnobCompute>(entry, clusters, cfg, codec, p);
+  if (knob == kKnobMatmul)
+    return plan_knob<T, kKnobMatmul>(entry, clusters, cfg, codec, p);
+  return plan_knob<T, kKnobNone>(entry, clusters, cfg, codec, p);
+}
+
+bool valid_knob(int knob) { return knob >= kKnobNone && knob <= kKnobMatmul; }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
@@ -1393,25 +1694,37 @@ int launch_rollout(const T* Z, const T* U, const T* k, const T* K,
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
   const int codec = cfg_ints[kConfigInts];
+  const int knob = cfg_ints[kConfigInts + 1];
   if (B < 1 || N < 1 || A < 1 || cfg.nu < 1 || cfg.nu > kMaxNu ||
       cfg.width[0] > kMaxF || !valid(cfg) || !aligned16(params) ||
-      codec < pddp::kFull || codec > pddp::kIgnore)
+      codec < pddp::kFull || codec > pddp::kIgnore || !valid_knob(knob))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const long clusters = long(B) * A;
-  int err = plan_of<T>(0, clusters, cfg, codec, pl);
+  int err = plan_of<T>(0, clusters, cfg, codec, knob, pl);
   if (err != 0) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t lc = launch_config(
       pl, clusters, static_cast<cudaStream_t>(stream), &attr);
-  if (codec == pddp::kChol)
+  if (codec == pddp::kChol && knob == kKnobNone)
     err = static_cast<int>(cudaLaunchKernelEx(
         &lc, bnn_rollout_kernel<T>, Z, U, k, K, alphas, params, eps_in,
         eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl));
+  else if (knob == kKnobNone)
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_rollout_codec_kernel<T, kKnobNone>, Z, U, k, K, alphas,
+        params, eps_in, eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl,
+        codec));
+  else if (knob == kKnobCompute)
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_rollout_codec_kernel<T, kKnobCompute>, Z, U, k, K, alphas,
+        params, eps_in, eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl,
+        codec));
   else
     err = static_cast<int>(cudaLaunchKernelEx(
-        &lc, bnn_rollout_codec_kernel<T>, Z, U, k, K, alphas, params, eps_in,
-        eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl, codec));
+        &lc, bnn_rollout_codec_kernel<T, kKnobMatmul>, Z, U, k, K, alphas,
+        params, eps_in, eps_out, bounds, Z_out, U_out, AUX, N, A, cfg, pl,
+        codec));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1454,16 +1767,24 @@ int launch_mlp(const T* x, const T* params, T* y, int G, const int* cfg_ints,
                void* stream) {
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
-  if (G < 1 || !valid(cfg) || !aligned16(params))
+  const int knob = cfg_ints[kConfigInts + 1];
+  if (G < 1 || !valid(cfg) || !aligned16(params) || !valid_knob(knob))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  int err = plan_of<T>(1, G, cfg, pddp::kChol, pl);
+  int err = plan_of<T>(1, G, cfg, pddp::kChol, knob, pl);
   if (err != 0) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t lc =
       launch_config(pl, G, static_cast<cudaStream_t>(stream), &attr);
-  err = static_cast<int>(
-      cudaLaunchKernelEx(&lc, bnn_mlp_kernel<T>, x, params, y, cfg, pl));
+  if (knob == kKnobNone)
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_mlp_kernel<T, kKnobNone>, x, params, y, cfg, pl));
+  else if (knob == kKnobCompute)
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_mlp_kernel<T, kKnobCompute>, x, params, y, cfg, pl));
+  else
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &lc, bnn_mlp_kernel<T, kKnobMatmul>, x, params, y, cfg, pl));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1473,11 +1794,12 @@ int report_plan(int entry, int clusters, const int* cfg_ints, int* out) {
   Config cfg;
   memcpy(&cfg, cfg_ints, sizeof(cfg));
   const int codec = cfg_ints[kConfigInts];
+  const int knob = cfg_ints[kConfigInts + 1];
   if (clusters < 1 || !valid(cfg) || (entry != 0 && entry != 1) ||
-      codec < pddp::kFull || codec > pddp::kIgnore)
+      codec < pddp::kFull || codec > pddp::kIgnore || !valid_knob(knob))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  const int err = plan_of<T>(entry, clusters, cfg, codec, p);
+  const int err = plan_of<T>(entry, clusters, cfg, codec, knob, p);
   if (err != 0) return err;
   out[0] = p.c;
   out[1] = p.ppc;

@@ -91,12 +91,13 @@ class _Dropout(_Leaves):
 
 def _low_precision_mm(x, W, dtype):
     """x @ W with both operands rounded to ``dtype`` and the product
-    summed and returned at x's dtype. On the card one cuBLAS product of
-    ``dtype`` operands with x's dtype out (``torch.mm(..., out_dtype=)``);
-    on the CPU, which has no such product, the rounded operands are
-    multiplied at x's dtype (the products of two bfloat16 values are exact
-    in float32, so only the order of the sums differs)."""
-    if x.device.type == "cuda" and W.dim() == 2:
+    summed and returned at x's dtype. On the card in float32 one cuBLAS
+    product of ``dtype`` operands with a float32 out (``torch.mm(...,
+    out_dtype=)``, which takes no float64 out); elsewhere the rounded
+    operands are multiplied at x's dtype (the products of two bfloat16
+    values are exact in float32, so only the order of the sums differs)."""
+    if (x.device.type == "cuda" and W.dim() == 2
+            and x.dtype == torch.float32):
         out = torch.mm(x.reshape(-1, x.shape[-1]).to(dtype), W.to(dtype),
                        out_dtype=x.dtype)
         return out.reshape(x.shape[:-1] + W.shape[-1:])
@@ -154,6 +155,17 @@ class Linear(_Leaves):
         if W.dtype != x.dtype:
             W, b = W.to(x.dtype), b.to(x.dtype)
         return torch.matmul(x, W) + b
+
+    def low_precision(self, x, sum_dtype):
+        """``compute_dtype``'s layer: x @ W + b in x's (low) dtype, the
+        product of the rounded operands summed at ``sum_dtype`` (the
+        model's) and rounded once, then the rounded bias added. So the sum
+        is defined by the model's precision, not by the order in which a
+        library sums it at float32 (torch's bfloat16 product on the CPU
+        sums at float32 and rounds once: the same in float32)."""
+        low = x.dtype
+        return (_LowPrecisionMatmul.apply(x.to(sum_dtype), self.W, low)
+                .to(low) + self.b.to(low))
 
 
 class BDropout(_Dropout):
@@ -243,7 +255,9 @@ class BayesianMLP:
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the eval-mode
     forward at reduced precision: inputs, weights and masks are cast
-    down, the output cast back to the input's dtype. ``matmul_dtype``
+    down, each product summed at the input's precision and rounded once
+    (``Linear.low_precision``), the output cast back to the input's
+    dtype. ``matmul_dtype``
     casts only the products' operands: the products, activations, masks
     and biases stay at the input's precision. Both apply to the forward on
     the episode masks only (training runs at the parameters' precision);
@@ -284,15 +298,16 @@ class BayesianMLP:
         mm = self.matmul_dtype if noise is None and not fast else None
         for i, (layer, drop) in enumerate(zip(self.layers[:-1],
                                               self.dropouts)):
-            x = layer(x, mm)
+            x = layer.low_precision(x, out_dtype) if fast else layer(x, mm)
             if drop is not None:
                 if fast:
                     x = x * drop.eval_mask().to(x.dtype)
                 else:
                     x = drop.apply(x, None if noise is None else noise[i])
             x = self._act(x)
-        x = self.layers[-1](x, mm)
-        return x.to(out_dtype) if fast else x
+        if fast:
+            return self.layers[-1].low_precision(x, out_dtype).to(out_dtype)
+        return self.layers[-1](x, mm)
 
     def draw_noise(self, generator, batch_shape):
         """Fresh training noise for an input of ``batch_shape`` (its

@@ -10,6 +10,13 @@ noise aux.
 The kernel returns trajectories and aux only; the cost is a batched
 post-pass, as in ``pddp_tpu``'s belief-state line search.
 
+The net's bfloat16 knobs (``compute_dtype`` or ``matmul_dtype`` =
+``torch.bfloat16``, one at a time) have instances of their own: in
+float32 the MLP runs on the tensor cores (``mma.sync`` with bfloat16
+operands and float32 sums), its weights packed here transposed and padded
+as bfloat16 bits in the parameter buffer; in float64 the FMA layers take
+operands rounded as the knob says (see ``csrc/fused_bnn_rollout.cu``).
+
 The fragment entries run the kernel's device functions alone, each
 beside its plain version: ``infer_eps`` (F1, the noise inference),
 ``moment_match`` (F2, moment match and Cholesky codec) and ``mlp`` (F3,
@@ -44,8 +51,8 @@ launches = {"rollout": 0, "infer_eps": 0, "moment_match": 0, "mlp": 0}
 MAX_N, MAX_NU, MAX_LAYERS = 8, 4, 6
 
 #: csrc/fused_bnn_rollout.cu:Config, field by field (name, count), then
-#: the rollout's codec (StateEncoding's value), which the library keeps
-#: out of Config.
+#: the rollout's codec (StateEncoding's value) and the net's knob
+#: (``_knob``), which the library keeps out of Config.
 _CONFIG_FIELDS = (
     ("n", 1), ("nu", 1), ("P", 1), ("n_layers", 1),
     ("width", MAX_LAYERS + 1), ("w_off", MAX_LAYERS), ("b_off", MAX_LAYERS),
@@ -54,7 +61,10 @@ _CONFIG_FIELDS = (
     ("dx_mean_off", 1), ("dx_std_off", 1), ("u_min_off", 1),
     ("u_max_off", 1), ("jitter_off", 1), ("n_jitter", 1),
     ("predicted_std", 1), ("sample_input", 1), ("infer_noise", 1),
-    ("constrained", 1), ("codec", 1))
+    ("constrained", 1), ("codec", 1), ("knob", 1))
+
+#: the library's kKnob* values of the net's precision options.
+_KNOBS = {"compute_dtype": 1, "matmul_dtype": 2}
 
 
 def _widths(net):
@@ -62,13 +72,32 @@ def _widths(net):
                                          for layer in net.layers]
 
 
+def _knob(net):
+    """The kernels' knob of ``net``: 0 at full precision, 1 for
+    ``compute_dtype`` and 2 for ``matmul_dtype`` = ``torch.bfloat16``;
+    None for what they do not carry (another dtype, or both set)."""
+    set_ = {name: getattr(net, name) for name in _KNOBS
+            if getattr(net, name) is not None}
+    if not set_:
+        return 0
+    if len(set_) > 1 or next(iter(set_.values())) != torch.bfloat16:
+        return None
+    return _KNOBS[next(iter(set_))]
+
+
+def _bf16_stride(K):
+    """csrc/fused_bnn_rollout.cu:bf16_stride: K padded to 16, plus 8."""
+    return -(-K // 16) * 16 + 8
+
+
 def supports(model, encoding=None):
     """Whether the kernel covers ``model`` under ``encoding``: a
     ``BNNDynamicsModel`` (exact type) under any of the five codecs with
     state size <= 8, action size <= 4, at most 6 linear layers, an
     output of width 2 n, ReLU, at least two particles and the net at full
-    precision (no ``compute_dtype`` or ``matmul_dtype``), its particles
-    not sharded over ranks (the kernel sums over its own). The launch plan
+    precision or with one of ``compute_dtype`` and ``matmul_dtype`` set to
+    ``torch.bfloat16`` (``_knob``), its particles not sharded over ranks
+    (the kernel sums over its own). The launch plan
     (cluster, particles and shared memory of a CTA) is the library's: a
     shape it cannot plan makes the launch raise."""
     if type(model) is not BNNDynamicsModel or encoding is None:
@@ -78,8 +107,7 @@ def supports(model, encoding=None):
             and len(net.layers) <= MAX_LAYERS and net.activation == "relu"
             and _widths(net)[-1] == 2 * model.state_size
             and model.n_particles >= 2 and model.eps_in is not None
-            and model.particle_group is None
-            and net.compute_dtype is None and net.matmul_dtype is None)
+            and model.particle_group is None and _knob(net) is not None)
 
 
 class _Packer:
@@ -106,12 +134,37 @@ class _Packer:
         return start
 
     def net(self, net, P, n):
+        """The net's weights, biases and masks; under a knob rounded to
+        bfloat16 as the kernels take them: W (float32: transposed, padded
+        to round8(O) rows of ``_bf16_stride(K)`` and zeros, as bfloat16
+        bits, the MMA's B operand; float64: its bfloat16 values), and under
+        ``compute_dtype`` the biases and masks too."""
         widths = _widths(net)
-        self.cfg["w_off"] = [self.put(layer.W) for layer in net.layers]
-        self.cfg["b_off"] = [self.put(layer.b) for layer in net.layers]
-        self.cfg["m_off"] = [-1 if m is None else self.put(m)
+        knob = _knob(net)
+        bf16 = torch.bfloat16
+
+        def rounded(t, yes=True):
+            return t.to(bf16).to(self.dtype) if knob and yes else t
+
+        def weights(W):
+            if not knob:
+                return self.put(W)
+            if self.dtype != torch.float32:
+                return self.put(rounded(W))
+            K, O = W.shape
+            Wt = torch.zeros((-(-O // 8) * 8, _bf16_stride(K)), dtype=bf16,
+                             device=W.device)
+            Wt[:O, :K] = W.T.to(bf16)
+            return self.put(Wt.reshape(-1).view(self.dtype))  # raw bits
+
+        compute = knob == _KNOBS["compute_dtype"]
+        self.cfg["w_off"] = [weights(layer.W) for layer in net.layers]
+        self.cfg["b_off"] = [self.put(rounded(layer.b, compute))
+                             for layer in net.layers]
+        self.cfg["m_off"] = [-1 if m is None else self.put(rounded(m, compute))
                              for m in net.eval_masks()]
-        self.cfg.update(n=n, P=P, n_layers=len(net.layers), width=widths)
+        self.cfg.update(n=n, P=P, n_layers=len(net.layers), width=widths,
+                        knob=knob)
 
     def jitter(self, jitter_levels):
         jitter = JITTER_LEVELS if jitter_levels is None else jitter_levels
@@ -351,7 +404,8 @@ def moment_match(particles, jitter_levels=None):
 
 def mlp(net, x):
     """F3: the particle MLP in eval mode, x (G, P, F) -> (G, P, O), each
-    particle with its own dropout masks; see ``BayesianMLP.__call__``."""
+    particle with its own dropout masks, under the net's bfloat16 knob if
+    it has one (see ``supports``); see ``BayesianMLP.__call__``."""
     if x.device.type == "cpu":
         return net(x)
     _on_cuda(x, "mlp")
@@ -361,8 +415,7 @@ def mlp(net, x):
     widths = _widths(net)
     if (len(net.layers) > MAX_LAYERS or net.activation != "relu"
             or widths[0] != F or widths[-1] > 2 * MAX_N
-            or widths[-1] % 2 or P < 2 or net.compute_dtype is not None
-            or net.matmul_dtype is not None):
+            or widths[-1] % 2 or P < 2 or _knob(net) is None):
         raise ValueError("the MLP kernel does not cover this net")
     _check("x", x, (G, P, F), dtype, device)
     pk = _Packer(dtype, device)

@@ -17,7 +17,9 @@ port's kernels cover (``pddp_tpu``'s gate for the models it ships), and
    state sizes up to ``SMALL_N``, as ``pddp_tpu``'s gate has it), which
    returns trajectories only: a cost, if given, is a batched post-pass;
  * stage (d), ``csrc/fused_bnn_rollout.cu`` (``ops/fused_bnn_rollout.py``):
-   the stateful belief-state BNN under any of the five codecs;
+   the stateful belief-state BNN under any of the five codecs, its net at
+   full precision or under one bfloat16 knob (``compute_dtype`` or
+   ``matmul_dtype``; in float32 the net on the tensor cores);
  * stage (e), ``csrc/fused_particle_rollout.cu``
    (``ops/fused_particle_rollout.py``): the stateful
    ``ParticleDynamicsModel`` over an example of (a)-(c), under any of the
@@ -26,9 +28,9 @@ port's kernels cover (``pddp_tpu``'s gate for the models it ships), and
 The stateful stages are admitted only with ``allow_stateful=True``, as in
 ``pddp_tpu``, and never take a cost in the kernel: a cost, if given, is a
 batched post-pass. Still refused, each with the ``ValueError`` of
-``fused_control_law``: any other model type or subclass, a BNN with
-``compute_dtype``/``matmul_dtype`` or with its particles sharded, a
-particle model over anything but an example.
+``fused_control_law``: any other model type or subclass, a BNN under a
+knob of another dtype (``torch.float16``) or under both knobs, or with
+its particles sharded, a particle model over anything but an example.
 
 The plain version is ``controllers.ilqr.control_law`` (under
 IGNORE_UNCERTAINTY with the cost accumulated in the loop, the kernel's
@@ -110,8 +112,9 @@ def stage(model, cost, encoding):
 
 
 def stateful_stage(model, encoding):
-    """"d" for the BNN (``fused_bnn_rollout.supports``), "e" for the
-    particle model (``fused_particle_rollout.supports``), else None."""
+    """"d" for the BNN (``fused_bnn_rollout.supports``: at full precision
+    or under one bfloat16 knob), "e" for the particle model
+    (``fused_particle_rollout.supports``), else None."""
     if fused_bnn_rollout.supports(model, encoding):
         return "d"
     if fused_particle_rollout.supports(model, encoding):

@@ -36,7 +36,16 @@ saving K2(d)'s (Z, U, AUX) and F3's output on the same seeded inputs, so
 that the summary gives the largest difference between the parent's and
 the change's outputs. With ``--main-path-only`` a turn times the
 wrappers' host time and the cartpole main path alone, for many short
-turns; with ``--bnn-only`` K2(d) and F3 alone; with ``--k2-only`` K2(a)-(c)
+turns; with ``--bnn-only`` K2(d) and F3 alone (each turn building only
+their library and K1's), and the summary also says whether both sides'
+float32 K2(d) under the Cholesky codec at full precision
+(``bnn_rollout_kernel<float>``) has the same SASS instructions
+(``cuobjdump -sass``, addresses and encodings stripped) and whether the
+saved outputs have the same bits:
+
+    python3 scripts/torch_kernel_ab.py --parent build/parent --bnn-only
+
+with ``--k2-only`` K2(a)-(c)
 at every path and K2(d) and F3 (the K2 lines above), without K1, the host
 times or the paths; with ``--k2e-only`` K2(e), the particle line search,
 alone at chip_smoke.py's phase 19a rows (``PARTICLE_ROWS``: P=100, N=50,
@@ -326,6 +335,7 @@ def bnn_times(label, out_dir):
     import torch
     from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
     from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import _build
     from pddp_tpu_torch.ops import fused_bnn_rollout as fb
     ch = StateEncoding.UPPER_TRIANGULAR_CHOLESKY
     f32 = torch.float32
@@ -354,6 +364,13 @@ def bnn_times(label, out_dir):
     torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
     torch.save(saved, os.path.join(out_dir, label + ".pt"))
+    sass = [ins for name, ins in CS.sass_functions(_build._target(
+        "fused_bnn_rollout", "f32")).items()
+        if "bnn_rollout_kernelIfE" in name]
+    assert len(sass) == 1, "no single bnn_rollout_kernel<float> in the SASS"
+    res["chol_sass_instructions"] = len(sass[0])
+    with open(os.path.join(out_dir, label + "_chol_sass.json"), "w") as f:
+        json.dump(sass[0], f)
     return res
 
 
@@ -488,14 +505,26 @@ def k1_output_differences(out_dir):
             for k in sorted(a)}
 
 
+def chol_sass_same(out_dir):
+    """Whether the first turns of both sides saved the same SASS
+    instructions of bnn_rollout_kernel<float>."""
+    sass = []
+    for label in ("parent", "change"):
+        with open(os.path.join(out_dir, label + "_chol_sass.json")) as f:
+            sass.append(json.load(f))
+    return sass[0] == sass[1]
+
+
 def output_differences(out_dir):
     """The largest |parent - change| of each saved output (the first turn
-    of each side), and of K2(d)'s first step alone: U and AUX of step 0,
+    of each side), whether all of them have the same bits, and the
+    largest difference of K2(d)'s first step alone: U and AUX of step 0,
     which no moment match has touched, and Z after the first one."""
     import torch
     a = torch.load(os.path.join(out_dir, "parent.pt"))
     b = torch.load(os.path.join(out_dir, "change.pt"))
     out = {k: float((a[k] - b[k]).abs().max()) for k in sorted(a)}
+    out["same_bits"] = all(torch.equal(a[k], b[k]) for k in a)
     for B in (1, BATCH):
         for name, i in (("U", 0), ("AUX", 0), ("Z", 1)):
             k = "K2d_B{}_{}".format(B, name)
@@ -587,14 +616,13 @@ def k2e_output_differences(out_dir):
     return out
 
 
-def build_k2e():
-    """Builds K2(e)'s two libraries at once, through the tree's own
-    `ops/_build.py`."""
+def build_only(*names):
+    """Builds the named libraries (each in both types) at once, through
+    the tree's own `ops/_build.py`."""
     from pddp_tpu_torch.ops import _build
-    name = "fused_particle_rollout"
-    jobs = [(_build._start(name, d)) for d in _build.DTYPES
-            if not _build._target(name, d).exists()]
-    for job in jobs:
+    jobs = [(name, _build._start(name, d)) for name in names
+            for d in _build.DTYPES if not _build._target(name, d).exists()]
+    for name, job in jobs:
         _build._finish(name, *job)
 
 
@@ -615,7 +643,9 @@ def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     if k2e_only:
-        build_k2e()
+        build_only("fused_particle_rollout")
+    elif bnn_only:
+        build_only("fused_bnn_rollout", "backward_kernel")
     else:
         _build.build_all()
     build_s = time.perf_counter() - t0
@@ -791,6 +821,7 @@ def main():
                          for n in first["paths"]}}
     if first["bnn"]:
         summary["bnn_output_max_abs_diff"] = output_differences(args.out)
+        summary["chol_sass_same"] = chol_sass_same(args.out)
     if first["k1_block"]:
         summary["k1_block_gain_max_rel_diff"] = k1_output_differences(
             args.out)

@@ -1171,3 +1171,75 @@ def test_particle_f32_chol_local_model_on_card_matches_cpu(cuda):
         assert bool(torch.isfinite(got).all()), name
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("knob", ["compute_dtype", "matmul_dtype"])
+@pytest.mark.parametrize("B", [1, 64])
+def test_k2d_bf16_knob_on_card(cuda, dtype, knob, B):
+    """K2(d)'s bfloat16 instances (float32 on the tensor cores) at the
+    bench net's widths (6-200-200-8, P=100), three steps, against
+    control_law over the same knob's net: float64 each output within
+    1e-10 of its largest value (the same roundings, the float64 sums in
+    another order); float32 by ``chip_smoke.bf16_derived`` against the
+    float64 plain version of the float32 net on the same inputs, which
+    the full-precision K2(d) must fail; one launch."""
+    from chip_smoke import BF16_F32_FLOOR, bf16_derived, cast_tree, knob_model
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    full, ins = _bnn(cuda, dtype, 3, P=100, hidden=(200, 200))
+    if B > 1:
+        ins = [t.expand((B,) + t.shape).contiguous() for t in ins]
+    model = knob_model(full, knob)
+    alphas = default_fit_alphas(dtype, cuda)
+    n = fb.launches["rollout"]
+    got = fb.fused_bnn_control_law(model, *ins, alphas, CH)
+    torch.cuda.synchronize()
+    assert fb.launches["rollout"] == n + 1
+    want = control_law(model, *ins, alphas, CH, with_aux=True)
+    if dtype == torch.float64:
+        for a, w in zip(got, want):
+            assert bool(torch.isfinite(w).all())
+            err = float((a - w).abs().max()) / float(w.abs().max())
+            assert err <= 1e-10
+        return
+    ref = control_law(cast_tree(model, torch.float64),
+                      *[t.double() for t in ins], alphas.double(), CH,
+                      with_aux=True)
+    full_out = fb.fused_bnn_control_law(full, *ins, alphas, CH)
+    for a, w, r in zip(got, want, ref):
+        assert bool(torch.isfinite(r).all())
+        assert bf16_derived(a, w, r, BF16_F32_FLOOR)["held"]
+    assert not all(bf16_derived(a, w, r, BF16_F32_FLOOR)["held"]
+                   for a, w, r in zip(full_out, want, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("knob", ["compute_dtype", "matmul_dtype"])
+@pytest.mark.parametrize("G", [10, 640])
+def test_bnn_mlp_bf16_knob_on_card(cuda, dtype, knob, G):
+    """F3's bfloat16 instances at the bench net's widths for 10 groups
+    (a cluster each) and 640 (a CTA each) against the knob net's own
+    call: float64 within 1e-10, float32 by ``chip_smoke.bf16_derived``
+    against the float64 plain forward of the float32 net, which the
+    full-precision F3 must fail; one launch."""
+    from chip_smoke import BF16_F32_FLOOR, bf16_derived, cast_tree, knob_model
+    from pddp_tpu_torch.ops import fused_bnn_rollout as fb
+    full, _ = _bnn(cuda, dtype, 2, P=100, hidden=(200, 200), gains=False)
+    net = knob_model(full, knob).net
+    x = torch.as_tensor(np.random.default_rng(G).standard_normal(
+        (G, 100, 6)), dtype=dtype, device=cuda)
+    n = fb.launches["mlp"]
+    got = fb.mlp(net, x)
+    want = net(x)
+    torch.cuda.synchronize()
+    assert fb.launches["mlp"] == n + 1
+    if dtype == torch.float64:
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-10
+        return
+    ref = cast_tree(net, torch.float64)(x.double())
+    assert bf16_derived(got, want, ref, BF16_F32_FLOOR)["held"]
+    assert not bf16_derived(fb.mlp(full.net, x), want, ref,
+                            BF16_F32_FLOOR)["held"]

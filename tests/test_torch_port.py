@@ -51,8 +51,9 @@ def test_cartpole_conversion_carries_every_parameter():
 
 
 def test_port_imports_neither_jax_nor_pddp_tpu():
-    """Every module of the port imports in a process where importing jax
-    or pddp_tpu fails."""
+    """Every module of the port, and every script of examples_torch/,
+    imports in a process where importing jax or pddp_tpu fails (the
+    scripts also without matplotlib)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -62,6 +63,13 @@ def test_port_imports_neither_jax_nor_pddp_tpu():
             pddp_tpu_torch.__path__, "pddp_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        sys.modules["matplotlib"] = None
+        import examples_torch
+        scripts = [m.name for m in pkgutil.iter_modules(
+            examples_torch.__path__, "examples_torch.")]
+        for name in scripts:
+            importlib.import_module(name)
+        assert len(scripts) == 9, scripts
         assert not any(k == "jax" or k.startswith("jax.") or
                        k == "pddp_tpu" or k.startswith("pddp_tpu.")
                        for k, v in sys.modules.items() if v is not None)

@@ -149,9 +149,9 @@ def _refused(data, which):
         return convert.particle_model(other(device="cpu", dtype=F64),
                                       data["particle_cartpole_chol_eps"])
     model = _case(data, "bnn_variance")[0]
-    if which == "bnn_compute_dtype":
+    if which == "bnn_float16_compute":
         net = copy.copy(model.net)
-        net.compute_dtype = torch.bfloat16
+        net.compute_dtype = torch.float16
         return model.replace(net=net)
     if which == "bnn_particle_sharded":
         return model.replace(particle_group=object(), n_particles_global=16)
@@ -162,13 +162,13 @@ def _refused(data, which):
 
 @pytest.mark.parametrize("which", [
     "subclass_of_constrained", "constrained_subclass",
-    "particle_over_subclass", "bnn_compute_dtype", "bnn_particle_sharded",
+    "particle_over_subclass", "bnn_float16_compute", "bnn_particle_sharded",
     "particle_over_bnn"])
 def test_refused_cases_still_raise(data, which):
     """What no kernel carries stays refused, each by the ValueError of
-    ``fused_control_law``: another subclass, the BNN with its bf16 knob or
-    its particles sharded, a particle model over anything but an
-    example."""
+    ``fused_control_law``: another subclass, the BNN under a float16 knob
+    (its bfloat16 knobs run in K2(d)) or with its particles sharded, a
+    particle model over anything but an example."""
     model = _refused(data, which)
     cost = cartpole.CartpoleCost(device="cpu", dtype=F64)
     ins = _case(data, "particle_cartpole_variance")[2]
