@@ -38,8 +38,11 @@ against the CPU. Phase 18 runs the port's multi-GPU paths on
 with both ranks on the one card: bench.py's cartpole batch sharded over
 the ranks through K1 and K2(a), the particle-sharded solve of phase 8's
 BNN through K1 (float64 against the unsharded solve, float32 timed) and
-one ``dp_train_step``. The timed kernel-versus-plain comparisons take one
-turn each. Each phase prints one JSON line; any failure raises and exits non-zero. The
+one ``dp_train_step``. Phases 19 and 20 run the rest of K2's gate and the
+BNN's bfloat16 knobs; phase 21 runs K2(f), the line search of any
+stateless model traced from its torch code, on the rows of
+``tests/traced_models.py``. The timed kernel-versus-plain comparisons take
+one turn each. Each phase prints one JSON line; any failure raises and exits non-zero. The
 run's seconds, the card line, the kernels line and, last,
 ``{"ok": true, "device": {...}}`` close it. Without a CUDA device it
 exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
@@ -54,6 +57,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -109,10 +113,11 @@ K1_BLOCK_FORCED = [(20, 1, 2), (27, 1, 4), (42, 1, 1), (3, 2, 2),
 TURNS = (True, False)
 
 # (B, N) of the batched kernel cases (phases 1, 2 and 10): one solve of
-# one step, a ragged block of three, a full batch at half the bench
-# horizon (cut from N=200 for the run's time; phase 13 times every kernel
-# at the bench horizon, and phase 1 holds K1 there at B=1 and B=1024).
-BATCHES = [(1, 1), (3, 37), (64, 100)]
+# one step, a ragged block of three, a full batch at an eighth of the
+# bench horizon (cut from N=200, then from 100 and 50, for the run's
+# time; phase 13 times every kernel at the bench horizon, and
+# phase 1 holds K1 there at B=1 and B=1024).
+BATCHES = [(1, 1), (3, 37), (64, 25)]
 
 
 def k1_block_tol(dtype_name, nu):
@@ -669,27 +674,7 @@ def phase0_build(card):
     import torch
     from pddp_tpu_torch.ops import _build
     report = _build.build_all(force=True)
-    kernels = {}
-    for name, r in report.items():
-        rows, entry = [], None
-        for line in r["ptxas"].splitlines():
-            m = re.search(r"Compiling entry function '([^']+)'", line)
-            if m:
-                entry, frame = m.group(1), [0, 0, 0]
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m and entry is not None:
-                frame = [int(g) for g in m.groups()]
-            m = re.search(r"Used (\d+) registers", line)
-            if m and entry is not None:
-                smem = re.search(r"(\d+) bytes smem", line)
-                rows.append({"entry": entry, "registers": int(m.group(1)),
-                             "smem_bytes": int(smem.group(1)) if smem
-                             else 0, "stack_bytes": frame[0],
-                             "spill_store_bytes": frame[1],
-                             "spill_load_bytes": frame[2]})
-                entry = None
-        kernels[name] = rows
+    kernels = {name: ptxas_rows(r["ptxas"]) for name, r in report.items()}
     entries = [r["entry"] for r in kernels["fused_bnn_rollout"]]
     check(all(any("bnn_rollout_kernelI" + t in e for e in entries)
               for t in "fd"), "ptxas reported no K2(d) instance")
@@ -699,7 +684,9 @@ def phase0_build(card):
     sass = k2d_sass_report(_build._target("fused_bnn_rollout", "f32"))
     emit({"phase": 0, "card": card, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": round(next(iter(report.values()))["seconds"], 3),
+          "build_s": round(max(r["seconds"] for r in report.values()), 3),
+          "build_s_per_source": {name: round(r["seconds"], 3)
+                                 for name, r in report.items()},
           "k2d_sass": sass, "ptxas": kernels})
     check(len(sass["hmma"]) == 4 and all(v > 0 for v in
                                          sass["hmma"].values()),
@@ -876,8 +863,9 @@ def phase1_k1_block():
 
 # K1 with a reg per solve (the batched solve's per-lane mu): (nz, nu) of
 # the warp kernel at the main path's shape and its Jacobi clamp (8, 4), and
-# of the block kernel at nz = 20; BATCHES' full batch (64 lanes, N=100;
-# N=200 until phase 19 needed the time), regs 10^U(-6, 2).
+# of the block kernel at nz = 20; BATCHES' full batch (64 lanes, N=25;
+# N=100 until phase 21 needed the time, N=200 until phase 19), regs
+# 10^U(-6, 2).
 K1_LANE_REG_SHAPES = [(4, 1), (8, 4), (20, 1)]
 
 
@@ -1801,7 +1789,7 @@ def phase10_k2bc():
                 continue
             # (seed offset, (B, N, bounded)): the offset is the case's
             # place before the full batch at the golden horizon (64, 40-60)
-            # went for phase 19's time (BATCHES' (64, 100) is the full
+            # went for phase 19's time (BATCHES' (64, 25) is the full
             # batch), so each case keeps the seed its float64 row had.
             for j, (B, N, bounded) in ((0, (1, 12, True)),
                                        (2, BATCHES[0] + (False,)),
@@ -3041,12 +3029,14 @@ BATCHED_CPU_LANES = 8
 # bench.py:375-430: the BNN of phase 8 at B=1024 in chunks of 256, N=25.
 BNN_BATCH = {"B": 1024, "chunk": 256, "N": 25}
 # bench.py's BNN rows: (name, trained weights, the net's precision option,
-# solves). The untrained and bf16 rows run the batch's first 128 lanes as
-# one chunk (256 until phase 19 needed the time), and carry that batch in
-# their names, so that the run fits its time; bench.py runs them at
-# B=1024.
+# solves). The trained row runs the batch's first 256 lanes as one chunk
+# (1024 in 4 chunks until phase 21 needed the time; the chunks are solved
+# one after another, so its lanes end as they did), the untrained and
+# bf16 rows its first 128 (256 until phase 19 needed the time), each
+# with that batch in its name, so that the run fits its time; bench.py
+# runs them at B=1024.
 BNN_BATCH_ROWS = (
-    ("pddp_bnn_solves_per_sec_b1024_trained", True, None, 1024),
+    ("pddp_bnn_solves_per_sec_b256_trained", True, None, 256),
     ("pddp_bnn_solves_per_sec_b128_h25_p100_5iter", False, None, 128),
     ("pddp_bnn_solves_per_sec_b128_bf16_mlp", False, "compute_dtype", 128),
     ("pddp_bnn_solves_per_sec_b128_bf16_matmul", False, "matmul_dtype",
@@ -3195,8 +3185,10 @@ def cpu_references():
     is idle: phase 14's ``entry_point`` through the plain versions at every
     configuration of ENTRY_CASES, the unbatched ``solve`` of
     BATCHED_CPU_LANES lanes of 16a's batch, 16b's four BNN lanes (in
-    chunks of two, 3 iterations), 17a's particle solves and 19c's
-    constrained solves."""
+    chunks of two, 3 iterations), 17a's particle solves, 19c's
+    constrained solves and 21d's quadrotor solve (in this worker: beside
+    another worker's CPU solve, torch's CPU threads oversubscribe the
+    host's cores)."""
     import torch
     entry = {label: entry_point(ex, codec, "cpu", torch.float64, "scan",
                                 False) for label, ex, codec in ENTRY_CASES}
@@ -3220,7 +3212,8 @@ def cpu_references():
         encoding=StateEncoding.UPPER_TRIANGULAR_CHOLESKY, chunk=2)
     return {"entry": entry, "cartpole": cartpole, "bnn": bnn,
             "particles": particle_cpu_solves(),
-            "constrained": constrained_cpu_solves()}
+            "constrained": constrained_cpu_solves(),
+            "traced": traced_cpu_solve()}
 
 
 def phase16a_cartpole(card, cpu):
@@ -4552,8 +4545,9 @@ def reset_all_counts():
     from pddp_tpu_torch.ops import fused_bnn_rollout as fb
     from pddp_tpu_torch.ops import fused_particle_rollout as fpr
     from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.ops import traced_rollout as tro
     bk.launches = bk.block_launches = 0
-    for counts in (fr.launches, fb.launches, fpr.launches):
+    for counts in (fr.launches, fb.launches, fpr.launches, tro.launches):
         reset_counts(counts)
 
 
@@ -4562,10 +4556,12 @@ def read_counts():
     from pddp_tpu_torch.ops import fused_bnn_rollout as fb
     from pddp_tpu_torch.ops import fused_particle_rollout as fpr
     from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.ops import traced_rollout as tro
     return {"K1": bk.launches + bk.block_launches,
             **{"K2(" + k + ")": v for k, v in fr.launches.items()},
             "K2(d)": fb.launches["rollout"],
-            "K2(e)": fpr.launches["rollout"]}
+            "K2(e)": fpr.launches["rollout"],
+            "K2(f)": tro.launches["rollout"]}
 
 
 def rest_row_times(raw1, raw64, work1, work64, cycles, N, dtype_name):
@@ -5551,8 +5547,701 @@ def phase20_bf16(card):
     return {"f3": f3, "k2d": k2d, "iteration": it, "scripts": scripts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: K2(f), the line search of any stateless model and cost, traced
+# ---------------------------------------------------------------------------
+
+#: the horizon and candidates of 21b, 21c and 21e (bench.py:163-184's
+#: iteration: H=200, the ten default fit alphas).
+TRACED_H = 200
+#: 21b's float64 tolerance (relative, Z, U and J): K2(a)-(c)'s own
+#: against the plain version (phase 10 holds them to 1e-12; the traced
+#: programs take torch's order of operations, the same bound holds).
+TRACED_F64_TOL = 1e-10
+#: 21c's float64 tolerance: K2(f) against K2(a)-(c) on the exact examples.
+TRACED_EXACT_TOL = 1e-12
+#: 21c's exact examples: row -> (label, the hand-written stage).
+TRACED_EXACT = {"R5": ("cartpole", "a"), "R6": ("double_cartpole", "b"),
+                "R7": ("rendezvous_chol", "c"),
+                "R8": ("constrained_cartpole", "a")}
+#: 21b's path run per row: a float32 solve through K1 and K2(f), whose
+#: K2(f) launches (= its evaluations) the kernels line carries and whose
+#: first iterate gives the row's line-search inputs. It takes no
+#: action bounds, so that the backward is K1 (with R1's, pddp_tpu's gate
+#: sends it to the box-QP scan, ~10 s an evaluation on the card's host);
+#: 21b's checks clamp R1 to its bounds.
+TRACED_PATH_OPTS = {"n_iterations": 1, "max_evals": 4}
+#: 21d's quadrotor solve (R1's model and cost at H=200, without R1's
+#: action bounds, so that the backward is K1: with them pddp_tpu's gate
+#: sends it to the box-QP scan), float64 on the card against the CPU's
+#: plain solve (made in cpu_references beside the build).
+TRACED_SOLVE_OPTS = {"n_iterations": 5}
+TRACED_J_RTOL = 1e-10
+#: 21d's batch: 21d's quadrotor problem at B=256 (starts perturbed by
+#: 0.05), H=200, 5 iterations (bench.py's batched options), through K1
+#: and K2(f), the first lanes against the scan (K1 the backward of both,
+#: so that they differ in the line search alone: the plain backward at
+#: nu=2 made the scan's lanes 27 s of phase 21's 67 on the H100).
+TRACED_BATCH = {"B": 256, "lanes": 4, "n_iterations": 5, "max_evals": 15}
+
+
+def traced_models():
+    """tests/traced_models.py (the rows; it imports the port only)."""
+    sys.path.insert(0, ROOT)
+    from tests import traced_models
+    return traced_models
+
+
+def traced_problem(row, device, dtype, H=TRACED_H):
+    """(model, cost, encoding, (u_min, u_max) tensors or (None, None),
+    z0, U0) of a row at horizon H: the row's start under its codec (the
+    belief, 1e-2 I), U0 the quadrotor's hover or the examples' 0.1."""
+    import torch
+    from pddp_tpu_torch.encoding import encode
+    tm = traced_models()
+    model, cost, enc, bounds = tm.make_row(row, H, device, dtype)
+    name = tm.example_name(tm.ROWS[row][0])
+    n, nu = model.state_size, model.action_size
+    x0 = torch.tensor(tm.STARTS[name][1], dtype=dtype, device=device)
+    z0 = encode(x0, V=1e-2 * torch.ones(n, dtype=dtype, device=device),
+                encoding=enc)
+    U0 = torch.full((H, nu), tm.HOVER if name == "quadrotor" else 0.1,
+                    dtype=dtype, device=device)
+    lo = hi = None
+    if bounds is not None:
+        lo, hi = (torch.tensor(b, dtype=dtype, device=device)
+                  for b in bounds)
+    return model, cost, enc, (lo, hi), z0, U0
+
+
+def traced_path(row, rng):
+    """A row's path run and line-search inputs: one float32 ``solve``
+    (TRACED_PATH_OPTS, no bounds) through K1 and K2(f), its launches read
+    around it, then the local model of its first iterate (its first
+    evaluation's: at the result of a solve that converges in one
+    iteration, as rendezvous's linear-quadratic one does, the gains are
+    zero) and the gains of ``traced_gains``'s ladder, of which the row
+    takes the first whose candidates the plain version computes in
+    float32 within TRACED_CONDITION of float64 and that move the
+    candidates (TRACED_SPREAD): the first reg at which the backward
+    succeeds alone left R5's closed loop amplifying float32's rounding
+    0.22-fold in one call and not in another (inputs no float32 check
+    can read), and a reg past the ladder leaves gains near zero. The
+    ladder's first reg is judged as solve 0 of 21b's batch (``batch_of``:
+    the gains perturbed per solve but for solve 0), the others, where it
+    fails, in one batch of their own.
+    Returns (model, cost, encoding, the row's bounds, the B=1 inputs (Z,
+    U, k, K) or None where no reg qualifies, the B=64 batch, the float32
+    and float64 plain versions' outputs on it, the float32 one's ms, the
+    solve's ends and launches, the ladder's record)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (ILQROptions,
+                                                 default_fit_alphas,
+                                                 local_model, rollout,
+                                                 solve)
+    f32 = torch.float32
+    model, cost, enc, bounds, z0, U0 = traced_problem(row, "cuda", f32)
+    opts = ILQROptions(**TRACED_PATH_OPTS, riccati_mode="kernel",
+                       fused_rollout=True)
+    reset_all_counts()
+    r = solve(model, cost, z0, U0, opts, encoding=enc)
+    torch.cuda.synchronize()
+    path = {**_ends(r), "launches": read_counts()}
+    derivs = local_model(rollout(model, z0, U0, enc)[0], U0, (), model,
+                         cost, enc)
+    a32 = default_fit_alphas(f32, "cuda")
+    m64, c64, b64 = cast_up(model), cast_up(cost), _bounds64(bounds)
+    regs, k, K = traced_gains(derivs, 0.0)
+    record = {"regs": regs[:1] + regs[-1:], "reg": None}
+
+    def at(lane):
+        return (derivs[0], U0, k[lane].contiguous(), K[lane].contiguous())
+
+    def around(ins):
+        """21b's batch: solve 0 ``ins``, the others its gains perturbed."""
+        batch = batch_of(rng, *ins, 64)
+        for t, t1 in zip(batch, ins):
+            t[0] = t1
+        return batch
+
+    def plain(batch):
+        p32, ms = timed_call(lambda: traced_plain(model, cost, *batch, a32,
+                                                  enc, bounds))
+        p64 = traced_plain(m64, c64, *(t.double() for t in batch),
+                           a32.double(), enc, b64)
+        return p32, p64, ms
+
+    def qualifies(p32, p64, j, lane):
+        own = max(rel_err(a[j].double(), b[j])[1] for a, b in zip(p32, p64))
+        spread = rel_err(p64[1][j][:, 0], p64[1][j][:, -1])[1]
+        record.update(reg=regs[lane], own_distance=own, spread=spread)
+        return (all(bool(torch.isfinite(a[j]).all()) for a in p32)
+                and own <= TRACED_CONDITION and spread >= TRACED_SPREAD)
+
+    out = (model, cost, enc, bounds)
+    if not regs:
+        return out + (None, None, None, None, None, path, record)
+    batch = around(at(0))
+    p32, p64, ms = plain(batch)
+    if qualifies(p32, p64, 0, 0):
+        return out + (at(0), batch, p32, p64, ms, path, record)
+    rest = list(range(1, len(regs)))
+    ladder = tuple(torch.stack([at(j)[q] for j in rest])
+                   for q in range(4))
+    q32, q64, _ = plain(ladder)
+    for j, lane in enumerate(rest):
+        if qualifies(q32, q64, j, lane):
+            batch = around(at(lane))
+            return out + (at(lane), batch, *plain(batch), path, record)
+    return out + (None, None, None, None, None, path, record)
+
+
+#: traced_path's ladder: K1's gains at the first reg, doubled from 1e-6,
+#: at which K1 succeeds, then at each of this many doublings after it.
+TRACED_LADDER = 20
+#: the largest relative distance between the plain version's float32 and
+#: float64 candidates at which traced_path takes a reg's gains: past it
+#: the closed loop amplifies rounding (R5's at reg 4.1 did 0.22-fold on
+#: the H100), and no float32 check could read the kernel.
+TRACED_CONDITION = 1e-3
+#: the least relative distance between a row's float64 actions at the
+#: largest and the smallest alpha at which traced_path takes its gains.
+TRACED_SPREAD = 1e-3
+
+
+def traced_gains(derivs, mu):
+    """K1's gains of the local model ``derivs`` at 64 regs doubled from
+    max(mu, 1e-6) (one batched call, a solve a reg): (regs, k, K) from the
+    first reg at which K1 succeeds to TRACED_LADDER doublings after it;
+    the regs empty where it succeeds at none."""
+    import torch
+    from pddp_tpu_torch.ops.backward_kernel import kernel_backward
+    n = 64
+    regs = max(mu, 1e-6) * 2.0 ** torch.arange(
+        n, dtype=derivs[1].dtype, device=derivs[1].device)
+    k, K, ok = kernel_backward(*(t.expand((n,) + t.shape).contiguous()
+                                 for t in derivs), reg=regs)
+    good = ok.nonzero().flatten().tolist()
+    if not good:
+        return [], k[:0], K[:0]
+    lanes = slice(good[0], min(n, good[0] + TRACED_LADDER + 1))
+    return regs[lanes].tolist(), k[lanes], K[lanes]
+
+
+def cast_up(obj):
+    """A copy of a model or cost with every tensor attribute in float64
+    (K2(f)'s leaves, through the trace's own walk)."""
+    import torch
+    from pddp_tpu_torch.ops import _trace
+    leaves = _trace.leaves_of(obj)[0]
+    return _trace._substitute(obj, iter([t.to(torch.float64)
+                                         for t in leaves]))
+
+
+def traced_build_jobs():
+    """21a's traces: every row's K2(f) rollout in float32 and float64 on
+    the card (``traced_rollout.traced``; cached, so the phase's calls
+    reuse them), with its seconds, and those of 21c's exact examples
+    (their text is their row's, so they share its library). Returns
+    {(row, dtype name): (traced rollout, the generated source)}."""
+    import torch
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    tm = traced_models()
+    out = {}
+    for row in tm.ROWS:
+        for dt in (torch.float32, torch.float64):
+            model, cost, enc, _, _, _ = traced_problem(row, "cuda", dt)
+            tr = tro.traced(model, cost, enc, dt, "cuda")
+            out[row, str(dt).replace("torch.", "")] = (
+                tr, tro.source_text(tr))
+            if row in TRACED_EXACT:
+                tro.traced(exact_example(model, row, dt), cost, enc, dt,
+                           "cuda")
+    return out
+
+
+def exact_example(model, row, dtype):
+    """The exact example a row's user subclass extends (R8: the class
+    constrain_model(-1, 1) built), at the row's time step."""
+    tm = traced_models()
+    base = type(model).__mro__[1]
+    return base(dt=tm.STARTS[tm.example_name(tm.ROWS[row][0])][0],
+                device="cuda", dtype=dtype)
+
+
+def traced_builds(after):
+    """21a's build: traces the rows, then, once ``after`` is set (phase
+    0's build done), builds their libraries (``_build.build_all``, one
+    nvcc a distinct source, all at once) from this worker thread at the
+    lowest priority (``os.nice`` acts on the calling thread alone, and
+    the compilers it starts inherit it), so that they take only the
+    cores the phases after phase 0 leave idle: (traces, build report)."""
+    from pddp_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    traces = traced_build_jobs()
+    trace_s = time.perf_counter() - t0
+    after.wait()
+    os.nice(19)
+    report = _build.build_all(generated=[(tr.name, text, tr.dtype) for
+                                         tr, text in traces.values()])
+    return {"traces": traces, "trace_s": trace_s}, report
+
+
+def ptxas_rows(text):
+    """Each kernel entry of an ``nvcc -Xptxas -v`` report: registers,
+    shared memory, stack and spills."""
+    rows, entry = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, frame = m.group(1), [0, 0, 0]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and entry is not None:
+            frame = [int(g) for g in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"entry": entry, "registers": int(m.group(1)),
+                         "smem_bytes": int(smem.group(1)) if smem else 0,
+                         "stack_bytes": frame[0],
+                         "spill_store_bytes": frame[1],
+                         "spill_load_bytes": frame[2]})
+            entry = None
+    return rows
+
+
+def phase21a_build(card, build):
+    """21a: each library's trace seconds, nvcc seconds (all built at once
+    after phase 0's build), ptxas's registers and spills, and the size of
+    the traced step."""
+    info, report = build
+    rows = []
+    for (row, dname), (tr, text) in info["traces"].items():
+        r = report[tr.name]
+        entries = ptxas_rows(r["ptxas"])
+        check(r["ptxas"] == "" or any(
+            "traced_rollout_kernel" in e["entry"] for e in entries),
+              "{} {}: ptxas reported no K2(f) kernel".format(row, dname))
+        rows.append({"row": row, "dtype": dname, "library": tr.name,
+                     "trace_s": tr.trace_seconds, "nvcc_s": r["seconds"],
+                     "ptxas": entries, "step_instructions": len(tr.step.ops),
+                     "n_static": tr.n_static, "n_dynamic": tr.n_dynamic})
+    emit({"phase": "21a", "card": card, "traces_s": info["trace_s"],
+          "libraries": len({r["library"] for r in rows}), "rows": rows})
+    return rows
+
+
+def raw_k2f(model, cost, Z, U, k, K, alphas, enc, bounds=(None, None)):
+    """A closure launching K2(f) alone on preallocated outputs (one solve
+    or a batch; the cost in the kernel under IGNORE_UNCERTAINTY)."""
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    if Z.dim() == 2:
+        Z, U, k, K = (t[None] for t in (Z, U, k, K))
+    ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+    kc = cost if ign else None
+    tr = tro.traced(model, kc, enc, Z.dtype, "cuda")
+    B, N, A = U.shape[0], U.shape[1], alphas.shape[0]
+    nz, nu = Z.shape[-1], U.shape[-1]
+    p, w = tr.buffers(model, kc, Z.dtype, Z.device)
+    bnd = fr._bounds(*bounds, nu, Z.dtype, Z.device)
+    outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
+            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, A))]
+    fn = tro._function(tr, Z.dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, p, w)),
+                 None if bnd is None else bnd.data_ptr(),
+                 outs[0].data_ptr(), outs[1].data_ptr(),
+                 outs[2].data_ptr() if tr.has_cost else None, B, N, A,
+                 stream) == 0, "K2(f) launch")
+    return launch
+
+
+def k2f_work(tr, B, N, A, itemsize, bounded):
+    """(bytes, operations) of one K2(f) call: each input read once (the
+    nominal rows, the alphas, the leaves), each output written once; per
+    candidate and step the traced program's operations (``op_count``:
+    the feedback law, the step, the stage cost), and the clamp's two."""
+    nz, nu = tr.nz, tr.nu
+    n_in = (B * ((N + 1) * nz + 2 * N * nu + N * nu * nz) + A + tr.n_static
+            + tr.n_dynamic + (2 * nu if bounded else 0))
+    n_out = B * ((N + 1) * A * nz + N * A * nu + (A if tr.has_cost else 0))
+    ops = B * A * (N * (tr.op_count() + (2 * nu if bounded else 0))
+                   + (tr.terminal.op_count() if tr.has_cost else 0))
+    return (n_in + n_out) * itemsize, ops
+
+
+def traced_call(model, cost, Z, U, k, K, alphas, enc, bounds):
+    """``fused_control_law`` as a solve's line search calls it (the cost
+    in the kernel under IGNORE_UNCERTAINTY, a post-pass otherwise)."""
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+    return fr.fused_control_law(model, Z, U, k, K, alphas, enc,
+                                cost=cost if ign else None, u_min=bounds[0],
+                                u_max=bounds[1])
+
+
+def traced_plain(model, cost, Z, U, k, K, alphas, enc, bounds):
+    """The plain version, control_law, with the cost summed in its loop
+    under IGNORE_UNCERTAINTY as the kernel sums it."""
+    from pddp_tpu_torch.controllers.ilqr import control_law
+    from pddp_tpu_torch.encoding import StateEncoding
+    ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+    return control_law(model, Z, U, k, K, alphas, enc, u_min=bounds[0],
+                       u_max=bounds[1], cost=cost if ign else None,
+                       cost_in_scan=ign)
+
+
+def _bounds64(bounds):
+    return tuple(None if b is None else b.double() for b in bounds)
+
+
+def phase21b_rows(card, rng):
+    """21b: each row's path run (``traced_path``: a float32 solve at H=200
+    through K1 and K2(f), K2(f)'s launches equal to its evaluations), then
+    K2(f) against its plain version at its inputs (``traced_path``), ten
+    alphas,
+    B=1 and B=64 (the gains perturbed per solve but for solve 0, the B=1
+    inputs, so that the plain version runs once for both), float64
+    (TRACED_F64_TOL, the float32 model and inputs cast up) and float32
+    (rest_f32: against that float64 plain version); and 21e: K2(f) alone
+    at B=1 and 64 (float32, events over raw launches) beside its bound,
+    the larger of the roofline and the traced step's chain
+    (``k2f_chain_cycles``) x N at the card's maximum SM clock, with the
+    plain version's time at B=64 (its launches do not depend on B)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    tm = traced_models()
+    f32 = torch.float32
+    rows, failed, inputs = [], [], {}
+    for row in tm.ROWS:
+        t0 = time.perf_counter()
+        kind, codec, cost_kind = tm.ROWS[row]
+        out = {"row": row, "model": kind, "codec": codec, "cost": cost_kind,
+               "N": TRACED_H, "A": 10}
+        (model32, cost32, enc, b32, ins32, batch, plain32, ref,
+         out["plain_ms_B64"], path, ladder) = traced_path(row, rng)
+        out["path"], out["ladder"] = path, ladder
+        out["launches"] = path["launches"]["K2(f)"]
+        if not (out["launches"] == path["evals"] > 0 and all(
+                path["launches"]["K2(" + s + ")"] == 0 for s in "abcde")):
+            failed.append("21b {}: the path's launches {} differ from its "
+                          "{} evaluations".format(row, path["launches"],
+                                                  path["evals"]))
+        if ins32 is None:
+            failed.append("21b {}: no reg of the ladder gives gains that "
+                          "move the candidates and that float32 computes "
+                          "within {} of float64: {}".format(
+                              row, TRACED_CONDITION, ladder))
+            emit({"phase": "21b", "card": card, **out})
+            continue
+        a32 = default_fit_alphas(f32, "cuda")
+        m64, c64 = cast_up(model32), cast_up(cost32)
+        b64 = _bounds64(b32)
+        inputs[row] = (model32, cost32, enc, b32, ins32,
+                       tuple(r[0] for r in ref),
+                       tuple(p[0] for p in plain32))
+        for B, ins in ((1, ins32), (64, batch)):
+            def pick(outs):
+                return outs if B == 64 else tuple(o[0] for o in outs)
+            kern64 = traced_call(m64, c64, *(t.double() for t in ins),
+                                 a32.double(), enc, b64)
+            errs = rest_errors(kern64, pick(ref))
+            kern32 = traced_call(model32, cost32, *ins, a32, enc, b32)
+            hold = rest_f32(kern32, pick(plain32), pick(ref))
+            f64_held = all(e[1] <= TRACED_F64_TOL for e in errs.values())
+            out["B{}".format(B)] = {"float64": errs, "float64_held":
+                                    f64_held, "float32": hold}
+            if not f64_held:
+                failed.append("21b {} B={}: float64 off the plain version: "
+                              "{}".format(row, B, errs))
+            if not all(v["held"] for v in hold.values()):
+                failed.append("21b {} B={}: float32 past its derived "
+                              "tolerance: {}".format(row, B, hold))
+        out["max_abs_err"] = max(e[0] for e in
+                                 out["B1"]["float64"].values())
+        # 21e: the kernel alone beside its bound.
+        tr = tro.traced(model32, cost32, enc, f32, "cuda")
+        bounded = b32[0] is not None
+        raw1 = raw_k2f(model32, cost32, *ins32, a32, enc, b32)
+        raw64 = raw_k2f(model32, cost32, *batch, a32, enc, b32)
+        cycles, chain = tr.chain(LATENCY["float32"], bounded)
+        out.update(rest_row_times(
+            raw1, raw64, k2f_work(tr, 1, TRACED_H, 10, 4, bounded),
+            k2f_work(tr, 64, TRACED_H, 10, 4, bounded), cycles, TRACED_H,
+            "float32"))
+        out["chain_cycles"], out["chain"] = cycles, chain
+        out["seconds"] = time.perf_counter() - t0
+        emit({"phase": "21b", "card": card, **out})
+        rows.append(out)
+    return rows, failed, inputs
+
+
+def phase21c_exact(card, rng, inputs):
+    """21c: K2(f) called directly (``traced_control_law``) on the exact
+    examples of R5-R8 (the cartpole, the double cartpole, rendezvous
+    under the Cholesky codec, constrain_model(-1, 1)'s cartpole) against
+    the hand-written K2(a), K2(b), K2(c) and K2(a)'s constrained instance
+    on the same inputs (21b's rows'): float64 within TRACED_EXACT_TOL,
+    float32 each held by ``rest_f32`` against 21b's plain version of the
+    row in float32 and float64 (the same arithmetic on the same inputs:
+    the derived tolerance is the plain version's, not the other
+    kernel's), their distance to each other reported; both timed alone
+    at B=1 and 64 in float32, in turns, in this call."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    f32 = torch.float32
+    rows, failed = [], []
+    for row, (label, st) in TRACED_EXACT.items():
+        t0 = time.perf_counter()
+        if row not in inputs:   # failed in 21b
+            continue
+        model32, cost32, enc, b32, ins32, ref, plain32 = inputs[row]
+        exact = exact_example(model32, row, f32)
+        check(fr.stage(exact, cost32, enc) == st,
+              "21c {}: the exact example is not in K2({})".format(row, st))
+        ign = enc == StateEncoding.IGNORE_UNCERTAINTY
+        kc = cost32 if ign else None
+        a32 = default_fit_alphas(f32, "cuda")
+        out = {"row": row, "example": label, "stage": st}
+        m64, c64 = cast_up(exact), cast_up(cost32)
+        ins64 = tuple(t.double() for t in ins32)
+        f_64 = tro.traced_control_law(m64, *ins64, a32.double(), enc,
+                                      cost=c64 if ign else None)
+        h_64 = fr.fused_control_law(m64, *ins64, a32.double(), enc,
+                                    cost=c64 if ign else None)
+        errs = rest_errors(f_64, h_64)
+        out["float64"] = errs
+        if not all(e[1] <= TRACED_EXACT_TOL for e in errs.values()):
+            failed.append("21c {}: K2(f) off K2({}) in float64: {}".format(
+                row, st, errs))
+        f_32 = tro.traced_control_law(exact, *ins32, a32, enc, cost=kc)
+        h_32 = fr.fused_control_law(exact, *ins32, a32, enc, cost=kc)
+        out["float32"] = {"K2(f)": rest_f32(f_32, plain32, ref),
+                          "K2({})".format(st): rest_f32(h_32, plain32, ref),
+                          "K2(f)_vs_K2({})".format(st): rest_errors(f_32,
+                                                                   h_32)}
+        for name in ("K2(f)", "K2({})".format(st)):
+            hold = out["float32"][name]
+            if not all(v["held"] for v in hold.values()):
+                failed.append("21c {}: {} float32 past its derived "
+                              "tolerance: {}".format(row, name, hold))
+        batch = batch_of(rng, *ins32, 64)
+        raws = {"K2(f)": (raw_k2f(exact, cost32, *ins32, a32, enc),
+                          raw_k2f(exact, cost32, *batch, a32, enc)),
+                "K2({})".format(st): (raw_k2(exact, kc, *ins32, a32, enc),
+                                      raw_k2(exact, kc, *batch, a32, enc))}
+        times = {k: {"ms": [], "ms_B64": []} for k in raws}
+        for name in list(raws) + list(raws)[::-1]:
+            times[name]["ms"].append(events_ms(raws[name][0], 20))
+            times[name]["ms_B64"].append(events_ms(raws[name][1], 5))
+        out["times"] = {k: {q: float(np.median(v)) for q, v in t.items()}
+                        for k, t in times.items()}
+        out["seconds"] = time.perf_counter() - t0
+        emit({"phase": "21c", "card": card, **out})
+        rows.append(out)
+    return rows, failed
+
+
+def traced_cpu_solve():
+    """21d's float64 reference on the CPU: the R1 quadrotor solve (no
+    bounds) through the plain versions, the cost summed in the scan as
+    K2(f) sums it."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    model, cost, enc, _, z0, U0 = traced_problem("R1", "cpu", torch.float64)
+    return solve(model, cost, z0, U0, ILQROptions(
+        **TRACED_SOLVE_OPTS, cost_in_scan=True), encoding=enc)
+
+
+def phase21d_solves(card, cpu):
+    """21d: (i) the golden cartpole case (tests/golden/cases.py) through
+    R5's subclass of the cartpole, ``fused_rollout=True,
+    riccati_mode="kernel"``, float64, against
+    tests/golden/solver_trajectories.npz within test_golden.py's
+    tolerances; (ii) the R1 quadrotor solve at H=200 (without R1's
+    bounds), float64 on the card against the CPU's (the same end, J
+    within TRACED_J_RTOL), and its float32 wall; (iii) one
+    ``batched_solve`` of it at B=256, H=200, 5 iterations, float64,
+    through K1 and K2(f), its first lanes against the same lanes through
+    K1 and the scan on the card. Each run's K1 and K2(f) launches equal its
+    evaluations (the batch: the batched loop's)."""
+    import torch
+    from pddp_tpu_torch.controllers import ilqr
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    from pddp_tpu_torch.convert import golden_cartpole_U0
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.parallel import batched_solve
+    tm = traced_models()
+    f32, f64 = torch.float32, torch.float64
+    failed, out = [], {}
+    t0 = time.perf_counter()
+    # (i) The golden cartpole through the user's subclass.
+    g = np.load(GOLDEN)
+    _, _, iters, _, outcomes = GOLDEN_CASES["cartpole"]
+    model = tm.user_subclass("cartpole_subclass")(dt=0.05, device="cuda",
+                                                  dtype=f64)
+    _, cost, z0 = cartpole_problem(torch, f64, "cuda", 60)
+    U0 = torch.as_tensor(golden_cartpole_U0(), dtype=f64, device="cuda")
+    reset_all_counts()
+    r, sec = _timed(lambda: solve(
+        model, cost, z0, U0, ILQROptions(n_iterations=iters,
+                                         riccati_mode="kernel",
+                                         fused_rollout=True),
+        encoding=StateEncoding.IGNORE_UNCERTAINTY))
+    counts = read_counts()
+    Z, U = r.Z.cpu().numpy(), r.U.cpu().numpy()
+    gold = {"case": "cartpole", "model": type(model).__name__,
+            **_ends(r), "launches": counts, "solve_s": sec,
+            "J_rel": abs(r.J_opt - float(g["cartpole_J"]))
+            / abs(float(g["cartpole_J"])),
+            "Z_abs": float(np.abs(Z - g["cartpole_Z"]).max()),
+            "U_abs": float(np.abs(U - g["cartpole_U"]).max())}
+    out["golden"] = gold
+    try:
+        np.testing.assert_allclose(r.J_opt, g["cartpole_J"], rtol=1e-6)
+        np.testing.assert_allclose(Z, g["cartpole_Z"], rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(U, g["cartpole_U"], rtol=1e-5, atol=1e-7)
+    except AssertionError as e:
+        failed.append("21d golden cartpole: {}".format(str(e)[:300]))
+    if (r.state.name, r.iterations, r.evals) not in outcomes:
+        failed.append("21d golden cartpole ended {}, expected {}".format(
+            _ends(r), outcomes))
+    if not (counts["K2(f)"] == r.evals > 0 and counts["K1"] == r.evals
+            and counts["K2(a)"] == 0):
+        failed.append("21d golden cartpole launches {} for {} "
+                      "evaluations".format(counts, r.evals))
+    # (ii) The quadrotor solve, float64 against the CPU, float32 wall.
+    quad = {}
+    for dt in (f64, f32):
+        model, cost, enc, _, z0, U0 = traced_problem("R1", "cuda", dt)
+        opts = ILQROptions(**TRACED_SOLVE_OPTS, riccati_mode="kernel",
+                           fused_rollout=True)
+        reset_all_counts()
+        r, sec = _timed(lambda: solve(model, cost, z0, U0, opts,
+                                      encoding=enc))
+        counts = read_counts()
+        dname = str(dt).replace("torch.", "")
+        quad[dname] = {**_ends(r), "wall_s": sec, "launches": counts}
+        if not counts["K2(f)"] == counts["K1"] == r.evals > 0:
+            failed.append("21d quadrotor {}: launches {} for {} "
+                          "evaluations".format(dname, counts, r.evals))
+        if dt == f64:
+            quad["cpu"] = _ends(cpu)
+            quad["J_rel"] = abs(r.J_opt - cpu.J_opt) / abs(cpu.J_opt)
+            if not ((r.state, r.iterations, r.evals)
+                    == (cpu.state, cpu.iterations, cpu.evals)
+                    and quad["J_rel"] <= TRACED_J_RTOL):
+                failed.append("21d quadrotor: the card's float64 solve "
+                              "differs from the CPU's: {}".format(quad))
+    out["quadrotor"] = quad
+    # (iii) The batch through K1 + K2(f), lanes against the scan.
+    B, lanes = TRACED_BATCH["B"], TRACED_BATCH["lanes"]
+    model, cost, enc, _, z0, U0 = traced_problem("R1", "cuda", f64)
+    gen = np.random.default_rng(5)
+    z0s = (z0 + torch.as_tensor(0.05 * gen.standard_normal((B, z0.numel())),
+                                dtype=f64, device="cuda")).contiguous()
+    U0s = U0.expand(B, *U0.shape).contiguous()
+    kw = dict(n_iterations=TRACED_BATCH["n_iterations"],
+              max_evals=TRACED_BATCH["max_evals"])
+    reset_all_counts()
+    ilqr.lane_evaluations = 0
+    rk, sec = _timed(lambda: batched_solve(
+        model, cost, z0s, U0s, ILQROptions(**kw, riccati_mode="kernel",
+                                           fused_rollout=True,
+                                           cost_in_scan=True),
+        encoding=enc))
+    counts, evals = read_counts(), ilqr.lane_evaluations
+    rs, scan_s = _timed(lambda: batched_solve(
+        model, cost, z0s[:lanes], U0s[:lanes],
+        ILQROptions(**kw, riccati_mode="kernel", cost_in_scan=True),
+        encoding=enc))
+    cmp = ends_and_J(rs, rk, lanes)
+    batch = {"B": B, "H": TRACED_H, "wall_s": sec, "launches": counts,
+             "evaluations": evals, "ends": _lane_ends(rk), "vs_scan": cmp,
+             "scan_lanes_wall_s": scan_s}
+    out["batch"] = batch
+    if not counts["K2(f)"] == counts["K1"] == evals > 0:
+        failed.append("21d batch: K1 and K2(f) launches {} for {} batched "
+                      "evaluations".format(counts, evals))
+    if cmp["other_ends"] or not (cmp["J_rel_same_ends"] is not None
+                                 and cmp["J_rel_same_ends"]
+                                 <= TRACED_J_RTOL):
+        failed.append("21d batch: lanes off the scan: {}".format(cmp))
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "21d", "card": card, **out})
+    return out, failed
+
+
+def phase21_traced(card, build, cpu):
+    """Phase 21, K2(f) on the card: 21a the traced libraries' build, 21b
+    each row against the plain version with its path run and (21e) its
+    times and bound, 21c the exact examples against K2(a)-(c), 21d the
+    solves."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2121)
+    a = phase21a_build(card, build)
+    b, failed, inputs = phase21b_rows(card, rng)
+    c, more = phase21c_exact(card, rng, inputs)
+    failed += more
+    d, more = phase21d_solves(card, cpu)
+    failed += more
+    emit({"phase": 21, "seconds": time.perf_counter() - t0,
+          "failed": failed})
+    check(not failed, "phase 21: {}".format(failed))
+    return {"build": a, "rows": b, "exact": c, "solves": d}
+
+
+def traced_kernel_rows(traced):
+    """The kernels line's K2(f) rows (phase 21): each row's launches those
+    of its path run (21b: a float32 solve through K1 and K2(f)), its error
+    that of float64 at B=1 against the plain version, its times float32
+    (21e); R5-R8 also K2(f) and the hand-written stage on the exact
+    example (21c), R5 and R1 the solves' launches (21d)."""
+    kernels = []
+    exact = {r["row"]: r for r in traced["exact"]}
+    solves = traced["solves"]
+    for row in traced["rows"]:
+        k = {"name": "K2(f) traced_rollout {} {} {} {}".format(
+                 row["row"], row["model"], row["codec"].lower(),
+                 row["cost"]),
+             "route": "cuda",
+             "source": "pddp_tpu_torch/csrc/traced_rollout.cuh",
+             "replaces": "pddp_tpu/ops/fused_rollout.py:114",
+             "launches": row["launches"],
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms_B64"], "plain_B": 64,
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "bound_note": "chain" if row["chain_floor_ms"]
+             >= row["roofline_ms"] else "roofline",
+             "library_ms": None, "ms_B64": row["ms_B64"],
+             "bound_ms_B64": row["bound_ms_B64"], "N": row["N"],
+             "codec": row["codec"], "chain_cycles": row["chain_cycles"]}
+        if row["row"] in exact:
+            k["exact_example"] = exact[row["row"]]["times"]
+        if row["row"] == "R5":
+            k["golden_solve_launches"] = solves["golden"]["launches"][
+                "K2(f)"]
+        if row["row"] == "R1":
+            k["quadrotor_solve_launches"] = solves["quadrotor"][
+                "float32"]["launches"]["K2(f)"]
+            k["batch_launches"] = solves["batch"]["launches"]["K2(f)"]
+        kernels.append(k)
+    return kernels
+
+
 def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
-                   batched, particles, multi, rest, bf16):
+                   batched, particles, multi, rest, bf16, traced):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -5819,6 +6508,7 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
                 "cluster": one["plan"]["cluster"],
                 "threads_per_cta": one["plan"]["threads"],
                 "N": one["N"], "codec": codec})
+    kernels += traced_kernel_rows(traced)
     return {"kernels": kernels}
 
 
@@ -5852,13 +6542,25 @@ def main():
 
 
 def _run_phases(card, run, seconds, t_start):
-    import torch
     # The CPU's side of the float64 checks of phases 14 and 16 runs beside
     # the build; "0_cpu" is the wait for it after the build.
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # Phase 21's traces are taken beside phase 0's build and their
+    # libraries built after it at a low priority (21a reports them).
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         cpu_refs = pool.submit(cpu_references)
-        run("0", phase0_build, card)
+        built = threading.Event()
+        traced_build = pool.submit(traced_builds, built)
+        try:
+            run("0", phase0_build, card)
+        finally:
+            built.set()
         cpu_refs = run("0_cpu", cpu_refs.result)
+        return _run_card_phases(card, run, seconds, t_start, cpu_refs,
+                                traced_build)
+
+
+def _run_card_phases(card, run, seconds, t_start, cpu_refs, traced_build):
+    import torch
     run("1", phase1_k1)
     run("2", phase2_k2)
     run("3", phase3_golden_f64)
@@ -5880,8 +6582,12 @@ def _run_phases(card, run, seconds, t_start):
     rest = run("19", phase19_rest_of_k2, card, particles,
                cpu_refs["constrained"])
     bf16 = run("20", phase20_bf16, card)
+    traced_build = run("21_build_wait", traced_build.result)
+    traced = run("21", phase21_traced, card, traced_build,
+                 cpu_refs["traced"])
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
-                             pddp, batched, particles, multi, rest, bf16)
+                             pddp, batched, particles, multi, rest, bf16,
+                             traced)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -563,7 +563,8 @@ def _solver_steps(model, cost, opts, encoding, model_opts, cost_opts, u_min,
             from ..ops.fused_rollout import (fused_control_law,
                                              supports_fused_rollout)
             # pddp_tpu's gate: stateful models take the scan.
-            if supports_fused_rollout(model, cost, encoding):
+            if supports_fused_rollout(model, cost, encoding,
+                                      cost_opts=cost_opts):
                 if encoding == StateEncoding.IGNORE_UNCERTAINTY:
                     return fused_control_law(
                         model, Z, U, k, K_new, alphas, encoding, cost=cost,

@@ -13,10 +13,18 @@ that carries a hash of the source and flags, so an edited source is never
 served from a stale library. ``build_all`` compiles every library at
 once, one ``nvcc`` each, and reports what ``-Xptxas -v`` said about
 registers and shared memory.
+
+K2(f)'s libraries are generated: ``ops/traced_rollout.py`` prints a
+source from a trace, and ``build_all`` and ``load_library`` take its text
+in place of a file of ``csrc/``: it is written under ``build/gen/`` and
+compiled with the same flags and ``--fmad=false`` (``-I csrc`` finds
+``csrc/traced_rollout.cuh``), one library a dtype, named by a hash of the
+text, the shared headers and the flags.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -56,73 +64,103 @@ def _nvcc() -> str:
     return path
 
 
-def _flags(dtype: str) -> tuple:
-    return _FLAGS + (DTYPES[dtype],)
+#: what a generated source adds to the flags: no contraction of a
+#: multiply and an add into an FMA, so that the traced arithmetic rounds
+#: after every operation as torch's does.
+_GENERATED_FLAGS = ("--fmad=false",)
+
+_DTYPE_NAMES = {"torch.float32": "f32", "torch.float64": "f64"}
 
 
-def _target(name: str, dtype: str) -> Path:
-    """The library's path: the hash covers the source, every shared header
-    in csrc/ and the flags."""
-    src = (_CSRC / SOURCES[name]).read_bytes()
+def _flags(dtype: str, generated: bool = False) -> tuple:
+    return _FLAGS + (DTYPES[dtype],) + (_GENERATED_FLAGS if generated
+                                        else ())
+
+
+def _target(name: str, dtype: str, text: str = None) -> Path:
+    """The library's path: the hash covers the source (``csrc/``'s file
+    of kernel ``name``, or the generated ``text``), every shared header in
+    csrc/ and the flags."""
+    src = ((_CSRC / SOURCES[name]).read_bytes() if text is None
+           else text.encode())
     src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(_flags(dtype)).encode()
-                            ).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(dtype, text is not None))
+                            .encode()).hexdigest()[:16]
     return _BUILD / "lib{}_{}_{}.so".format(name, dtype, digest)
 
 
-def _start(name: str, dtype: str):
-    """Starts nvcc for one library; returns (process, temp path,
-    target)."""
-    target = _target(name, dtype)
+def _start(name: str, dtype: str, text: str = None):
+    """Starts nvcc for one library (a generated ``text`` is written under
+    build/gen/ first); returns (source, process, temp path, target)."""
+    target = _target(name, dtype, text)
     _BUILD.mkdir(parents=True, exist_ok=True)
+    if text is None:
+        source = _CSRC / SOURCES[name]
+    else:
+        source = _BUILD / "gen" / (target.stem[3:] + ".cu")
+        source.parent.mkdir(exist_ok=True)
+        source.write_text(text)
     tmp = target.with_suffix(".{}.tmp".format(os.getpid()))
-    cmd = [_nvcc(), *_flags(dtype), "-o", str(tmp),
-           str(_CSRC / SOURCES[name])]
+    cmd = [_nvcc(), *_flags(dtype, text is not None), "-I", str(_CSRC),
+           "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
+    return source, proc, tmp, target
 
 
-def _finish(name: str, proc, tmp: Path, target: Path) -> str:
+def _finish(source, proc, tmp: Path, target: Path) -> str:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed to build {} (exit {}):\n{}".format(
-            SOURCES[name], proc.returncode, out))
+            source, proc.returncode, out))
     os.replace(tmp, target)
     return out
 
 
-def build_all(force: bool = False) -> dict:
-    """Compiles every library (each source's two) concurrently.
+def build_all(force: bool = False, generated=()) -> dict:
+    """Compiles every library concurrently, one ``nvcc`` each: each csrc/
+    source's two and, from ``generated``, a list of (name, text, dtype)
+    (dtype a torch dtype), each generated source's.
 
-    Returns {name: {"seconds": wall seconds of the whole build,
-    "ptxas": nvcc's -Xptxas -v report of both libraries (empty when they
-    were already built and ``force`` is False)}}.
+    Returns {name: {"seconds": wall seconds from the start to the end of
+    its last library, "ptxas": nvcc's -Xptxas -v report of its libraries
+    (empty where they were already built and ``force`` is False)}};
+    raises on the first failed build.
     """
     t0 = time.perf_counter()
+    jobs = [(name, d, None) for name in SOURCES for d in DTYPES]
+    jobs += [(name, _DTYPE_NAMES[str(dt)], text)
+             for name, text, dt in generated]
     started = {}
-    for name in SOURCES:
-        for dtype in DTYPES:
-            if force or not _target(name, dtype).exists():
-                started[name, dtype] = _start(name, dtype)
-    reports = {key: _finish(key[0], *job) for key, job in started.items()}
-    seconds = time.perf_counter() - t0
-    return {name: {"seconds": seconds,
-                   "ptxas": "".join(reports.get((name, d), "")
-                                    for d in DTYPES)}
-            for name in SOURCES}
+    for name, d, text in jobs:
+        if (name, d) not in started and (
+                force or not _target(name, d, text).exists()):
+            started[name, d] = _start(name, d, text)
+
+    def wait(job):
+        out = _finish(*job)
+        return out, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(started))) as pool:
+        done = dict(zip(started, pool.map(wait, started.values())))
+    report = {name: {"seconds": 0.0, "ptxas": ""} for name, _, _ in jobs}
+    for (name, _), (out, seconds) in done.items():
+        report[name]["seconds"] = max(report[name]["seconds"], seconds)
+        report[name]["ptxas"] += out
+    return report
 
 
-def load_library(name: str, dtype) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``'s entries of ``dtype``
-    (``torch.float32`` or ``torch.float64``), built on first use."""
-    key = (name, {"torch.float32": "f32", "torch.float64": "f64"}[
-        str(dtype)])
+def load_library(name: str, dtype, text: str = None) -> ctypes.CDLL:
+    """The loaded library of ``name``'s entries of ``dtype``
+    (``torch.float32`` or ``torch.float64``): csrc/'s kernel ``name`` or,
+    given its ``text``, a generated source; built on first use (raises
+    with nvcc's output where the build fails)."""
+    key = (name, _DTYPE_NAMES[str(dtype)], text)
     lib = _LIBS.get(key)
     if lib is None:
         target = _target(*key)
         if not target.exists():
-            _finish(name, *_start(*key))
+            _finish(*_start(*key))
         lib = ctypes.CDLL(str(target))
         _LIBS[key] = lib
     return lib

@@ -1,10 +1,10 @@
 """K2: the line-search rollout as one CUDA kernel.
 
 Port of ``pddp_tpu/ops/fused_rollout.py:fused_control_law``. Pallas traced
-any model's jnp code into its kernel; a CUDA kernel carries its own copy
-of the model and cost, so ``supports_fused_rollout`` admits what the
-port's kernels cover (``pddp_tpu``'s gate for the models it ships), and
-``solve`` takes the plain line search for anything else:
+any model's jnp code into its kernel. The port's stages (a)-(c) and (e)
+carry hand-written copies of the four examples; stage (f) traces any
+other stateless model's and cost's torch code into a kernel of its own,
+so ``supports_fused_rollout`` admits what ``pddp_tpu``'s gate admits:
 
  * ``csrc/fused_rollout.cu``, one template per (model, codec, cost), for
    the four example models (cartpole, pendulum, double cartpole,
@@ -23,14 +23,24 @@ port's kernels cover (``pddp_tpu``'s gate for the models it ships), and
  * stage (e), ``csrc/fused_particle_rollout.cu``
    (``ops/fused_particle_rollout.py``): the stateful
    ``ParticleDynamicsModel`` over an example of (a)-(c), under any of the
-   five codecs.
+   five codecs;
+ * stage (f), ``csrc/traced_rollout.cuh`` (``ops/traced_rollout.py``):
+   every stateless model and cost that no stage above covers (a user's
+   own model, any subclass of an example, ``SaturatingQRCost``,
+   ``AggregateCost``, a user's cost), the step and, under
+   IGNORE_UNCERTAINTY, the cost traced from their torch code; under the
+   belief codecs the cost is a batched post-pass. Where a hand-written
+   stage covers a call, it takes precedence.
 
 The stateful stages are admitted only with ``allow_stateful=True``, as in
 ``pddp_tpu``, and never take a cost in the kernel: a cost, if given, is a
 batched post-pass. Still refused, each with the ``ValueError`` of
-``fused_control_law``: any other model type or subclass, a BNN under a
-knob of another dtype (``torch.float16``) or under both knobs, or with
-its particles sharded, a particle model over anything but an example.
+``fused_control_law``: a stateless model or cost whose trace K2(f)
+refuses (``ops/_trace.py``: a Python branch on a tensor's value or on the
+step index, an op outside its table), a stateful model other than the
+BNN and the particle model over an example, a BNN under a knob of
+another dtype (``torch.float16``) or under both knobs, or with its
+particles sharded, a particle model over anything but an example.
 
 The plain version is ``controllers.ilqr.control_law`` (under
 IGNORE_UNCERTAINTY with the cost accumulated in the loop, the kernel's
@@ -52,16 +62,17 @@ from ..examples.double_cartpole import DoubleCartpoleCost
 from ..examples.pendulum import PendulumCost
 from ..examples.rendezvous import RendezvousCost
 from ..utils.linalg import SMALL_N
-from . import fused_bnn_rollout, fused_particle_rollout
+from . import fused_bnn_rollout, fused_particle_rollout, traced_rollout
 from . import _examples
 from ._build import load_library
 
 __all__ = ["fused_control_law", "supports_fused_rollout", "stage",
            "stateful_stage", "param_buffer", "launches"]
 
-#: K2(a)-(c) launches made by ``fused_control_law``, per stage; (d) and
-#: (e) are counted where they launch, in ``fused_bnn_rollout.launches``
-#: and ``fused_particle_rollout.launches``.
+#: K2(a)-(c) launches made by ``fused_control_law``, per stage; (d), (e)
+#: and (f) are counted where they launch, in
+#: ``fused_bnn_rollout.launches``, ``fused_particle_rollout.launches`` and
+#: ``traced_rollout.launches``.
 launches = {"a": 0, "b": 0, "c": 0}
 
 _SYMBOLS = {torch.float32: "pddp_fused_rollout_f32",
@@ -93,12 +104,22 @@ def _cost_kind(model, cost, encoding):
     return _AUG_QR if same and model.angular_indices else None
 
 
-def stage(model, cost, encoding):
-    """K2's stage for (model, cost, encoding): "a", "b" or "c", or None
-    where ``csrc/fused_rollout.cu`` does not cover it. The four examples'
-    exact types and their ``constrain_model`` subclasses
-    (``_examples.example_of``): any other subclass may change the
-    arithmetic the kernel carries."""
+def stage(model, cost, encoding, cost_opts=None):
+    """K2's stage for a stateless (model, cost, encoding): "a", "b" or
+    "c" where ``csrc/fused_rollout.cu`` covers it (the four examples'
+    exact types and their ``constrain_model`` subclasses,
+    ``_examples.example_of``: any other subclass may change the
+    arithmetic that kernel carries), else "f" where K2(f) takes its trace
+    with the cost's options ``cost_opts`` (``traced_rollout.supports``),
+    else None."""
+    hand = _hand_written_stage(model, cost, encoding)
+    if hand is not None:
+        return hand
+    return "f" if traced_rollout.supports(model, cost, encoding,
+                                          cost_opts=cost_opts) else None
+
+
+def _hand_written_stage(model, cost, encoding):
     base = _examples.example_of(model)[0]
     if base is None or encoding is None:
         return None
@@ -122,12 +143,14 @@ def stateful_stage(model, encoding):
     return None
 
 
-def supports_fused_rollout(model, cost, encoding=None, allow_stateful=False):
+def supports_fused_rollout(model, cost, encoding=None, allow_stateful=False,
+                           cost_opts=None):
     """Whether (model, cost, encoding) runs in a kernel: stages (a)-(c)
-    (see ``stage``) or, only with ``allow_stateful``, the stateful stages
+    and (f) (see ``stage``; ``cost_opts`` the options the cost will be
+    called with) or, only with ``allow_stateful``, the stateful stages
     (d), the belief-state BNN, and (e), the particle model over an
     example, under any codec (any cost: it runs as a post-pass)."""
-    if stage(model, cost, encoding) is not None:
+    if stage(model, cost, encoding, cost_opts) is not None:
         return True
     return allow_stateful and stateful_stage(model, encoding) is not None
 
@@ -175,13 +198,15 @@ def fused_control_law(model, Z, U, k, K, alphas,
     """Batched-alpha closed-loop rollout in one kernel.
 
     Args mirror ``controllers.ilqr.control_law``; requires
-    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True)``.
-    Inputs may carry one leading batch dim B of solves (stages (a)-(c):
-    one warp per 32 candidates of a solve; (d) a thread-block cluster and
+    ``supports_fused_rollout(model, cost, encoding, allow_stateful=True,
+    cost_opts=cost_opts)``.
+    Inputs may carry one leading batch dim B of solves (stages (a)-(c) and
+    (f): one warp per 32 candidates of a solve; (d) a thread-block cluster and
     (e) a thread block per candidate); ``alphas`` and the bounds are
     shared by the batch. Under
-    IGNORE_UNCERTAINTY ``cost_opts`` reach the plain version only: the
-    kernel's QR costs take no options.
+    IGNORE_UNCERTAINTY ``cost_opts`` reach the plain version only under
+    stages (a)-(c), whose QR costs take no options; K2(f) bakes them into
+    its trace.
 
     Returns:
         (Z_new (..., N+1, A, nz), U_new (..., N, A, nu))
@@ -189,7 +214,7 @@ def fused_control_law(model, Z, U, k, K, alphas,
         [, AUX when with_aux: for the examples (); for the BNN and the
         particle model the step noise (N, ..., A, P, n)].
     """
-    st = stage(model, cost, encoding)
+    st = stage(model, cost, encoding, cost_opts)
     if st is None:
         st = stateful_stage(model, encoding)
         if st is None:
@@ -203,6 +228,10 @@ def fused_control_law(model, Z, U, k, K, alphas,
         if cost is not None:
             result += (trajectory_cost(cost, Z_b, U_b, encoding, cost_opts),)
         return result + (AUX_b,) if with_aux else result
+    if st == "f":
+        return traced_rollout.traced_control_law(
+            model, Z, U, k, K, alphas, encoding, cost=cost,
+            cost_opts=cost_opts, u_min=u_min, u_max=u_max, with_aux=with_aux)
     in_kernel = encoding == StateEncoding.IGNORE_UNCERTAINTY
     if Z.device.type == "cpu":
         return control_law(model, Z, U, k, K, alphas, encoding,

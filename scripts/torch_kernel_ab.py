@@ -623,7 +623,9 @@ def build_only(*names):
     jobs = [(name, _build._start(name, d)) for name in names
             for d in _build.DTYPES if not _build._target(name, d).exists()]
     for name, job in jobs:
-        _build._finish(name, *job)
+        # _start gives (source, process, temp, target); older trees' gave
+        # no source.
+        _build._finish(*(job if len(job) == 4 else (name,) + job))
 
 
 def turn(tree, label, main_path_only=False, bnn_only=False, out_dir=None,

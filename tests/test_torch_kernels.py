@@ -109,18 +109,32 @@ def test_supports_gates():
     cost = CartpoleCost(device="cpu")
     assert fr.supports_fused_rollout(model, cost, IGN)
     assert fr.stage(model, cost, StateEncoding.VARIANCE_ONLY) == "c"
-    # An aggregate cost is not carried by the kernel under
-    # IGNORE_UNCERTAINTY; under a belief codec it is a post-pass.
-    assert not fr.supports_fused_rollout(model, cost + cost, IGN)
+    # An aggregate cost is not carried by K2(a) under IGNORE_UNCERTAINTY:
+    # K2(f) traces it; under a belief codec it is a post-pass, so the
+    # hand-written stage (c) keeps the call.
+    assert fr.supports_fused_rollout(model, cost + cost, IGN)
+    assert fr.stage(model, cost + cost, IGN) == "f"
     assert fr.supports_fused_rollout(model, cost + cost,
                                      StateEncoding.VARIANCE_ONLY)
+    assert fr.stage(model, cost + cost, StateEncoding.VARIANCE_ONLY) == "c"
 
     class Other(CartpoleDynamicsModel):
         pass
 
-    assert not fr.supports_fused_rollout(Other(device="cpu"), cost, IGN)
+    # Another subclass may change the arithmetic K2(a) carries: K2(f)
+    # traces its own code.
+    assert fr.supports_fused_rollout(Other(device="cpu"), cost, IGN)
+    assert fr.stage(Other(device="cpu"), cost, IGN) == "f"
+
+    class Refused(CartpoleDynamicsModel):
+        def apply(self, z, u, i, aux, encoding=StateEncoding.DEFAULT,
+                  **kwargs):
+            return super().apply(z, torch.erf(u), i, aux, encoding)
+
+    # An op outside K2(f)'s table: refused, as fused_control_law says.
+    assert not fr.supports_fused_rollout(Refused(device="cpu"), cost, IGN)
     with pytest.raises(ValueError):
-        fr.fused_control_law(Other(device="cpu"), None, None, None, None,
+        fr.fused_control_law(Refused(device="cpu"), None, None, None, None,
                              None, IGN, cost=cost)
     # K1 takes pddp_tpu's shapes: any nz with nu <= 4.
     assert bk.supports_kernel_backward(torch.zeros(3, 4), torch.zeros(3, 16,

@@ -136,14 +136,45 @@ def test_gate_admits_the_case(data, case):
         assert not fr.supports_fused_rollout(model, cost, enc)
 
 
+def _subclass(which):
+    """A subclass of ``constrain_model``'s cartpole, or ``constrain_model``
+    of a subclass of the cartpole: no hand-written stage carries either,
+    K2(f) traces both."""
+    if which == "subclass_of_constrained":
+        cls = constrain_model(-g.U_MAX, g.U_MAX)(
+            cartpole.CartpoleDynamicsModel)
+        return type("Other", (cls,), {})(device="cpu", dtype=F64)
+    assert which == "constrained_subclass"
+    other = type("Other", (cartpole.CartpoleDynamicsModel,), {})
+    return constrain_model(-g.U_MAX, g.U_MAX)(other)(device="cpu",
+                                                     dtype=F64)
+
+
+@pytest.mark.parametrize("which", ["subclass_of_constrained",
+                                   "constrained_subclass"])
+def test_subclasses_reach_stage_f(data, which):
+    """Subclasses the hand-written stages refuse reach K2(f), stage "f",
+    whose plain version is the stored ``control_law`` of the constrained
+    cartpole (the same arithmetic)."""
+    model = _subclass(which)
+    cost = cartpole.CartpoleCost(device="cpu", dtype=F64)
+    enc = StateEncoding.IGNORE_UNCERTAINTY
+    assert fr.stage(model, cost, enc) == "f"
+    assert fr.supports_fused_rollout(model, cost, enc)
+    case = "constrained_cartpole_ignore"
+    ref, _, ins, enc, bounds, _ = _case(data, case)
+    for name in cartpole.model.PARAM_NAMES:
+        setattr(model, name, getattr(ref, name))
+    Z, U, J, AUX = fr.fused_control_law(
+        model, *ins, torch.as_tensor(data["alphas"]), enc, cost=cost,
+        u_min=bounds[0], u_max=bounds[1], with_aux=True)
+    for name, got in (("Z_out", Z), ("U_out", U), ("J_out", J)):
+        np.testing.assert_allclose(got.numpy(), data[case + "_" + name],
+                                   **TOL)
+
+
 def _refused(data, which):
     """A model each of whose kinds the kernels still refuse."""
-    if which == "subclass_of_constrained":
-        cls = constrain_model(-1.0, 1.0)(cartpole.CartpoleDynamicsModel)
-        return type("Other", (cls,), {})(device="cpu", dtype=F64)
-    if which == "constrained_subclass":
-        other = type("Other", (cartpole.CartpoleDynamicsModel,), {})
-        return constrain_model(-1.0, 1.0)(other)(device="cpu", dtype=F64)
     if which == "particle_over_subclass":
         other = type("Other", (cartpole.CartpoleDynamicsModel,), {})
         return convert.particle_model(other(device="cpu", dtype=F64),
@@ -161,12 +192,12 @@ def _refused(data, which):
 
 
 @pytest.mark.parametrize("which", [
-    "subclass_of_constrained", "constrained_subclass",
     "particle_over_subclass", "bnn_float16_compute", "bnn_particle_sharded",
     "particle_over_bnn"])
 def test_refused_cases_still_raise(data, which):
     """What no kernel carries stays refused, each by the ValueError of
-    ``fused_control_law``: another subclass, the BNN under a float16 knob
+    ``fused_control_law``: a particle model over another subclass (K2(f)
+    takes stateless models only), the BNN under a float16 knob
     (its bfloat16 knobs run in K2(d)) or with its particles sharded, a
     particle model over anything but an example."""
     model = _refused(data, which)
