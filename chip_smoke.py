@@ -41,8 +41,10 @@ BNN through K1 (float64 against the unsharded solve, float32 timed) and
 one ``dp_train_step``. Phases 19 and 20 run the rest of K2's gate and the
 BNN's bfloat16 knobs; phase 21 runs K2(f), the line search of any
 stateless model traced from its torch code, on the rows of
-``tests/traced_models.py``. The timed kernel-versus-plain comparisons take
-one turn each. Each phase prints one JSON line; any failure raises and exits non-zero. The
+``tests/traced_models.py``; phase 22 runs K2(g), the line search of a
+user's stateful model traced from its torch code, and K2(e) over a
+traced inner step, on its stateful rows. The timed kernel-versus-plain
+comparisons take one turn each. Each phase prints one JSON line; any failure raises and exits non-zero. The
 run's seconds, the card line, the kernels line and, last,
 ``{"ok": true, "device": {...}}`` close it. Without a CUDA device it
 exits 1 and prints no result. It imports neither JAX nor ``pddp_tpu``.
@@ -3188,7 +3190,7 @@ def cpu_references():
     chunks of two, 3 iterations), 17a's particle solves, 19c's
     constrained solves and 21d's quadrotor solve (in this worker: beside
     another worker's CPU solve, torch's CPU threads oversubscribe the
-    host's cores)."""
+    host's cores), and 22d's lagged cartpole solve."""
     import torch
     entry = {label: entry_point(ex, codec, "cpu", torch.float64, "scan",
                                 False) for label, ex, codec in ENTRY_CASES}
@@ -3213,7 +3215,8 @@ def cpu_references():
     return {"entry": entry, "cartpole": cartpole, "bnn": bnn,
             "particles": particle_cpu_solves(),
             "constrained": constrained_cpu_solves(),
-            "traced": traced_cpu_solve()}
+            "traced": traced_cpu_solve(),
+            "stateful": stateful_cpu_solve()}
 
 
 def phase16a_cartpole(card, cpu):
@@ -4377,9 +4380,12 @@ def cast_tree(obj, dtype):
     return new
 
 
-def k2e_work(name, codec, B, N, A, P, itemsize, bounded=False):
+def k2e_work(name, codec, B, N, A, P, itemsize, bounded=False, inner=None):
     """(bytes, operations) of one K2(e) call over example ``name`` under
-    codec ``codec`` (StateEncoding's value): each input read once (the
+    codec ``codec`` (StateEncoding's value), or over the traced inner step
+    ``inner`` (a ``_trace.TracedInner``: its sizes, its leaves and its
+    program's operations in place of the example's; name None): each
+    input read once (the
     noise table's N steps), each output written once (AUX the most); per
     candidate and step the feedback law, per particle the noise solve
     (n(n-1)/2 multiply-adds and n divisions), X = mean + eps Uc, the
@@ -4387,16 +4393,22 @@ def k2e_work(name, codec, B, N, A, P, itemsize, bounded=False):
     one Cholesky factorization under the matrix codecs (CHOL's encode,
     FULL's decode; the ladder's first rung, where these inputs factor) or
     n square roots under VAR and STD."""
-    n, nu, _ = SIZES[name]
+    if inner is None:
+        n, nu, _ = SIZES[name]
+        n_params, model_ops = 8, MODEL_OPS[name]
+    else:
+        n, nu = inner.n, inner.nu
+        n_params = inner.n_static + inner.n_dynamic
+        model_ops = inner.step.op_count()
     nz = {0: n + n * n, 1: n + n * (n + 1) // 2, 2: 2 * n, 3: 2 * n,
           4: n}[codec]
     matrix = codec in (0, 1)
-    n_in = (B * ((N + 1) * nz + 2 * N * nu + N * nu * nz) + A + 8 + 2 * nu
-            + N * P * n + (2 * nu if bounded else 0))
+    n_in = (B * ((N + 1) * nz + 2 * N * nu + N * nu * nz) + A + n_params
+            + 2 * nu + N * P * n + (2 * nu if bounded else 0))
     n_out = B * ((N + 1) * A * nz + N * A * nu + N * A * P * n)
     second = (0 if codec == 4 else
               n + 2 * (n * (n + 1) // 2) if matrix else 3 * n)
-    particle = (n * (n - 1) + n) + (2 * n * n + n) + MODEL_OPS[name] + n
+    particle = (n * (n - 1) + n) + (2 * n * n + n) + model_ops + n
     belief = ((2 * n**3 // 3 + n + n * (n - 1) // 2) if matrix
               else n if codec in (2, 3) else 0)
     step = (2 * nz + 3 + (2 if bounded else 0) + P * (particle + second)
@@ -4404,12 +4416,15 @@ def k2e_work(name, codec, B, N, A, P, itemsize, bounded=False):
     return (n_in + n_out) * itemsize, B * A * N * step
 
 
-def k2e_chain_cycles(name, codec, nz, P, dtype_name, constrained=False):
+def k2e_chain_cycles(name, codec, nz, P, dtype_name, constrained=False,
+                     inner=None):
     """Cycles of one K2(e) step's critical path, counted by hand from
-    csrc/fused_particle_rollout.cu at LATENCY's latencies: the feedback
+    csrc/fused_particle_rollout.cuh at LATENCY's latencies: the feedback
     law z -> u (nz FMAs, two adds; constrain_model's tanh and two FMAs),
     beside it the noise solve (n chained subtract-and-divides) and X (n
-    FMAs); the example's step (MODEL_CHAIN); the sums over P of the mean
+    FMAs); the example's step (MODEL_CHAIN), or the traced inner step's
+    longest chain (``inner``, a ``_trace.TracedInner``: ``Program.chain``
+    at these latencies; name None); the sums over P of the mean
     and then the second moments, as trees (the least depth of any order),
     each with its division; under the matrix codecs one n x n Cholesky (n
     square roots and divisions behind 2n FMAs), under VAR and STD a square
@@ -4417,11 +4432,14 @@ def k2e_chain_cycles(name, codec, nz, P, dtype_name, constrained=False):
     out."""
     lat = LATENCY[dtype_name]
     fma, div = lat["fma"], lat["div"]
-    n = SIZES[name][0]
+    n = SIZES[name][0] if inner is None else inner.n
     u = (nz + 3) * fma + ((lat["sincos"] + 2 * fma) if constrained else 0)
     noise = n * (fma + div) + n * fma
-    sc, fmas, divs = MODEL_CHAIN[name]
-    model = (lat[sc] if sc else 0) + fmas * fma + divs * div
+    if inner is None:
+        sc, fmas, divs = MODEL_CHAIN[name]
+        model = (lat[sc] if sc else 0) + fmas * fma + divs * div
+    else:
+        model = inner.chain(lat)[0]
     depth = int(np.ceil(np.log2(P)))
     moments = (depth + 1) * fma + div
     if codec != 4:
@@ -4561,7 +4579,9 @@ def read_counts():
             **{"K2(" + k + ")": v for k, v in fr.launches.items()},
             "K2(d)": fb.launches["rollout"],
             "K2(e)": fpr.launches["rollout"],
-            "K2(f)": tro.launches["rollout"]}
+            "K2(e) traced": fpr.launches["traced"],
+            "K2(f)": tro.launches["rollout"],
+            "K2(g)": tro.launches["stateful"]}
 
 
 def rest_row_times(raw1, raw64, work1, work64, cycles, N, dtype_name):
@@ -5770,21 +5790,27 @@ def exact_example(model, row, dtype):
 
 
 def traced_builds(after):
-    """21a's build: traces the rows, then, once ``after`` is set (phase
-    0's build done), builds their libraries (``_build.build_all``, one
-    nvcc a distinct source, all at once) from this worker thread at the
-    lowest priority (``os.nice`` acts on the calling thread alone, and
-    the compilers it starts inherit it), so that they take only the
-    cores the phases after phase 0 leave idle: (traces, build report)."""
+    """21a's and 22a's build: traces the rows of phases 21 and 22, then,
+    once ``after`` is set (phase 0's build done), builds their libraries
+    (``_build.build_all``, one nvcc a distinct source, all at once) from
+    this worker thread at the lowest priority (``os.nice`` acts on the
+    calling thread alone, and the compilers it starts inherit it), so
+    that they take only the cores the phases after phase 0 leave idle:
+    (traces, build report)."""
     from pddp_tpu_torch.ops import _build
     t0 = time.perf_counter()
     traces = traced_build_jobs()
     trace_s = time.perf_counter() - t0
+    stateful = stateful_build_jobs()
+    stateful_s = time.perf_counter() - t0 - trace_s
     after.wait()
     os.nice(19)
-    report = _build.build_all(generated=[(tr.name, text, tr.dtype) for
-                                         tr, text in traces.values()])
-    return {"traces": traces, "trace_s": trace_s}, report
+    report = _build.build_all(
+        generated=[(tr.name, text, tr.dtype) for tr, text in traces.values()]
+        + [(name, text, tr.dtype, contract)
+           for _, tr, name, text, contract in stateful.values()])
+    return {"traces": traces, "trace_s": trace_s, "stateful": stateful,
+            "stateful_trace_s": stateful_s}, report
 
 
 def ptxas_rows(text):
@@ -5858,7 +5884,7 @@ def raw_k2f(model, cost, Z, U, k, K, alphas, enc, bounds=(None, None)):
                  None if bnd is None else bnd.data_ptr(),
                  outs[0].data_ptr(), outs[1].data_ptr(),
                  outs[2].data_ptr() if tr.has_cost else None, B, N, A,
-                 stream) == 0, "K2(f) launch")
+                 None, None, stream) == 0, "K2(f) launch")
     return launch
 
 
@@ -6202,6 +6228,557 @@ def phase21_traced(card, build, cpu):
     return {"build": a, "rows": b, "exact": c, "solves": d}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: K2(g), a user's stateful model traced, and K2(e) over a traced
+# inner step
+# ---------------------------------------------------------------------------
+
+#: each stateful row kind's horizon at full width: K2(g)'s rows at bench.py's
+#: H=200, K2(e)'s at phase 17's N=50 with its P=100 particles.
+STATEFUL_H = {"G": TRACED_H, "E": PARTICLE_N}
+STATEFUL_P = PARTICLE_P
+#: 22d's solve of G1 (its model and cost without its bounds, so that the
+#: backward is K1; a stateful model's line search stays on the scan, as
+#: in pddp_tpu's solve), float64 on the card against the CPU's plain solve
+#: (made in cpu_references beside the build).
+STATEFUL_SOLVE_OPTS = {"n_iterations": 3}
+#: the rows whose float32 kernel 22b holds at B=64 as at B=1 (phase 21's
+#: practice). E1's only at B=1, as phase 19a holds K2(e), its B=64
+#: float32 distances reported: there the particle cartpole's noise solve
+#: under the Cholesky codec amplifies float32's rounding in the aux (the
+#: inferred noise) to 0.4-1.0 % in the plain version itself on every batch
+#: of gains perturbed by 1 % that the ladder offered (its solve 0 at
+#: 0.06-0.09 %), so that two float32 computations of it differ by more
+#: than F32_DERIVED_CAP; float64 holds every row at B=64.
+STATEFUL_F32_B64 = ("G1", "G2", "G3", "E2")
+
+
+def stateful_problem(row, device, dtype):
+    """(model, cost, encoding, (u_min, u_max) tensors or (None, None), z0,
+    U0) of a stateful row at full width (STATEFUL_H, STATEFUL_P): the
+    row's start under its codec (the belief, 1e-2 I), U0 the quadrotor's
+    hover or the cartpole's 0.1."""
+    import torch
+    from pddp_tpu_torch.encoding import encode
+    tm = traced_models()
+    model, cost, enc, bounds = tm.make_stateful_row(
+        row, STATEFUL_H[row[0]], device, dtype, P=STATEFUL_P)
+    name = tm.example_name(tm.STATEFUL_ROWS[row][0])
+    n, nu = model.state_size, model.action_size
+    x0 = torch.tensor(tm.STARTS[name][1], dtype=dtype, device=device)
+    z0 = encode(x0, V=1e-2 * torch.ones(n, dtype=dtype, device=device),
+                encoding=enc)
+    U0 = torch.full((STATEFUL_H[row[0]], nu),
+                    tm.HOVER if name == "quadrotor" else 0.1, dtype=dtype,
+                    device=device)
+    lo = hi = None
+    if bounds is not None:
+        lo, hi = (torch.tensor(b, dtype=dtype, device=device)
+                  for b in bounds)
+    return model, cost, enc, (lo, hi), z0, U0
+
+
+def stateful_trace(row, dtype):
+    """(kind, traced, library name, generated source, contract) of a
+    stateful row's kernel in ``dtype``: "g", K2(g)'s TracedRollout, or
+    "e", the TracedInner of K2(e)'s generated instance."""
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    model, cost, enc, _, _, _ = stateful_problem(row, "cuda", dtype)
+    if row.startswith("G"):
+        kc = cost if enc == StateEncoding.IGNORE_UNCERTAINTY else None
+        tr = tro.traced(model, kc, enc, dtype, "cuda", allow_stateful=True)
+        return "g", tr, tr.name, tro.source_text(tr), False
+    tr = fpr.inner_step(model.inner, dtype, "cuda")
+    text = fpr.traced_source(tr, enc)
+    return "e", tr, fpr.traced_name(text), text, True
+
+
+def stateful_build_jobs():
+    """22a's traces: every stateful row's kernel in float32 and float64
+    (cached, so the phase's calls reuse them). Returns {(row, dtype
+    name): stateful_trace's tuple}."""
+    import torch
+    tm = traced_models()
+    return {(row, str(dt).replace("torch.", "")): stateful_trace(row, dt)
+            for row in tm.STATEFUL_ROWS
+            for dt in (torch.float32, torch.float64)}
+
+
+def phase22a_build(card, build):
+    """22a: each stateful library's trace seconds, nvcc seconds (built
+    with phase 21's after phase 0), ptxas's registers and spills, the
+    traced step's size."""
+    info, report = build
+    rows = []
+    for (row, dname), (kind, tr, name, _, _) in info["stateful"].items():
+        r = report[name]
+        entries = ptxas_rows(r["ptxas"])
+        want = ("traced_rollout_kernel" if kind == "g"
+                else "particle_rollout_kernel")
+        check(r["ptxas"] == "" or any(want in e["entry"] for e in entries),
+              "{} {}: ptxas reported no {}".format(row, dname, want))
+        rows.append({"row": row, "dtype": dname, "library": name,
+                     "kernel": "K2(g)" if kind == "g" else "K2(e) traced",
+                     "trace_s": tr.trace_seconds, "nvcc_s": r["seconds"],
+                     "ptxas": entries, "step_instructions": len(tr.step.ops),
+                     "n_static": tr.n_static, "n_dynamic": tr.n_dynamic})
+    emit({"phase": "22a", "card": card,
+          "traces_s": info["stateful_trace_s"],
+          "libraries": len({r["library"] for r in rows}), "rows": rows})
+    return rows
+
+
+def stateful_plain(model, cost, Z, U, k, K, alphas, enc, bounds):
+    """The plain version, control_law with the aux, the cost summed in
+    its loop under IGNORE_UNCERTAINTY (as K2(g) sums it), else a
+    post-pass."""
+    from pddp_tpu_torch.controllers.ilqr import control_law
+    from pddp_tpu_torch.encoding import StateEncoding
+    return control_law(model, Z, U, k, K, alphas, enc, u_min=bounds[0],
+                       u_max=bounds[1], cost=cost, with_aux=True,
+                       cost_in_scan=enc == StateEncoding.IGNORE_UNCERTAINTY)
+
+
+def stateful_call(model, cost, Z, U, k, K, alphas, enc, bounds):
+    """``fused_control_law`` as one iteration calls it on a stateful
+    model (``allow_stateful``: K2(g) or K2(e)), with the cost and aux."""
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    return fr.fused_control_law(model, Z, U, k, K, alphas, enc, cost=cost,
+                                u_min=bounds[0], u_max=bounds[1],
+                                with_aux=True)
+
+
+def solve_zero(outs, B):
+    """Solve 0's outputs of a batch (Z, U, J, AUX; AUX's batch dim is 1)."""
+    if B != 1:
+        return outs
+    return tuple(o[:, 0] if key == "AUX" else o[0]
+                 for key, o in zip(("Z", "U", "J", "AUX"), outs))
+
+
+def stateful_iteration(row, rng):
+    """22d: one float32 iteration of a stateful row, its counts from zero:
+    ``rollout`` (the aux recorded), ``local_model`` replaying the aux, K1
+    (``traced_gains``' ladder of regs, one batched call), the kernel
+    (``fused_control_law``: K2(g) or K2(e) over the traced inner step)
+    with the cost (in K2(g) under IGNORE_UNCERTAINTY, else a post-pass)
+    and the finite argmin of J. The ladder's reg is the first at which
+    the plain version's float32 and float64 outputs (Z, U, J and the aux)
+    agree within TRACED_CONDITION and the candidates move over the alphas
+    (TRACED_SPREAD), judged on the ladder as one batch (``traced_path``'s
+    rule), and, for K2(g)'s rows (``STATEFUL_F32_B64``), at which they
+    agree so on 22b's B=64 batch around it too; its gains are 22b's
+    inputs. Returns (problem, inputs or None, the B=64 batch, the plain
+    versions on it, the float32 plain's ms, the iteration's record)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import (default_fit_alphas,
+                                                 local_model, rollout)
+    f32 = torch.float32
+    model, cost, enc, bounds, z0, U0 = stateful_problem(row, "cuda", f32)
+    a32 = default_fit_alphas(f32, "cuda")
+    m64, c64, b64 = cast_up(model), cast_up(cost), _bounds64(bounds)
+    problem = (model, cost, enc, bounds)
+    t0 = time.perf_counter()
+    reset_all_counts()
+    Z, AUX = rollout(model, z0, U0, enc)
+    derivs = local_model(Z, U0, AUX, model, cost, enc)
+    regs, k, K = traced_gains(derivs, 0.0)
+    record = {"regs": regs[:1] + regs[-1:], "reg": None}
+
+    def plain(batch):
+        p32, ms = timed_call(lambda: stateful_plain(model, cost, *batch, a32,
+                                                    enc, bounds))
+        p64 = stateful_plain(m64, c64, *(t.double() for t in batch),
+                             a32.double(), enc, b64)
+        return p32, p64, ms
+
+    def own(p32, p64, j=slice(None)):
+        """The largest relative distance of any output (solve ``j``'s,
+        its batch dim 1 in the aux) and whether the float32 ones are
+        finite."""
+        dist, finite = 0.0, True
+        for q, (a, b) in enumerate(zip(p32, p64)):
+            a, b = (a[:, j], b[:, j]) if q == 3 else (a[j], b[j])
+            dist = max(dist, rel_err(a.double(), b)[1])
+            finite = finite and bool(torch.isfinite(a).all())
+        return dist, finite
+
+    lanes = []
+    if regs:
+        n = len(regs)
+        ladder = (Z.expand((n,) + Z.shape).contiguous(),
+                  U0.expand((n,) + U0.shape).contiguous(), k, K)
+        q32, q64, _ = plain(ladder)
+        for j in range(n):
+            dist, finite = own(q32, q64, j)
+            spread = rel_err(q64[1][j][:, 0], q64[1][j][:, -1])[1]
+            if finite and dist <= TRACED_CONDITION \
+                    and spread >= TRACED_SPREAD:
+                lanes.append((j, dist, spread))
+    record["tried"] = []
+    for j, dist, spread in lanes[:4 if row in STATEFUL_F32_B64 else 1]:
+        ins = (Z, U0, k[j].contiguous(), K[j].contiguous())
+        batch = batch_of(rng, *ins, 64)
+        for t, t1 in zip(batch, ins):
+            t[0] = t1
+        p32, p64, ms = plain(batch)
+        batch_dist, finite = own(p32, p64)
+        record["tried"].append({"reg": regs[j], "own_distance": dist,
+                                "spread": spread,
+                                "batch_own_distance": batch_dist})
+        if row not in STATEFUL_F32_B64 or (
+                finite and batch_dist <= TRACED_CONDITION):
+            break
+    else:
+        return problem, None, None, None, None, None, record
+    record.update(record["tried"][-1])
+    out = stateful_call(model, cost, *ins, a32, enc, bounds)
+    J = out[2]
+    best = int(torch.argmin(torch.where(torch.isfinite(J), J, torch.inf)))
+    torch.cuda.synchronize()
+    record.update(launches=read_counts(), best=best,
+                  iteration_s=time.perf_counter() - t0)
+    return problem, ins, batch, p32, p64, ms, record
+
+
+def raw_k2g(model, cost, Z, U, k, K, alphas, enc, bounds=(None, None)):
+    """A closure launching K2(g) alone on preallocated outputs (one solve
+    or a batch; the state's start and the aux buffers too)."""
+    import torch
+    from pddp_tpu_torch.encoding import StateEncoding
+    from pddp_tpu_torch.ops import fused_rollout as fr
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    if Z.dim() == 2:
+        Z, U, k, K = (t[None] for t in (Z, U, k, K))
+    kc = cost if enc == StateEncoding.IGNORE_UNCERTAINTY else None
+    tr = tro.traced(model, kc, enc, Z.dtype, "cuda", allow_stateful=True)
+    B, N, A = U.shape[0], U.shape[1], alphas.shape[0]
+    nz, nu = Z.shape[-1], U.shape[-1]
+    p, w = tr.buffers(model, kc, Z.dtype, Z.device)
+    bnd = fr._bounds(*bounds, nu, Z.dtype, Z.device)
+    S0 = tro._state_rows(model, (B, A), Z.dtype, Z.device)
+    outs = [torch.empty(s, dtype=Z.dtype, device=Z.device)
+            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, A),
+                      (B, N, A, max(1, tr.n_aux)))]
+    fn = tro._function(tr, Z.dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        check(fn(*(t.data_ptr() for t in (Z, U, k, K, alphas, p, w)),
+                 None if bnd is None else bnd.data_ptr(),
+                 outs[0].data_ptr(), outs[1].data_ptr(),
+                 outs[2].data_ptr() if tr.has_cost else None, B, N, A,
+                 S0.data_ptr(), outs[3].data_ptr(), stream) == 0,
+              "K2(g) launch")
+    return launch
+
+
+def raw_k2e_traced(model, Z, U, k, K, alphas, enc):
+    """A closure launching K2(e) over the traced inner step alone on
+    preallocated outputs."""
+    import torch
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    if Z.dim() == 2:
+        Z, U, k, K = (t[None] for t in (Z, U, k, K))
+    B, N, A = U.shape[0], U.shape[1], alphas.shape[0]
+    nz, nu, n, P = Z.shape[-1], U.shape[-1], model.state_size, \
+        model.n_particles
+    dtype = Z.dtype
+    tr = fpr.inner_step(model.inner, dtype, "cuda")
+    p, w = tr.buffers(model.inner, dtype, "cuda")
+    eps = model.eps.to(dtype).contiguous()
+    outs = [torch.empty(s, dtype=dtype, device="cuda")
+            for s in ((B, N + 1, A, nz), (B, N, A, nu), (B, N, A, P, n))]
+    fn = fpr._traced_function(tr, enc, dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = ([t.data_ptr() for t in (Z, U, k, K, alphas, p, w, eps)]
+            + [None] + [o.data_ptr() for o in outs]
+            + [B, N, A, P, int(bool(model.infer_noise_variables)), stream])
+
+    def launch():
+        check(fn(*ptrs) == 0, "K2(e) traced launch")
+    return launch
+
+
+def k2g_work(tr, B, N, A, itemsize, bounded):
+    """(bytes, operations) of one K2(g) call: K2(f)'s (``k2f_work``) and
+    the state's start read once, each step's aux written once."""
+    nbytes, ops = k2f_work(tr, B, N, A, itemsize, bounded)
+    return nbytes + B * A * (tr.n_state + N * tr.n_aux) * itemsize, ops
+
+
+def stateful_times(row, tr, model, cost, enc, bounds, ins, batch):
+    """22e: the row's kernel alone at B=1 and 64 (float32, events over raw
+    launches) beside its bound, the larger of the roofline and the chain
+    floor: K2(g)'s ``k2f_chain_cycles`` of the traced stateful step (the
+    feedback law, then the step to the next z and state), the traced
+    K2(e)'s ``k2e_chain_cycles`` with the inner step's chain."""
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    import torch
+    a32 = default_fit_alphas(torch.float32, "cuda")
+    N = ins[1].shape[0]
+    bounded = bounds[0] is not None
+    if row.startswith("G"):
+        raw1 = raw_k2g(model, cost, *ins, a32, enc, bounds)
+        raw64 = raw_k2g(model, cost, *batch, a32, enc, bounds)
+        cycles, chain = tr.chain(LATENCY["float32"], bounded)
+        work1 = k2g_work(tr, 1, N, 10, 4, bounded)
+        work64 = k2g_work(tr, 64, N, 10, 4, bounded)
+    else:
+        raw1 = raw_k2e_traced(model, *ins, a32, enc)
+        raw64 = raw_k2e_traced(model, *batch, a32, enc)
+        nz, P = ins[0].shape[-1], model.n_particles
+        cycles = k2e_chain_cycles(None, int(enc), nz, P, "float32",
+                                  inner=tr)
+        chain = {"inner_step": tr.chain(LATENCY["float32"])}
+        work1 = k2e_work(None, int(enc), 1, N, 10, P, 4, inner=tr)
+        work64 = k2e_work(None, int(enc), 64, N, 10, P, 4, inner=tr)
+    out = rest_row_times(raw1, raw64, work1, work64, cycles, N, "float32")
+    out.update(chain_cycles=cycles, chain=chain)
+    return out
+
+
+def phase22b_rows(card, rng, build):
+    """22b, 22d and 22e per stateful row at full width: the row's
+    iteration (``stateful_iteration``: its kernel launched once, K1 at
+    least once, no other K2), then its kernel against the plain version at
+    the iteration's inputs, ten alphas, B=1 and B=64 (the gains perturbed
+    per solve but for solve 0, the B=1 inputs): float64 (REST_TOL: Z, U
+    and AUX 1e-10, J 1e-8, pddp_tpu's own for its stateful kernel, the
+    float32 model and inputs cast up) and float32 (``rest_f32``: the float32
+    plain version's own distance to float64 on the same inputs sets the
+    tolerance, as in phases 19 and 21: the closed loop amplifies each
+    step's rounding, so a fixed float32 tolerance would pass or fail with
+    the gains; at B=64 for STATEFUL_F32_B64's rows, at B=1 for all);
+    then the kernel alone beside its bound (22e)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    tm = traced_models()
+    f32 = torch.float32
+    rows, failed, inputs = [], [], {}
+    for row in tm.STATEFUL_ROWS:
+        t0 = time.perf_counter()
+        kind, codec, cost_kind = tm.STATEFUL_ROWS[row]
+        N = STATEFUL_H[row[0]]
+        out = {"row": row, "model": kind, "codec": codec, "cost": cost_kind,
+               "N": N, "A": 10,
+               "P": STATEFUL_P if row.startswith("E") else None}
+        ((model, cost, enc, bounds), ins, batch, plain32, ref,
+         out["plain_ms_B64"], rec) = stateful_iteration(row, rng)
+        out["iteration"] = rec
+        if ins is None:
+            failed.append("22b {}: no reg of the ladder gives gains that "
+                          "move the candidates and that float32 computes "
+                          "within {} of float64: {}".format(
+                              row, TRACED_CONDITION, rec))
+            emit({"phase": "22b", "card": card, **out})
+            continue
+        key = "K2(g)" if row.startswith("G") else "K2(e) traced"
+        counts = rec["launches"]
+        out["launches"] = counts[key]
+        others = {k: v for k, v in counts.items()
+                  if k.startswith("K2") and k != key and v}
+        if counts[key] != 1 or counts["K1"] < 1 or others:
+            failed.append("22d {}: the iteration launched {}".format(
+                row, counts))
+        a32 = default_fit_alphas(f32, "cuda")
+        m64, c64, b64 = cast_up(model), cast_up(cost), _bounds64(bounds)
+        inputs[row] = (model, cost, enc, bounds, ins,
+                       solve_zero(ref, 1), solve_zero(plain32, 1))
+        for B, xs in ((1, ins), (64, batch)):
+            kern64 = stateful_call(m64, c64, *(t.double() for t in xs),
+                                   a32.double(), enc, b64)
+            errs = rest_errors(kern64, solve_zero(ref, B))
+            kern32 = stateful_call(model, cost, *xs, a32, enc, bounds)
+            hold = rest_f32(kern32, solve_zero(plain32, B),
+                            solve_zero(ref, B))
+            held = rest_f64_held(errs)
+            checked = B == 1 or row in STATEFUL_F32_B64
+            out["B{}".format(B)] = {"float64": errs, "float64_held": held,
+                                    "float32": hold,
+                                    "float32_checked": checked}
+            if not held:
+                failed.append("22b {} B={}: float64 off the plain version: "
+                              "{}".format(row, B, errs))
+            if checked and not all(v["held"] for v in hold.values()):
+                failed.append("22b {} B={}: float32 past its derived "
+                              "tolerance: {}".format(row, B, hold))
+        out["max_abs_err"] = max(e[0] for e in
+                                 out["B1"]["float64"].values())
+        tr = build["stateful"][row, "float32"][1]
+        out.update(stateful_times(row, tr, model, cost, enc, bounds, ins,
+                                  batch))
+        out["seconds"] = time.perf_counter() - t0
+        emit({"phase": "22b", "card": card, **out})
+        rows.append(out)
+    return rows, failed, inputs
+
+
+def phase22c_exact(card, rng, inputs):
+    """22c: E1's traced K2(e) (a bare subclass of the cartpole) against
+    the hand-written K2(e) on the exact cartpole, the same noise and
+    inputs (22b's), in one call: float64 within REST_TOL of each other,
+    float32 each held by ``rest_f32`` against E1's plain version (the
+    same arithmetic on the same inputs); both timed alone at B=1 and 64
+    in float32, in turns."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import default_fit_alphas
+    from pddp_tpu_torch.examples.cartpole import CartpoleDynamicsModel
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.ops._examples import example_of
+    failed = []
+    if "E1" not in inputs:  # failed in 22b
+        return None, failed
+    t0 = time.perf_counter()
+    model, cost, enc, bounds, ins, ref, plain32 = inputs["E1"]
+    inner = model.inner
+    exact = model.replace(inner=CartpoleDynamicsModel(
+        *(getattr(inner, n) for n in ("dt", "mc", "mp", "l", "mu", "g")),
+        device="cuda", dtype=torch.float32))
+    check(example_of(exact.inner)[0] is CartpoleDynamicsModel
+          and example_of(inner)[0] is None,
+          "22c: E1's inner model and the exact cartpole")
+    a32 = default_fit_alphas(torch.float32, "cuda")
+    out = {"row": "E1", "example": "cartpole_chol"}
+    ins64 = tuple(t.double() for t in ins)
+    b64 = _bounds64(bounds)
+    f_64 = stateful_call(cast_up(model), cast_up(cost), *ins64,
+                         a32.double(), enc, b64)
+    before = fpr.launches["rollout"]
+    h_64 = stateful_call(cast_up(exact), cast_up(cost), *ins64,
+                         a32.double(), enc, b64)
+    check(fpr.launches["rollout"] == before + 1,
+          "22c: the exact cartpole ran the hand-written K2(e)")
+    errs = rest_errors(f_64, h_64)
+    out["float64"] = errs
+    if not rest_f64_held(errs):
+        failed.append("22c: traced K2(e) off the hand-written K2(e) in "
+                      "float64: {}".format(errs))
+    f_32 = stateful_call(model, cost, *ins, a32, enc, bounds)
+    h_32 = stateful_call(exact, cost, *ins, a32, enc, bounds)
+    out["float32"] = {"traced": rest_f32(f_32, plain32, ref),
+                      "hand": rest_f32(h_32, plain32, ref),
+                      "traced_vs_hand": rest_errors(f_32, h_32)}
+    for name in ("traced", "hand"):
+        if not all(v["held"] for v in out["float32"][name].values()):
+            failed.append("22c: {} K2(e) float32 past its derived "
+                          "tolerance: {}".format(name, out["float32"][name]))
+    batch = batch_of(rng, *ins, 64)
+    raws = {"traced": (raw_k2e_traced(model, *ins, a32, enc),
+                       raw_k2e_traced(model, *batch, a32, enc)),
+            "hand": (raw_k2e(exact, *ins, a32, enc),
+                     raw_k2e(exact, *batch, a32, enc))}
+    times = {k: {"ms": [], "ms_B64": []} for k in raws}
+    for name in list(raws) + list(raws)[::-1]:
+        times[name]["ms"].append(events_ms(raws[name][0], 20))
+        times[name]["ms_B64"].append(events_ms(raws[name][1], 5))
+    out["times"] = {k: {q: float(np.median(v)) for q, v in t.items()}
+                    for k, t in times.items()}
+    out["traced_over_hand"] = (out["times"]["traced"]["ms"]
+                               / out["times"]["hand"]["ms"])
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "22c", "card": card, **out})
+    return out, failed
+
+
+def stateful_cpu_solve():
+    """22d's float64 reference on the CPU: G1's solve (no bounds) through
+    the plain versions."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    model, cost, enc, _, z0, U0 = stateful_problem("G1", "cpu",
+                                                   torch.float64)
+    return solve(model, cost, z0, U0, ILQROptions(**STATEFUL_SOLVE_OPTS),
+                 encoding=enc)
+
+
+def phase22d_solve(card, cpu):
+    """22d: G1's ``solve(riccati_mode="kernel", fused_rollout=True)`` in
+    float64 (no bounds), its counts from zero: K1 launched once an
+    evaluation, K2 none (a stateful model's line search stays on the scan
+    in ``solve``, as in pddp_tpu's), its ends and J as the CPU's plain
+    solve's (TRACED_J_RTOL)."""
+    import torch
+    from pddp_tpu_torch.controllers.ilqr import ILQROptions, solve
+    failed = []
+    model, cost, enc, _, z0, U0 = stateful_problem("G1", "cuda",
+                                                   torch.float64)
+    reset_all_counts()
+    r, sec = _timed(lambda: solve(model, cost, z0, U0, ILQROptions(
+        **STATEFUL_SOLVE_OPTS, riccati_mode="kernel", fused_rollout=True),
+        encoding=enc))
+    counts = read_counts()
+    out = {"row": "G1", **_ends(r), "wall_s": sec, "launches": counts,
+           "cpu": _ends(cpu), "J_rel": abs(r.J_opt - cpu.J_opt)
+           / abs(cpu.J_opt)}
+    if not (counts["K1"] == r.evals > 0 and not any(
+            v for k, v in counts.items() if k.startswith("K2"))):
+        failed.append("22d G1 solve: launches {} for {} evaluations".format(
+            counts, r.evals))
+    if not ((r.state, r.iterations, r.evals)
+            == (cpu.state, cpu.iterations, cpu.evals)
+            and out["J_rel"] <= TRACED_J_RTOL):
+        failed.append("22d G1 solve: the card's float64 solve differs from "
+                      "the CPU's: {}".format(out))
+    emit({"phase": "22d", "card": card, **out})
+    return out, failed
+
+
+def phase22_stateful(card, build, cpu):
+    """Phase 22, K2(g) and K2(e) over a traced inner step on the card: 22a
+    the libraries' build, 22b each row's iteration (22d), its kernel
+    against the plain version and (22e) its times and bound, 22c E1
+    against the hand-written K2(e), 22d G1's solve."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2222)
+    a = phase22a_build(card, build)
+    b, failed, inputs = phase22b_rows(card, rng, build[0])
+    c, more = phase22c_exact(card, rng, inputs)
+    failed += more
+    d, more = phase22d_solve(card, cpu)
+    failed += more
+    emit({"phase": 22, "seconds": time.perf_counter() - t0,
+          "failed": failed})
+    check(not failed, "phase 22: {}".format(failed))
+    return {"build": a, "rows": b, "exact": c, "solve": d}
+
+
+def stateful_kernel_rows(stateful):
+    """The kernels line's K2(g) and traced K2(e) rows (phase 22): each
+    row's launches those of its iteration (22d), its error that of float64
+    at B=1 against the plain version, its times float32 (22e); E1 also
+    the hand-written K2(e)'s times on the exact cartpole (22c), G1 its
+    solve's launches (K1 an evaluation; K2(g) none, the scan)."""
+    kernels = []
+    for row in stateful["rows"]:
+        g = row["row"].startswith("G")
+        k = {"name": "{} {} {} {} {}".format(
+                 "K2(g) traced_rollout" if g else "K2(e) traced inner",
+                 row["row"], row["model"], row["codec"].lower(),
+                 row["cost"]),
+             "route": "cuda",
+             "source": "pddp_tpu_torch/csrc/{}".format(
+                 "traced_rollout.cuh" if g else "fused_particle_rollout.cuh"),
+             "replaces": "pddp_tpu/ops/fused_rollout.py:114",
+             "launches": row["launches"],
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms_B64"], "plain_B": 64,
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "bound_note": "chain" if row["chain_floor_ms"]
+             >= row["roofline_ms"] else "roofline",
+             "library_ms": None, "ms_B64": row["ms_B64"],
+             "bound_ms_B64": row["bound_ms_B64"], "N": row["N"],
+             "codec": row["codec"], "chain_cycles": row["chain_cycles"]}
+        if row["row"] == "E1" and stateful["exact"] is not None:
+            k["exact_example"] = stateful["exact"]["times"]
+        if row["row"] == "G1":
+            k["solve_launches"] = stateful["solve"]["launches"]
+        kernels.append(k)
+    return kernels
+
+
 def traced_kernel_rows(traced):
     """The kernels line's K2(f) rows (phase 21): each row's launches those
     of its path run (21b: a float32 solve through K1 and K2(f)), its error
@@ -6241,7 +6818,7 @@ def traced_kernel_rows(traced):
 
 
 def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
-                   batched, particles, multi, rest, bf16, traced):
+                   batched, particles, multi, rest, bf16, traced, stateful):
     """The kernels line: every kernel with its path's launches, its error
     against its plain version, its times and its bound. K1 and K2(a) are
     read on the slice-1 path (phase 5), K2(d) and its fragment entries on
@@ -6509,6 +7086,7 @@ def phase6_kernels(res, bnn, bnn_model_, paths, times, entry, pddp,
                 "threads_per_cta": one["plan"]["threads"],
                 "N": one["N"], "codec": codec})
     kernels += traced_kernel_rows(traced)
+    kernels += stateful_kernel_rows(stateful)
     return {"kernels": kernels}
 
 
@@ -6544,8 +7122,9 @@ def main():
 def _run_phases(card, run, seconds, t_start):
     # The CPU's side of the float64 checks of phases 14 and 16 runs beside
     # the build; "0_cpu" is the wait for it after the build.
-    # Phase 21's traces are taken beside phase 0's build and their
-    # libraries built after it at a low priority (21a reports them).
+    # Phase 21's and 22's traces are taken beside phase 0's build and
+    # their libraries built after it at a low priority (21a and 22a
+    # report them).
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         cpu_refs = pool.submit(cpu_references)
         built = threading.Event()
@@ -6585,9 +7164,11 @@ def _run_card_phases(card, run, seconds, t_start, cpu_refs, traced_build):
     traced_build = run("21_build_wait", traced_build.result)
     traced = run("21", phase21_traced, card, traced_build,
                  cpu_refs["traced"])
+    stateful = run("22", phase22_stateful, card, traced_build,
+                   cpu_refs["stateful"])
     kernels = phase6_kernels(res, bnn, bnn_model_, paths, times, entry,
                              pddp, batched, particles, multi, rest, bf16,
-                             traced)
+                             traced, stateful)
     emit({"phase_seconds": seconds})
     emit({"total_s": time.perf_counter() - t_start})
     print(card_line(), flush=True)

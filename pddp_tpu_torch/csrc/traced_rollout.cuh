@@ -1,5 +1,6 @@
-// K2 stage (f): the iLQR line search of any stateless model and cost, the
-// model's step and the cost traced from their own torch code.
+// K2 stages (f) and (g): the iLQR line search of any stateless model and
+// cost (f) or of a stateful model (g), the model's step and the cost
+// traced from their own torch code.
 //
 // Replaces the Pallas kernel pddp_tpu/ops/fused_rollout.py:114
 // (fused_control_law; its pallas_call is at :261) for every stateless
@@ -23,6 +24,17 @@
 // and at the end J += terminal_cost(z_N, N). Under the belief codecs the
 // step's program holds the codec's decode and re-encode (the model's
 // apply does them), and the kernel returns trajectories only.
+//
+// Stage (g), a stateful model (only under allow_stateful, as pddp_tpu's
+// gate): the generated struct also has n_state and n_aux, and its step is
+//   step(p, w, z, u, i, s, zn, sn, an)
+// the model's step(z, u, i, state) traced with the rolling state's leaves
+// s as inputs and the next state's sn and the aux's an as outputs. As the
+// Pallas kernel threads the state through its fori_loop carry, each lane
+// holds its candidate's state in registers for the whole horizon, from
+// S0 (init_state(batch_shape=(B, A)), flattened), and writes each step's
+// aux to AUX (B, N, A, n_aux). A struct without n_state (K2(f)) compiles
+// as it did before stage (g).
 //
 // The leaves (the model's and the cost's tensor attributes) arrive in two
 // buffers rebuilt from their live values at every call: p, the leaves read
@@ -92,6 +104,22 @@ PDDP_HD double atan2_(double y, double x) { return std::atan2(y, x); }
 PDDP_HD float pow_(float x, float y) { return std::pow(x, y); }
 PDDP_HD double pow_(double x, double y) { return std::pow(x, y); }
 #endif
+// A product that no compiler contracts into an FMA, for traced code that
+// builds with contraction on (K2(e)'s traced inner step).
+PDDP_HD float mul_(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+PDDP_HD double mul_(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
 template <typename T> PDDP_HD T abs_(T x) { return x < T(0) ? -x : x; }
 template <typename T> PDDP_HD bool isnan_(T x) { return x != x; }
 template <typename T> PDDP_HD bool isinf_(T x) {
@@ -113,6 +141,8 @@ template <typename T> PDDP_HD T minimum_(T a, T b) {
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "async_copy.cuh"
 
 namespace pddp_traced {
@@ -126,6 +156,21 @@ struct Args {
   T *Z_out, *U_out, *J_out;
   int B, N, A, C;  // solves, steps, candidates, steps per chunk
   int G, W;        // warps per solve, candidates per warp (min(A, 32))
+  const T* S0;     // stage (g): the state at step 0, (B, A, n_state)
+  T* AUX;          // stage (g): each step's aux, (B, N, A, n_aux)
+};
+
+// The rolling state's and the aux's sizes of a struct: its n_state and
+// n_aux (stage (g)), or none (stage (f)).
+template <class TR, class = void>
+struct StateOf {
+  static constexpr int n_state = 0, n_aux = 0;
+  static constexpr bool stateful = false;
+};
+template <class TR>
+struct StateOf<TR, std::void_t<decltype(TR::n_state)>> {
+  static constexpr int n_state = TR::n_state, n_aux = TR::n_aux;
+  static constexpr bool stateful = true;
 };
 
 // Layout of one instance: the static leaves (block-wide, where they sit in
@@ -238,6 +283,19 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
 #pragma unroll
     for (int j = 0; j < nz; ++j) Z_out[lane * nz + j] = z[j];
   T J = T(0);
+  // Stage (g): this candidate's rolling state, in registers throughout.
+  using SO = StateOf<TR>;
+  constexpr int ns = SO::n_state > 0 ? SO::n_state : 1;
+  constexpr int na = SO::n_aux > 0 ? SO::n_aux : 1;
+  T st[ns];
+  T* aux_out = nullptr;
+  if constexpr (SO::stateful) {
+    const size_t cand = bb * A + a0 + (active ? lane : 0);
+#pragma unroll
+    for (int e = 0; e < SO::n_state; ++e)
+      st[e] = g.S0[cand * SO::n_state + e];
+    aux_out = g.AUX + (bb * N * A + a0 + lane) * size_t(SO::n_aux);
+  }
 
   for (int c = 0; c < n_chunks; ++c) {
     issue(c + pddp::kStages - 1);
@@ -269,7 +327,17 @@ __global__ void __launch_bounds__(32 * pddp::kMaxSolvesPerBlock)
           u[m] = um;
         }
         T zn[nz];
-        TR::step(p, w, z, u, lo + j, zn);
+        if constexpr (SO::stateful) {
+          T sn[ns], an[na];
+          TR::step(p, w, z, u, lo + j, st, zn, sn, an);
+#pragma unroll
+          for (int e = 0; e < SO::n_state; ++e) st[e] = sn[e];
+          T* row = aux_out + size_t(lo + j) * A * SO::n_aux;
+#pragma unroll
+          for (int e = 0; e < SO::n_aux; ++e) row[e] = an[e];
+        } else {
+          TR::step(p, w, z, u, lo + j, zn);
+        }
 #pragma unroll
         for (int e = 0; e < nz; ++e) {
           z[e] = zn[e];
@@ -310,7 +378,9 @@ int launch(const Args<typename TR::T>& args, cudaStream_t stream) {
   using T = typename TR::T;
   using S = Shape<TR>;
   Args<T> g = args;
-  if (g.B < 1 || g.N < 1 || g.A < 1 || (TR::has_cost && !g.J_out))
+  if (g.B < 1 || g.N < 1 || g.A < 1 || (TR::has_cost && !g.J_out) ||
+      (StateOf<TR>::n_state > 0 && !g.S0) ||
+      (StateOf<TR>::n_aux > 0 && !g.AUX))
     return static_cast<int>(cudaErrorInvalidValue);
   g.G = (g.A + 31) / 32;
   g.W = g.A < 32 ? g.A : 32;
@@ -337,17 +407,19 @@ int launch(const Args<typename TR::T>& args, cudaStream_t stream) {
 // The library's entry, one per generated source: Z (B, N+1, nz), U and k
 // (B, N, nu), K (B, N, nu, nz), alphas (A), p the static leaves, w the
 // step-indexed leaves, bounds (2, nu) or null; Z_out (B, N+1, A, nz), U_out
-// (B, N, A, nu), J_out (B, A) or null where the kernel carries no cost.
-// Returns the CUDA error of the launch (0: launched).
+// (B, N, A, nu), J_out (B, A) or null where the kernel carries no cost;
+// stage (g): S0 (B, A, n_state) the state at step 0, AUX (B, N, A, n_aux)
+// each step's aux (both null for stage (f)). Returns the CUDA error of the
+// launch (0: launched).
 #define PDDP_TRACED_ENTRY(TR)                                                \
   extern "C" int pddp_traced_rollout(                                        \
       const TR::T* Z, const TR::T* U, const TR::T* k, const TR::T* K,        \
       const TR::T* alphas, const TR::T* p, const TR::T* w,                   \
       const TR::T* bounds, TR::T* Z_out, TR::T* U_out, TR::T* J_out, int B,  \
-      int N, int A, void* stream) {                                          \
+      int N, int A, const TR::T* S0, TR::T* AUX, void* stream) {             \
     const pddp_traced::Args<TR::T> g{Z,     U,     k,     K, alphas, p, w,   \
                                      bounds, Z_out, U_out, J_out, B, N, A,   \
-                                     0,     0,     0};                       \
+                                     0,     0,     0,     S0, AUX};          \
     return pddp_traced::launch<TR>(g, static_cast<cudaStream_t>(stream));    \
   }
 

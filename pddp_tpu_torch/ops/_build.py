@@ -14,12 +14,17 @@ served from a stale library. ``build_all`` compiles every library at
 once, one ``nvcc`` each, and reports what ``-Xptxas -v`` said about
 registers and shared memory.
 
-K2(f)'s libraries are generated: ``ops/traced_rollout.py`` prints a
-source from a trace, and ``build_all`` and ``load_library`` take its text
-in place of a file of ``csrc/``: it is written under ``build/gen/`` and
-compiled with the same flags and ``--fmad=false`` (``-I csrc`` finds
-``csrc/traced_rollout.cuh``), one library a dtype, named by a hash of the
-text, the shared headers and the flags.
+K2(f)'s and K2(g)'s libraries are generated: ``ops/traced_rollout.py``
+prints a source from a trace, and ``build_all`` and ``load_library`` take
+its text in place of a file of ``csrc/``: it is written under
+``build/gen/`` and compiled with the same flags and ``--fmad=false``
+(``-I csrc`` finds ``csrc/traced_rollout.cuh``), one library a dtype,
+named by a hash of the text, the shared headers and the flags. So are
+those of K2(e) over a traced inner step (``ops/fused_particle_rollout.py``,
+around ``csrc/fused_particle_rollout.cuh``), but with contraction on
+(``contract=True``): the hand-written kernel builds as its
+``csrc/`` instances do, and the traced step's products go through
+``pddp_tr::mul_``, which no compiler contracts.
 """
 
 from __future__ import annotations
@@ -72,27 +77,29 @@ _GENERATED_FLAGS = ("--fmad=false",)
 _DTYPE_NAMES = {"torch.float32": "f32", "torch.float64": "f64"}
 
 
-def _flags(dtype: str, generated: bool = False) -> tuple:
-    return _FLAGS + (DTYPES[dtype],) + (_GENERATED_FLAGS if generated
-                                        else ())
+def _flags(dtype: str, generated: bool = False,
+           contract: bool = False) -> tuple:
+    return _FLAGS + (DTYPES[dtype],) + (
+        _GENERATED_FLAGS if generated and not contract else ())
 
 
-def _target(name: str, dtype: str, text: str = None) -> Path:
+def _target(name: str, dtype: str, text: str = None,
+            contract: bool = False) -> Path:
     """The library's path: the hash covers the source (``csrc/``'s file
     of kernel ``name``, or the generated ``text``), every shared header in
     csrc/ and the flags."""
     src = ((_CSRC / SOURCES[name]).read_bytes() if text is None
            else text.encode())
     src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(_flags(dtype, text is not None))
-                            .encode()).hexdigest()[:16]
+    flags = _flags(dtype, text is not None, contract)
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return _BUILD / "lib{}_{}_{}.so".format(name, dtype, digest)
 
 
-def _start(name: str, dtype: str, text: str = None):
+def _start(name: str, dtype: str, text: str = None, contract: bool = False):
     """Starts nvcc for one library (a generated ``text`` is written under
     build/gen/ first); returns (source, process, temp path, target)."""
-    target = _target(name, dtype, text)
+    target = _target(name, dtype, text, contract)
     _BUILD.mkdir(parents=True, exist_ok=True)
     if text is None:
         source = _CSRC / SOURCES[name]
@@ -101,7 +108,8 @@ def _start(name: str, dtype: str, text: str = None):
         source.parent.mkdir(exist_ok=True)
         source.write_text(text)
     tmp = target.with_suffix(".{}.tmp".format(os.getpid()))
-    cmd = [_nvcc(), *_flags(dtype, text is not None), "-I", str(_CSRC),
+    cmd = [_nvcc(), *_flags(dtype, text is not None, contract), "-I",
+           str(_CSRC),
            "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -120,7 +128,8 @@ def _finish(source, proc, tmp: Path, target: Path) -> str:
 def build_all(force: bool = False, generated=()) -> dict:
     """Compiles every library concurrently, one ``nvcc`` each: each csrc/
     source's two and, from ``generated``, a list of (name, text, dtype)
-    (dtype a torch dtype), each generated source's.
+    or (name, text, dtype, contract) (dtype a torch dtype; contract as
+    ``load_library``'s), each generated source's.
 
     Returns {name: {"seconds": wall seconds from the start to the end of
     its last library, "ptxas": nvcc's -Xptxas -v report of its libraries
@@ -128,14 +137,14 @@ def build_all(force: bool = False, generated=()) -> dict:
     raises on the first failed build.
     """
     t0 = time.perf_counter()
-    jobs = [(name, d, None) for name in SOURCES for d in DTYPES]
-    jobs += [(name, _DTYPE_NAMES[str(dt)], text)
-             for name, text, dt in generated]
+    jobs = [(name, d, None, False) for name in SOURCES for d in DTYPES]
+    jobs += [(job[0], _DTYPE_NAMES[str(job[2])], job[1],
+              bool(job[3]) if len(job) > 3 else False) for job in generated]
     started = {}
-    for name, d, text in jobs:
+    for name, d, text, contract in jobs:
         if (name, d) not in started and (
-                force or not _target(name, d, text).exists()):
-            started[name, d] = _start(name, d, text)
+                force or not _target(name, d, text, contract).exists()):
+            started[name, d] = _start(name, d, text, contract)
 
     def wait(job):
         out = _finish(*job)
@@ -143,19 +152,21 @@ def build_all(force: bool = False, generated=()) -> dict:
 
     with concurrent.futures.ThreadPoolExecutor(max(1, len(started))) as pool:
         done = dict(zip(started, pool.map(wait, started.values())))
-    report = {name: {"seconds": 0.0, "ptxas": ""} for name, _, _ in jobs}
+    report = {job[0]: {"seconds": 0.0, "ptxas": ""} for job in jobs}
     for (name, _), (out, seconds) in done.items():
         report[name]["seconds"] = max(report[name]["seconds"], seconds)
         report[name]["ptxas"] += out
     return report
 
 
-def load_library(name: str, dtype, text: str = None) -> ctypes.CDLL:
+def load_library(name: str, dtype, text: str = None,
+                 contract: bool = False) -> ctypes.CDLL:
     """The loaded library of ``name``'s entries of ``dtype``
     (``torch.float32`` or ``torch.float64``): csrc/'s kernel ``name`` or,
-    given its ``text``, a generated source; built on first use (raises
-    with nvcc's output where the build fails)."""
-    key = (name, _DTYPE_NAMES[str(dtype)], text)
+    given its ``text``, a generated source (without ``--fmad=false``
+    where ``contract``); built on first use (raises with nvcc's output
+    where the build fails)."""
+    key = (name, _DTYPE_NAMES[str(dtype)], text, contract)
     lib = _LIBS.get(key)
     if lib is None:
         target = _target(*key)

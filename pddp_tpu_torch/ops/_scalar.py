@@ -28,6 +28,13 @@ model. ``Program.run`` is the program's torch interpreter, vectorised
 over candidates (the CPU counterpart of the printed code), and
 ``print_struct`` prints the programs of a rollout as the C++ ``struct``
 that ``csrc/traced_rollout.cuh`` runs.
+
+A program may have several outputs (a stateful step's next state, its
+next rolling state and its aux, K2(g)): ``Program.sizes`` holds the size
+of each, ``outputs`` their registers one after another, and
+``Program.run`` returns one tensor per output. Its inputs are then the
+state (``("s", T, (k,))``, the state's leaves flattened one after another)
+besides z, u and the step.
 """
 
 from __future__ import annotations
@@ -178,11 +185,13 @@ class Program:
     """A straight-line scalar program.
 
     ``ops[r]`` is register r's instruction ``(op, dtype, args)``:
-    ``("z", T, (k,))`` and ``("u", T, (k,))`` the inputs, ``("i", "i64",
-    ())`` the step index, ``("ld", T, (leaf, off))`` a leaf's element,
+    ``("z", T, (k,))``, ``("u", T, (k,))`` and ``("s", T, (k,))`` the
+    inputs (s the rolling state's flat elements), ``("i", "i64", ())``
+    the step index, ``("ld", T, (leaf, off))`` a leaf's element,
     ``("ldi", T, (leaf, base, stride, r_i))`` a leaf's element at
     ``base + stride * r_i``, ``("const", dt, (value,))`` a literal, the
-    rest an operation on registers. ``outputs`` are registers of dtype T;
+    rest an operation on registers. ``outputs`` are registers of dtype T,
+    ``sizes`` the number of them of each of the program's outputs;
     ``index_ranges`` the sympy conditions under which every run-time
     read is in bounds (``_trace`` turns them into a horizon limit)."""
 
@@ -190,6 +199,7 @@ class Program:
         self.T = T
         self.ops = []
         self.outputs = []
+        self.sizes = []
         self.index_ranges = []
         self._cse = {}
 
@@ -271,12 +281,13 @@ class Program:
         arithmetic excluded): the operations of one evaluation."""
         return sum(1 for op, _, _ in self.ops if KIND_OF.get(op))
 
-    def chain(self, latency, ready=None):
+    def chain(self, latency, ready=None, n_outputs=None):
         """The longest dependent chain to the outputs at the depth the
         function needs, not the printed order's: (cycles, {kind: count})
         with ``latency[kind]`` cycles an instruction of each kind
         (``KIND_OF``); ``ready[(name, k)]`` the cycle at which input
-        ``z``/``u`` element k arrives (default 0). A sum (adds and
+        ``z``/``u``/``s`` element k arrives (default 0); over the first
+        ``n_outputs`` outputs (default all), the longest. A sum (adds and
         subtractions, and an ``all``'s ands and ors) is a tree, combining
         its two earliest terms first, and a product that is a term fuses
         into its add (an FMA); a select takes its later branch's time and
@@ -288,7 +299,7 @@ class Program:
         t = [0] * len(self.ops)
         counts = [{}] * len(self.ops)
         for r, (op, dt, args) in enumerate(self.ops):
-            if op in ("z", "u"):
+            if op in ("z", "u", "s"):
                 t[r], counts[r] = ready.get((op, args[0]), 0), {"from": op}
             elif op == "where":
                 a = max(args[1:], key=lambda a: t[a])
@@ -307,9 +318,10 @@ class Program:
                 if kind:
                     t[r] += latency[kind]
                     counts[r][kind] = counts[r].get(kind, 0) + 1
-        if not self.outputs:
+        outputs = self.outputs[:n_outputs]
+        if not outputs:
             return 0, {}
-        r = max(self.outputs, key=lambda o: t[o])
+        r = max(outputs, key=lambda o: t[o])
         return t[r], dict(counts[r])
 
     def _tree(self, r, t, counts, latency):
@@ -336,20 +348,24 @@ class Program:
         return terms[0][0], terms[0][2]
 
     # -- interpreter ----------------------------------------------------
-    def run(self, leaves, z=None, u=None, i=0):
+    def run(self, leaves, z=None, u=None, i=0, s=None):
         """The program in torch, vectorised over candidates: ``leaves``
         the leaf tensors (any shape; read flat), ``z`` (A, nz), ``u``
-        (A, nu), ``i`` the step. Returns (A, n_outputs) in T."""
+        (A, nu), ``s`` (A, n_state) the flat rolling state, ``i`` the
+        step. Returns (A, n_outputs) in T; a program of several outputs
+        returns one (A, size) tensor for each."""
         T = _TORCH[self.T]
         flat = [t.detach().reshape(-1).to(T) for t in leaves]
-        A = (z if z is not None else u).shape[0]
-        device = (z if z is not None else u).device
+        first = next(x for x in (z, u, s) if x is not None)
+        A, device = first.shape[0], first.device
         v = [None] * len(self.ops)
         for r, (op, dt, args) in enumerate(self.ops):
             if op == "z":
                 v[r] = z[:, args[0]]
             elif op == "u":
                 v[r] = u[:, args[0]]
+            elif op == "s":
+                v[r] = s[:, args[0]]
             elif op == "i":
                 v[r] = torch.tensor(int(i), dtype=torch.int64, device=device)
             elif op == "ld":
@@ -365,8 +381,11 @@ class Program:
                     else v[args[0]].to(_TORCH[dt])
                 if op != "cast" and v[r].dtype != _TORCH[dt]:
                     v[r] = v[r].to(_TORCH[dt])
-        return torch.stack([v[o].to(T).expand(A) for o in self.outputs],
-                           dim=-1)
+        out = torch.stack([v[o].to(T).expand(A) for o in self.outputs],
+                          dim=-1)
+        if len(self.sizes) > 1:
+            return tuple(out.split(self.sizes, dim=-1))
+        return out
 
 
 def _const_value(instr):
@@ -378,7 +397,7 @@ def _const_value(instr):
 
 def _reg_args(instr):
     op, _, args = instr
-    if op in ("z", "u", "i", "ld", "const"):
+    if op in ("z", "u", "s", "i", "ld", "const"):
         return ()
     if op == "ldi":
         return (args[3],)
@@ -396,7 +415,7 @@ def _tree_class(op, dt):
 
 
 def _renumber(op, args, new):
-    if op in ("z", "u", "i", "ld", "const"):
+    if op in ("z", "u", "s", "i", "ld", "const"):
         return args
     if op == "ldi":
         return args[:3] + (new[args[3]],)
@@ -869,15 +888,18 @@ def lower(gm, leaf_dtypes, T, inputs):
     """The scalar program of the traced GraphModule ``gm``.
 
     ``gm``'s placeholders are the leaves, then ``inputs`` in order, each
-    "z", "u" or "i"; ``leaf_dtypes`` the leaves' dtypes; ``T`` the
-    trace's dtype. The output is a tensor of any shape in T (flattened
-    into ``outputs``)."""
+    "z", "u", "i" or "s" (a leaf of the rolling state, of any shape: its
+    elements follow those of the state's leaves before it);
+    ``leaf_dtypes`` the leaves' dtypes; ``T`` the trace's dtype. The
+    output is a tensor of any shape in T (flattened into ``outputs``), or
+    a tuple of several (each flattened in turn; ``sizes``)."""
     T = _dt(T)
     prog = Program(T)
     low = _Lowering(prog, [_dt(d) for d in leaf_dtypes])
     env = {}
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
     n_leaves = len(placeholders) - len(inputs)
+    n_state = 0
     for k, n in enumerate(placeholders):
         meta = n.meta.get("val")
         if k < n_leaves:
@@ -890,6 +912,13 @@ def lower(gm, leaf_dtypes, T, inputs):
         kind = inputs[k - n_leaves]
         if kind == "i":
             env[n] = IVal(prog.emit("i", "i64"), meta.node.expr)
+        elif kind == "s":
+            shape = tuple(meta.shape)
+            size = int(np.prod(shape, dtype=np.int64))
+            a = _from_list([prog.emit("s", T, n_state + j)
+                            for j in range(size)], shape)
+            n_state += size
+            env[n] = Sym(a, T)
         else:
             size = int(meta.shape[0])
             a = _from_list([prog.emit(kind, T, j) for j in range(size)],
@@ -910,13 +939,13 @@ def lower(gm, leaf_dtypes, T, inputs):
         args = torch.fx.node.map_arg(n.args, lambda m: env[m])
         kwargs = torch.fx.node.map_arg(n.kwargs, lambda m: env[m])
         env[n] = low.node(n.target, args, kwargs, n.meta.get("val"))
-    if isinstance(result, (tuple, list)):
-        if len(result) != 1:
-            raise Unsupported("more than one output")
-        result = result[0]
-    out = low.sym(result)
-    prog.outputs = [prog.cast(prog.reg(e, low.leaf_dts), T)
-                    for e in out.a.reshape(-1)]
+    results = (list(result) if isinstance(result, (tuple, list))
+               else [result])
+    for res in results:
+        out = low.sym(res)
+        prog.outputs += [prog.cast(prog.reg(e, low.leaf_dts), T)
+                         for e in out.a.reshape(-1)]
+        prog.sizes.append(out.a.size)
     return prog.prune()
 
 
@@ -963,9 +992,11 @@ def _literal(instr):
     return "{}LL".format(int(v))
 
 
-def _body(prog, layout, out_stmt):
+def _body(prog, layout, out_stmt, exact_mul=False):
     """The C++ statements of ``prog``: one const register a line, then
-    ``out_stmt(k, reg_name)`` for each output."""
+    ``out_stmt(k, reg_name)`` for each output. ``exact_mul``: each product
+    through ``pddp_tr::mul_``, which no compiler contracts into an FMA
+    (for a source built with contraction on)."""
     lines = []
     for r, instr in enumerate(prog.ops):
         op, dt, args = instr
@@ -974,6 +1005,8 @@ def _body(prog, layout, out_stmt):
             rhs = "z[{}]".format(args[0])
         elif op == "u":
             rhs = "u[{}]".format(args[0])
+        elif op == "s":
+            rhs = "s[{}]".format(args[0])
         elif op == "i":
             rhs = "static_cast<long long>(i)"
         elif op == "ld":
@@ -987,6 +1020,8 @@ def _body(prog, layout, out_stmt):
             rhs = _literal(instr)
         elif op == "cast":
             rhs = "static_cast<{}>(r{})".format(ct, args[0])
+        elif op == "mul" and exact_mul and dt in ("f32", "f64"):
+            rhs = "pddp_tr::mul_(r{}, r{})".format(*args)
         else:
             rhs = _C[op].format(*("r{}".format(a) for a in args), T=ct)
         lines.append("    const {} r{} = {};".format(ct, r, rhs))
@@ -996,19 +1031,29 @@ def _body(prog, layout, out_stmt):
 
 
 def print_struct(name, T, nz, nu, step, stage=None, terminal=None,
-                 layout=None, n_static=0, n_dynamic=0, chain_note=""):
+                 layout=None, n_static=0, n_dynamic=0, chain_note="",
+                 n_state=0, exact_mul=False, what=None):
     """The C++ ``struct`` of a rollout's traced programs: ``step`` (z, u,
     i -> the next z), and where the kernel carries the cost ``stage``
     (z, u, i -> cost) and ``terminal`` (z, N -> cost). ``layout[leaf]``
     is (buffer, offset): "p", the static leaves (shared memory in the
     kernel), or "w", the leaves read by the step index (global memory).
     PDDP_HD (``traced_rollout.cuh``) is __host__ __device__ under nvcc and
-    empty otherwise, so the same text builds with g++."""
+    empty otherwise, so the same text builds with g++.
+
+    A stateful step (K2(g); ``step.sizes`` more than one output) is
+    printed as ``step(p, w, z, u, i, s, zn, sn, an)``: s the rolling
+    state's ``n_state`` flat elements, sn the next state's, an the step's
+    aux (``n_aux``, the outputs after the next state's). ``what`` names
+    the programs in the first comment line (default: the model's and the
+    cost's); ``exact_mul`` see ``_body``."""
     ct = CTYPES[_dt(T)]
     has_cost = stage is not None
+    stateful = len(step.sizes) > 1
     parts = [
-        "// Traced from the model's and the cost's torch code "
-        "(pddp_tpu_torch/ops/_trace.py).",
+        "// Traced from {} torch code "
+        "(pddp_tpu_torch/ops/_trace.py).".format(
+            what or "the model's and the cost's"),
     ]
     if chain_note:
         parts.append("// " + chain_note)
@@ -1020,11 +1065,34 @@ def print_struct(name, T, nz, nu, step, stage=None, terminal=None,
             n_static, n_dynamic),
         "  static constexpr bool has_cost = {};".format(
             "true" if has_cost else "false"),
-        "  static PDDP_HD void step(const T* __restrict__ p, "
-        "const T* __restrict__ w, const T* z, const T* u, int i, T* zn) {",
-        _body(step, layout, lambda k, r: "zn[{}] = {};".format(k, r)),
-        "  }",
     ]
+    if stateful:
+        n_aux = len(step.outputs) - nz - n_state
+
+        def out(k, r):
+            if k < nz:
+                return "zn[{}] = {};".format(k, r)
+            if k < nz + n_state:
+                return "sn[{}] = {};".format(k - nz, r)
+            return "an[{}] = {};".format(k - nz - n_state, r)
+        parts += [
+            "  static constexpr int n_state = {}, n_aux = {};".format(
+                n_state, n_aux),
+            "  static PDDP_HD void step(const T* __restrict__ p, "
+            "const T* __restrict__ w, const T* z, const T* u, int i, "
+            "const T* s, T* zn, T* sn, T* an) {",
+            _body(step, layout, out, exact_mul),
+            "  }",
+        ]
+    else:
+        parts += [
+            "  static PDDP_HD void step(const T* __restrict__ p, "
+            "const T* __restrict__ w, const T* z, const T* u, int i, "
+            "T* zn) {",
+            _body(step, layout, lambda k, r: "zn[{}] = {};".format(k, r),
+                  exact_mul),
+            "  }",
+        ]
     if has_cost:
         parts += [
             "  static PDDP_HD T stage_cost(const T* __restrict__ p, "

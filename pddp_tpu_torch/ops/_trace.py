@@ -36,10 +36,27 @@ for ``w[i]``); anything else refuses the model. So does a trace that
 raises: a Python branch on a tensor's value (a data-dependent guard), a
 tensor that is not a collected leaf, an op outside the lowering's table.
 
+Stateful models (K2(g), only under ``allow_stateful``, as ``pddp_tpu``'s
+gate has it): the step ``model.step(z, u, i, state, encoding)`` is traced
+with the leaves of ``init_state()`` as inputs besides z, u and i, and its
+outputs are the next z, the leaves of the next state and the leaves of
+the aux (``Program.sizes``), as the Pallas kernel threads the state
+through its ``fori_loop`` carry and writes the aux out. The state and the
+aux are tensors or tuples, lists and dicts of them (the nests
+``controllers.ilqr.control_law`` stacks); refused: a state or aux leaf
+that is not a floating tensor, and a step whose next state or aux is not
+a function of the traced inputs (a Python number, or a structure or
+shape other than ``init_state()``'s and ``aux_zero()``'s).
+
+The inner step (K2(e) over a traced inner model): ``trace_inner`` traces
+``inner.apply(X, u, i, (), IGNORE_UNCERTAINTY)`` at (n,), (nu,), as
+``ParticleDynamicsModel`` pushes each particle through it.
+
 The cache. ``supports_fused_rollout`` runs at every evaluation and a
 trace can take seconds, so traces are cached, keyed on the identity of
 every object's type, the repr of the static attributes, the leaves'
-shapes and dtypes, the encoding, the dtype and the device type.
+shapes and dtypes, the state's and the aux's structure, the encoding,
+the dtype and the device type.
 """
 
 from __future__ import annotations
@@ -58,8 +75,10 @@ from ..utils.linalg import SMALL_N
 from . import _scalar
 from ._scalar import Unsupported
 
-__all__ = ["Unsupported", "TracedRollout", "trace_rollout", "leaves_of",
-           "trace_step", "trace_cost", "check_stateless", "SAMPLE_STEP"]
+__all__ = ["Unsupported", "TracedRollout", "TracedInner", "trace_rollout",
+           "trace_inner", "trace_inner_step", "leaves_of", "trace_step",
+           "trace_cost", "check_gate", "state_structure", "is_stateful",
+           "flatten", "unflatten", "SAMPLE_STEP"]
 
 #: the step at which a trace is taken: past 0 and 1, which tracing would
 #: otherwise specialize.
@@ -141,6 +160,76 @@ def _substitute(obj, values):
     return obj
 
 
+def flatten(tree, what="state"):
+    """(leaves, spec) of a nest of tensors in tuples, lists and dicts (the
+    nests ``control_law`` stacks); Unsupported for anything else."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], None
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        leaves, specs = [], []
+        for v in tree:
+            sub, spec = flatten(v, what)
+            leaves += sub
+            specs.append((len(sub), spec))
+        return leaves, (type(tree), tuple(specs))
+    if isinstance(tree, dict):
+        leaves, specs = [], []
+        for k in tree:
+            sub, spec = flatten(tree[k], what)
+            leaves += sub
+            specs.append((k, len(sub), spec))
+        return leaves, ("d", tuple(specs))
+    raise Unsupported("a {} of {} (tensors in tuples, lists and dicts "
+                      "only)".format(what, type(tree).__name__))
+
+
+def unflatten(spec, leaves):
+    """The nest of ``spec`` (``flatten``'s) over ``leaves``."""
+    if spec is None:
+        return leaves[0]
+    if spec[0] == "d":
+        out, at = {}, 0
+        for k, n, sub in spec[1]:
+            out[k] = unflatten(sub, leaves[at:at + n])
+            at += n
+        return out
+    kind, subs = spec
+    out, at = [], 0
+    for n, sub in subs:
+        out.append(unflatten(sub, leaves[at:at + n]))
+        at += n
+    return kind(out)
+
+
+def state_structure(model):
+    """(state leaves, state spec, aux leaves, aux spec) of ``model``'s
+    ``init_state()`` and ``aux_zero()`` (one candidate's); Unsupported
+    where either is not a nest of floating tensors or raises."""
+    try:
+        state, aux = model.init_state(), model.aux_zero()
+    except Exception:  # noqa: BLE001 - as pddp_tpu's gate
+        raise Unsupported("a model whose init_state or aux_zero raises") \
+            from None
+    s_leaves, s_spec = flatten(state, "state")
+    a_leaves, a_spec = flatten(aux, "aux")
+    for t in s_leaves + a_leaves:
+        if not t.is_floating_point():
+            raise Unsupported("a state or aux leaf of dtype {}".format(
+                t.dtype))
+    return s_leaves, s_spec, a_leaves, a_spec
+
+
+def is_stateful(model):
+    """Whether ``model`` carries a rolling state or an aux (its
+    ``init_state()`` or ``aux_zero()`` is not ``()``), as ``pddp_tpu``'s
+    gate asks; a model whose either raises counts as stateful."""
+    try:
+        return not all(isinstance(x, tuple) and x == ()
+                       for x in (model.init_state(), model.aux_zero()))
+    except Exception:  # noqa: BLE001 - as pddp_tpu's gate
+        return True
+
+
 # ---------------------------------------------------------------------------
 # Tracing
 # ---------------------------------------------------------------------------
@@ -185,7 +274,8 @@ def _select_items(x, items):
 def _trace(fn, leaves, inputs, dtype, device):
     """(GraphModule, shape env, the index's sympy symbol or None) of
     ``fn(*leaves, *inputs)`` traced with fake leaves and inputs: each
-    input "z" (nz,), "u" (nu,) or "i" (a Python int made symbolic)."""
+    input "z" (nz,), "u" (nu,), "s" (a state leaf of the given shape) or
+    "i" (a Python int made symbolic)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.fx.experimental.symbolic_shapes import ShapeEnv
@@ -292,24 +382,66 @@ def _holds(guard, sym, H):
     return test(b) and (last is None or test(a * last + b))
 
 
-def trace_step(model, encoding, dtype, device):
+def trace_step(model, encoding, dtype, device, stateful=False):
     """(Program, horizon) of ``model``'s step at one candidate: the
-    lowered program and the steps at which it may run (None: any)."""
+    lowered program and the steps at which it may run (None: any).
+    ``stateful``: the step of a stateful model, its state's leaves inputs
+    after z, u and i, its outputs the next z, then the next state's and
+    the aux's leaves (see the module)."""
     leaves, _ = leaves_of(model)
     nz = infer_encoded_state_size(model.state_size, encoding)
     nu = model.action_size
+    inputs = [("z", (nz,)), ("u", (nu,)), ("i", SAMPLE_STEP)]
+    if not stateful:
+        def step(*a):
+            m = _substitute(model, iter(a[:len(leaves)]))
+            z, u, i = a[len(leaves):]
+            out = m.step(z, u, i, (), encoding)
+            if not (isinstance(out, tuple) and len(out) == 3
+                    and out[1] == () and out[2] == ()):
+                raise Unsupported("a step with a rolling state or an aux")
+            return out[0]
+
+        return _trace_and_lower(step, leaves, inputs, dtype, device, (nz,))
+
+    s_leaves, s_spec, a_leaves, a_spec = state_structure(model)
+    want = ([(nz,)] + [tuple(t.shape) for t in s_leaves]
+            + [tuple(t.shape) for t in a_leaves])
 
     def step(*a):
         m = _substitute(model, iter(a[:len(leaves)]))
-        z, u, i = a[len(leaves):]
-        out = m.step(z, u, i, (), encoding)
-        if not (isinstance(out, tuple) and len(out) == 3
-                and out[1] == () and out[2] == ()):
-            raise Unsupported("a step with a rolling state or an aux")
-        return out[0]
+        z, u, i = a[len(leaves):len(leaves) + 3]
+        state = unflatten(s_spec, list(a[len(leaves) + 3:]))
+        out = m.step(z, u, i, state, encoding)
+        if not (isinstance(out, tuple) and len(out) == 3):
+            raise Unsupported("a step that does not return (z, state, "
+                              "aux)")
+        s_next, s_next_spec = flatten(out[1], "next state")
+        aux, aux_spec = flatten(out[2], "aux")
+        if s_next_spec != s_spec or aux_spec != a_spec:
+            raise Unsupported("a next state or aux of another structure "
+                              "than init_state()'s and aux_zero()'s")
+        return (out[0], *s_next, *aux)
 
-    return _trace_and_lower(step, leaves, [("z", (nz,)), ("u", (nu,)),
-                                 ("i", SAMPLE_STEP)], dtype, device, (nz,))
+    inputs += [("s", tuple(t.shape)) for t in s_leaves]
+    return _trace_and_lower(step, leaves, inputs, dtype, device, want)
+
+
+def trace_inner(inner, dtype, device):
+    """(Program, horizon) of a particle model's inner step at one particle:
+    ``inner.apply(X, u, i, (), IGNORE_UNCERTAINTY)`` at (n,), (nu,), as
+    ``ParticleDynamicsModel._push`` calls it."""
+    leaves, _ = leaves_of(inner)
+    n, nu = inner.state_size, inner.action_size
+    ign = StateEncoding.IGNORE_UNCERTAINTY
+
+    def apply(*a):
+        m = _substitute(inner, iter(a[:len(leaves)]))
+        X, u, i = a[len(leaves):]
+        return m.apply(X, u, i, (), ign)
+
+    return _trace_and_lower(apply, leaves, [("z", (n,)), ("u", (nu,)),
+                                  ("i", SAMPLE_STEP)], dtype, device, (n,))
 
 
 def trace_cost(cost, model, encoding, terminal, dtype, device, opts=None):
@@ -336,6 +468,8 @@ def trace_cost(cost, model, encoding, terminal, dtype, device, opts=None):
 
 
 def _trace_and_lower(fn, leaves, inputs, dtype, device, out_shape):
+    """(Program, horizon) of ``fn`` traced and lowered: its output of
+    ``out_shape``, or a tuple of outputs of a list of shapes."""
     for t in leaves:
         if not t.is_floating_point():
             raise Unsupported("a tensor attribute of dtype {}".format(
@@ -351,12 +485,20 @@ def _trace_and_lower(fn, leaves, inputs, dtype, device, out_shape):
         raise Unsupported("the trace raised {}: {}".format(
             type(e).__name__, str(e).splitlines()[0][:200])) from None
     out = [n for n in gm.graph.nodes if n.op == "output"][0]
-    val = out.args[0]
-    val = val[0] if isinstance(val, (tuple, list)) else val
-    meta = val.meta.get("val") if hasattr(val, "meta") else None
-    if not isinstance(meta, torch.Tensor) or tuple(meta.shape) != out_shape:
-        raise Unsupported("an output of shape {}, not {}".format(
-            None if meta is None else tuple(meta.shape), out_shape))
+    vals = out.args[0]
+    if isinstance(out_shape, list):
+        vals, shapes = list(vals), out_shape
+    else:
+        vals = [vals[0] if isinstance(vals, (tuple, list)) else vals]
+        shapes = [out_shape]
+    if len(vals) != len(shapes):
+        raise Unsupported("{} outputs, not {}".format(len(vals),
+                                                      len(shapes)))
+    for val, shape in zip(vals, shapes):
+        meta = val.meta.get("val") if hasattr(val, "meta") else None
+        if not isinstance(meta, torch.Tensor) or tuple(meta.shape) != shape:
+            raise Unsupported("an output of shape {}, not {}".format(
+                None if meta is None else tuple(meta.shape), shape))
     prog = _scalar.lower(gm, [t.dtype for t in leaves], dtype,
                          [k for k, _ in inputs])
     return prog, _horizon(prog, env, sym)
@@ -367,29 +509,79 @@ def _trace_and_lower(fn, leaves, inputs, dtype, device, out_shape):
 # ---------------------------------------------------------------------------
 
 
+def _layout(programs, leaves):
+    """(static leaves, dynamic leaves, layout, n_static, n_dynamic) of the
+    leaves the programs read: a leaf that any program reads by the step
+    index goes into the dynamic buffer ``w``, every other read leaf into
+    the static buffer ``p``; ``layout[leaf]`` is (buffer, offset)."""
+    reads = {}
+    for prog in programs:
+        for leaf, how in prog.leaf_reads().items():
+            if reads.get(leaf) != "dynamic":
+                reads[leaf] = how
+    static = sorted(k for k, v in reads.items() if v == "static")
+    dynamic = sorted(k for k, v in reads.items() if v == "dynamic")
+    layout, size = {}, {"p": 0, "w": 0}
+    for buf, group in (("p", static), ("w", dynamic)):
+        for g in group:
+            layout[g] = (buf, size[buf])
+            size[buf] += leaves[g].numel()
+    return static, dynamic, layout, size["p"], size["w"]
+
+
+def _buffers(leaves, static, dynamic, dtype, device):
+    """(p, w): the live leaves' values, flattened in the layout's order,
+    in ``dtype`` on ``device`` (a one-element zero buffer where a buffer
+    would be empty)."""
+    out = []
+    for group in (static, dynamic):
+        parts = [leaves[g].detach().reshape(-1).to(dtype=dtype,
+                                                   device=device)
+                 for g in group]
+        out.append(torch.cat(parts) if parts else
+                   torch.zeros(1, dtype=dtype, device=device))
+    return tuple(out)
+
+
 class TracedRollout:
-    """What K2(f) runs for one (model, cost, encoding, dtype): the
-    programs, the leaves' layout and the generated source.
+    """What K2(f) and K2(g) run for one (model, cost, encoding, dtype):
+    the programs, the leaves' layout and the generated source.
 
     Leaves are the model's, then (where the kernel carries the cost) the
     cost's. A leaf that any program reads by the step index goes into the
     dynamic buffer ``w`` (global memory in the kernel), every other leaf
     that a program reads into the static buffer ``p`` (shared memory);
-    ``layout[leaf]`` is (buffer, offset)."""
+    ``layout[leaf]`` is (buffer, offset). A stateful model's (K2(g);
+    ``stateful``) step also takes the rolling state's ``n_state`` flat
+    elements and returns the next state's and the aux's ``n_aux``: their
+    leaves' shapes and nests are ``state_shapes``/``state_spec`` and
+    ``aux_shapes``/``aux_spec`` (one candidate's)."""
 
-    def __init__(self, model, cost, encoding, dtype, cost_opts=None):
+    def __init__(self, model, cost, encoding, dtype, cost_opts=None,
+                 stateful=False):
         self.encoding = encoding
         self.dtype = dtype
         self.nz = infer_encoded_state_size(model.state_size, encoding)
         self.nu = model.action_size
         self.has_cost = cost is not None
+        self.stateful = stateful
         t0 = time.perf_counter()
         model_leaves = leaves_of(model)[0]
         leaves = model_leaves + (leaves_of(cost)[0] if self.has_cost
                                  else [])
         device = leaves[0].device if leaves else torch.device("cpu")
         self.n_model = len(model_leaves)
-        self.step, h_step = trace_step(model, encoding, dtype, device)
+        self.step, h_step = trace_step(model, encoding, dtype, device,
+                                       stateful)
+        self.state_shapes, self.aux_shapes = [], []
+        self.state_spec = self.aux_spec = None
+        if stateful:
+            s_leaves, self.state_spec, a_leaves, self.aux_spec = \
+                state_structure(model)
+            self.state_shapes = [tuple(t.shape) for t in s_leaves]
+            self.aux_shapes = [tuple(t.shape) for t in a_leaves]
+        self.n_state = sum(math.prod(s) for s in self.state_shapes)
+        self.n_aux = sum(math.prod(s) for s in self.aux_shapes)
         self.stage = self.terminal = None
         limits = [h_step]
         if self.has_cost:
@@ -405,29 +597,15 @@ class TracedRollout:
         self.max_horizon = min((h for h in limits if h is not None),
                                default=None)
         self.trace_seconds = time.perf_counter() - t0
-        reads = {}
-        for prog in self.programs():
-            for leaf, how in prog.leaf_reads().items():
-                if reads.get(leaf) != "dynamic":
-                    reads[leaf] = how
-        self.static_leaves = sorted(k for k, v in reads.items()
-                                    if v == "static")
-        self.dynamic_leaves = sorted(k for k, v in reads.items()
-                                     if v == "dynamic")
-        self.layout, size = {}, {"p": 0, "w": 0}
-        for buf, group in (("p", self.static_leaves),
-                           ("w", self.dynamic_leaves)):
-            for g in group:
-                self.layout[g] = (buf, size[buf])
-                size[buf] += leaves[g].numel()
-        self.n_static, self.n_dynamic = size["p"], size["w"]
+        (self.static_leaves, self.dynamic_leaves, self.layout,
+         self.n_static, self.n_dynamic) = _layout(self.programs(), leaves)
         cyc, counts = self.chain(_F32_LATENCY)
         self.source = _scalar.print_struct(
             "Traced", dtype, self.nz, self.nu, self.step, self.stage,
             self.terminal, layout=self.layout, n_static=self.n_static,
             n_dynamic=self.n_dynamic,
             chain_note="k2f_chain_cycles at float32 latencies: {} a step "
-            "({})".format(cyc, counts))
+            "({})".format(cyc, counts), n_state=self.n_state)
         # Named by its text: rollouts that trace to the same program (an
         # example and a bare subclass of it) share a library.
         self.name = "traced_" + hashlib.sha256(
@@ -443,25 +621,22 @@ class TracedRollout:
         a buffer would be empty)."""
         leaves = leaves_of(model)[0] + (leaves_of(cost)[0]
                                         if self.has_cost else [])
-        out = []
-        for group in (self.static_leaves, self.dynamic_leaves):
-            parts = [leaves[g].detach().reshape(-1).to(dtype=dtype,
-                                                       device=device)
-                     for g in group]
-            out.append(torch.cat(parts) if parts else
-                       torch.zeros(1, dtype=dtype, device=device))
-        return tuple(out)
+        return _buffers(leaves, self.static_leaves, self.dynamic_leaves,
+                        dtype, device)
 
     def chain(self, latency, bounded=False):
         """(cycles, {kind: count}) of one step's loop-carried chain
         (``k2f_chain_cycles``) at the depth the function needs
         (``Program.chain``): the feedback law z -> u (a subtraction, then
         the sum of the nz products and two terms as a tree, and with
-        bounds the clamp's two), then the traced step from z and u to the
-        next z. The stage cost runs off the chain."""
+        bounds the clamp's two), then the traced step from z, u and the
+        rolling state to the next z and state, the outputs the next step
+        reads (the longer). The aux and the stage cost run off the
+        chain."""
         fb = 1 + math.ceil(math.log2(self.nz + 2)) + (2 if bounded else 0)
         ready = {("u", k): fb * latency["fma"] for k in range(self.nu)}
-        cyc, counts = self.step.chain(latency, ready)
+        cyc, counts = self.step.chain(latency, ready,
+                                      self.nz + self.n_state)
         if counts.pop("from", None) == "u" or cyc < fb * latency["fma"]:
             counts["fma"] = counts.get("fma", 0) + fb
         return max(cyc, fb * latency["fma"]), counts
@@ -475,6 +650,47 @@ class TracedRollout:
         return n
 
 
+class TracedInner:
+    """What K2(e) runs for a particle model over a traced inner model
+    (``trace_inner``) in ``dtype``: the inner step's program, its leaves'
+    layout (``TracedRollout``'s: ``p`` staged in shared memory, ``w`` read
+    by the step index) and its ``struct TracedInner``, printed with every
+    product through ``pddp_tr::mul_`` (the particle kernel's own
+    arithmetic builds with contraction on, the traced step's must not
+    contract)."""
+
+    def __init__(self, inner, dtype):
+        self.dtype = dtype
+        self.n, self.nu = inner.state_size, inner.action_size
+        t0 = time.perf_counter()
+        leaves = leaves_of(inner)[0]
+        device = leaves[0].device if leaves else torch.device("cpu")
+        self.step, self.max_horizon = trace_inner(inner, dtype, device)
+        self.trace_seconds = time.perf_counter() - t0
+        (self.static_leaves, self.dynamic_leaves, self.layout,
+         self.n_static, self.n_dynamic) = _layout([self.step], leaves)
+        cyc, counts = self.chain(_F32_LATENCY)
+        self.source = _scalar.print_struct(
+            "TracedInner", dtype, self.n, self.nu, self.step,
+            layout=self.layout, n_static=self.n_static,
+            n_dynamic=self.n_dynamic, exact_mul=True,
+            what="the particle model's inner model's",
+            chain_note="the inner step's chain at float32 latencies: {} "
+            "({})".format(cyc, counts))
+
+    def buffers(self, inner, dtype, device):
+        """(p, w) of the live inner model (``TracedRollout.buffers``)."""
+        return _buffers(leaves_of(inner)[0], self.static_leaves,
+                        self.dynamic_leaves, dtype, device)
+
+    def chain(self, latency):
+        """(cycles, {kind: count}) of the inner step's longest chain from
+        a particle's X and the action (``Program.chain``)."""
+        cyc, counts = self.step.chain(latency)
+        counts.pop("from", None)
+        return cyc, counts
+
+
 #: float32 latencies in SM cycles (``chip_smoke.LATENCY``'s), for the
 #: chain printed into the generated source.
 _F32_LATENCY = {"fma": 4, "div": 30, "sqrt": 30, "sincos": 44}
@@ -485,6 +701,7 @@ def _scoped(prog, first):
     leaves follow the model's)."""
     new = _scalar.Program(prog.T)
     new.outputs = list(prog.outputs)
+    new.sizes = list(prog.sizes)
     new.index_ranges = list(prog.index_ranges)
     for op, dt, args in prog.ops:
         if op in ("ld", "ldi"):
@@ -493,8 +710,13 @@ def _scoped(prog, first):
     return new
 
 
-def _key(model, cost, encoding, dtype, device_type, cost_opts):
+def _key(model, cost, encoding, dtype, device_type, cost_opts, stateful):
     parts = [leaves_of(model)[1], int(encoding), str(dtype), device_type]
+    if stateful:
+        s_leaves, s_spec, a_leaves, a_spec = state_structure(model)
+        parts.append(("stateful", repr(s_spec), repr(a_spec),
+                      tuple((tuple(t.shape), str(t.dtype))
+                            for t in s_leaves + a_leaves)))
     if cost is not None:
         parts.append(leaves_of(cost)[1])
         for k in sorted(cost_opts or {}):
@@ -505,47 +727,59 @@ def _key(model, cost, encoding, dtype, device_type, cost_opts):
     return tuple(parts)
 
 
-def check_stateless(model, encoding):
+def check_gate(model, encoding, allow_stateful=False):
     """Raises Unsupported where ``pddp_tpu``'s gate refuses (model,
-    encoding) before any trace: a stateful model, or a matrix codec past
-    ``SMALL_N``."""
+    encoding) before any trace: a matrix codec past ``SMALL_N``, or a
+    stateful model without ``allow_stateful``."""
     if encoding is None:
         raise Unsupported("no encoding")
     if encoding in _MATRIX_CODECS and model.state_size > SMALL_N:
         raise Unsupported("a matrix codec at state size {} > SMALL_N".format(
             model.state_size))
-    try:
-        if model.init_state() != () or model.aux_zero() != ():
-            raise Unsupported("a stateful model")
-    except Unsupported:
-        raise
-    except Exception:  # noqa: BLE001 - as pddp_tpu's gate
-        raise Unsupported("a model whose init_state or aux_zero raises") \
-            from None
+    if not allow_stateful and is_stateful(model):
+        raise Unsupported("a stateful model")
 
 
-def trace_rollout(model, cost, encoding, dtype, device_type,
-                  cost_opts=None):
-    """The TracedRollout of (model, cost, encoding, dtype), cached; raises
-    Unsupported (also from the cache) where it is refused. ``cost`` None:
-    the kernel carries no cost (belief codecs, or no cost given);
-    ``cost_opts`` the cost's keyword options, static."""
-    check_stateless(model, encoding)
+def _cached(key, make):
     try:
-        key = _key(model, cost, encoding, dtype, device_type,
-                   cost_opts)
         hash(key)
-    except Unsupported:
-        raise
     except TypeError:
         raise Unsupported("an attribute that cannot be keyed") from None
     hit = _CACHE.get(key)
     if hit is None:
         try:
-            hit = TracedRollout(model, cost, encoding, dtype, cost_opts)
+            hit = make()
         except Unsupported as e:
             hit = e
         _CACHE[key] = hit
     if isinstance(hit, Unsupported):
         raise hit
     return hit
+
+
+def trace_rollout(model, cost, encoding, dtype, device_type,
+                  cost_opts=None, allow_stateful=False):
+    """The TracedRollout of (model, cost, encoding, dtype), cached; raises
+    Unsupported (also from the cache) where it is refused. ``cost`` None:
+    the kernel carries no cost (belief codecs, or no cost given);
+    ``cost_opts`` the cost's keyword options, static; a stateful model
+    only with ``allow_stateful`` (K2(g))."""
+    check_gate(model, encoding, allow_stateful)
+    stateful = is_stateful(model)
+    try:
+        key = _key(model, cost, encoding, dtype, device_type, cost_opts,
+                   stateful)
+    except TypeError:
+        raise Unsupported("an attribute that cannot be keyed") from None
+    return _cached(key, lambda: TracedRollout(model, cost, encoding, dtype,
+                                              cost_opts, stateful))
+
+
+def trace_inner_step(inner, dtype, device_type):
+    """The TracedInner of a particle model's inner model in ``dtype``,
+    cached; raises Unsupported where it is refused (a stateful inner
+    model, or a trace that fails)."""
+    if is_stateful(inner):
+        raise Unsupported("a stateful inner model")
+    key = ("inner", leaves_of(inner)[1], str(dtype), device_type)
+    return _cached(key, lambda: TracedInner(inner, dtype))

@@ -20,27 +20,35 @@ so ``supports_fused_rollout`` admits what ``pddp_tpu``'s gate admits:
    the stateful belief-state BNN under any of the five codecs, its net at
    full precision or under one bfloat16 knob (``compute_dtype`` or
    ``matmul_dtype``; in float32 the net on the tensor cores);
- * stage (e), ``csrc/fused_particle_rollout.cu``
+ * stage (e), ``csrc/fused_particle_rollout.cuh``
    (``ops/fused_particle_rollout.py``): the stateful
-   ``ParticleDynamicsModel`` over an example of (a)-(c), under any of the
-   five codecs;
+   ``ParticleDynamicsModel`` under any of the five codecs, over an
+   example of (a)-(c) (``csrc/fused_particle_rollout.cu``'s hand-written
+   instances) or over any other stateless inner model whose
+   ``apply`` K2(f)'s trace takes (a generated instance);
  * stage (f), ``csrc/traced_rollout.cuh`` (``ops/traced_rollout.py``):
    every stateless model and cost that no stage above covers (a user's
    own model, any subclass of an example, ``SaturatingQRCost``,
    ``AggregateCost``, a user's cost), the step and, under
    IGNORE_UNCERTAINTY, the cost traced from their torch code; under the
    belief codecs the cost is a batched post-pass. Where a hand-written
-   stage covers a call, it takes precedence.
+   stage covers a call, it takes precedence;
+ * stage (g), ``csrc/traced_rollout.cuh`` (``ops/traced_rollout.py``):
+   every other stateful model whose step the trace takes, its rolling
+   state and aux traced beside z, u and the step (a user's own stateful
+   model); the cost as in stage (f).
 
-The stateful stages are admitted only with ``allow_stateful=True``, as in
-``pddp_tpu``, and never take a cost in the kernel: a cost, if given, is a
-batched post-pass. Still refused, each with the ``ValueError`` of
-``fused_control_law``: a stateless model or cost whose trace K2(f)
-refuses (``ops/_trace.py``: a Python branch on a tensor's value or on the
-step index, an op outside its table), a stateful model other than the
-BNN and the particle model over an example, a BNN under a knob of
-another dtype (``torch.float16``) or under both knobs, or with its
-particles sharded, a particle model over anything but an example.
+The stateful stages (d), (e) and (g) are admitted only with
+``allow_stateful=True``, as in ``pddp_tpu``; (d) and (e) never take a
+cost in the kernel: a cost, if given, is a batched post-pass. Still
+refused, each with the ``ValueError`` of ``fused_control_law``: a model
+or cost whose trace K2(f)/(g) refuses (``ops/_trace.py``: a Python branch
+on a tensor's value or on the step index, an op outside its table, a
+state or aux that is not a nest of floating tensors), a BNN under a knob
+of another dtype (``torch.float16``) or under both knobs, or with its
+particles sharded, a particle model over the BNN (or any other inner
+model whose ``apply`` the trace refuses), a particle model of more than
+``fused_particle_rollout.MAX_PARTICLES`` particles.
 
 The plain version is ``controllers.ilqr.control_law`` (under
 IGNORE_UNCERTAINTY with the cost accumulated in the loop, the kernel's
@@ -69,10 +77,10 @@ from ._build import load_library
 __all__ = ["fused_control_law", "supports_fused_rollout", "stage",
            "stateful_stage", "param_buffer", "launches"]
 
-#: K2(a)-(c) launches made by ``fused_control_law``, per stage; (d), (e)
-#: and (f) are counted where they launch, in
-#: ``fused_bnn_rollout.launches``, ``fused_particle_rollout.launches`` and
-#: ``traced_rollout.launches``.
+#: K2(a)-(c) launches made by ``fused_control_law``, per stage; (d)-(g)
+#: are counted where they launch, in ``fused_bnn_rollout.launches``,
+#: ``fused_particle_rollout.launches`` (the hand-written and the traced
+#: inner step) and ``traced_rollout.launches`` (f and g).
 launches = {"a": 0, "b": 0, "c": 0}
 
 _SYMBOLS = {torch.float32: "pddp_fused_rollout_f32",
@@ -132,14 +140,24 @@ def _hand_written_stage(model, cost, encoding):
     return "a" if base is CartpoleDynamicsModel else "b"
 
 
-def stateful_stage(model, encoding):
-    """"d" for the BNN (``fused_bnn_rollout.supports``: at full precision
-    or under one bfloat16 knob), "e" for the particle model
-    (``fused_particle_rollout.supports``), else None."""
+def stateful_stage(model, encoding, cost=None, cost_opts=None):
+    """The stage of a stateful model: "d" for the BNN
+    (``fused_bnn_rollout.supports``: at full precision or under one
+    bfloat16 knob), "e" for the particle model
+    (``fused_particle_rollout.supports``: over an example or a traced
+    inner model), "g" for any other stateful model whose step (and, under
+    IGNORE_UNCERTAINTY, ``cost`` with ``cost_opts``) the trace takes
+    (``traced_rollout.supports``), else None. Still refused: the BNN
+    under a float16 knob, under both knobs or with its particles sharded,
+    a particle model over the BNN or past ``MAX_PARTICLES``, a stateful
+    model the trace refuses."""
     if fused_bnn_rollout.supports(model, encoding):
         return "d"
     if fused_particle_rollout.supports(model, encoding):
         return "e"
+    if traced_rollout.supports(model, cost, encoding, cost_opts=cost_opts,
+                               allow_stateful=True):
+        return "g"
     return None
 
 
@@ -148,11 +166,12 @@ def supports_fused_rollout(model, cost, encoding=None, allow_stateful=False,
     """Whether (model, cost, encoding) runs in a kernel: stages (a)-(c)
     and (f) (see ``stage``; ``cost_opts`` the options the cost will be
     called with) or, only with ``allow_stateful``, the stateful stages
-    (d), the belief-state BNN, and (e), the particle model over an
-    example, under any codec (any cost: it runs as a post-pass)."""
+    (d), the belief-state BNN, (e), the particle model, and (g), a traced
+    stateful model, under any codec (``stateful_stage``)."""
     if stage(model, cost, encoding, cost_opts) is not None:
         return True
-    return allow_stateful and stateful_stage(model, encoding) is not None
+    return allow_stateful and stateful_stage(
+        model, encoding, cost, cost_opts) is not None
 
 
 def param_buffer(model, cost, dtype, device):
@@ -200,10 +219,10 @@ def fused_control_law(model, Z, U, k, K, alphas,
     Args mirror ``controllers.ilqr.control_law``; requires
     ``supports_fused_rollout(model, cost, encoding, allow_stateful=True,
     cost_opts=cost_opts)``.
-    Inputs may carry one leading batch dim B of solves (stages (a)-(c) and
-    (f): one warp per 32 candidates of a solve; (d) a thread-block cluster and
-    (e) a thread block per candidate); ``alphas`` and the bounds are
-    shared by the batch. Under
+    Inputs may carry one leading batch dim B of solves (stages (a)-(c),
+    (f) and (g): one warp per 32 candidates of a solve; (d) a thread-block
+    cluster and (e) a thread block per candidate); ``alphas`` and the
+    bounds are shared by the batch. Under
     IGNORE_UNCERTAINTY ``cost_opts`` reach the plain version only under
     stages (a)-(c), whose QR costs take no options; K2(f) bakes them into
     its trace.
@@ -211,15 +230,21 @@ def fused_control_law(model, Z, U, k, K, alphas,
     Returns:
         (Z_new (..., N+1, A, nz), U_new (..., N, A, nu))
         [, J (..., A) when cost is given]
-        [, AUX when with_aux: for the examples (); for the BNN and the
-        particle model the step noise (N, ..., A, P, n)].
+        [, AUX when with_aux: for a stateless model (); for the BNN and
+        the particle model the step noise (N, ..., A, P, n); for stage
+        (g) the model's aux, each leaf (N, ..., A, *shape)].
     """
     st = stage(model, cost, encoding, cost_opts)
     if st is None:
-        st = stateful_stage(model, encoding)
+        st = stateful_stage(model, encoding, cost, cost_opts)
         if st is None:
             raise ValueError("no fused rollout kernel covers this model, "
                              "cost and encoding (see supports_fused_rollout)")
+        if st == "g":
+            return traced_rollout.traced_control_law(
+                model, Z, U, k, K, alphas, encoding, cost=cost,
+                cost_opts=cost_opts, u_min=u_min, u_max=u_max,
+                with_aux=with_aux, allow_stateful=True)
         law = (fused_bnn_rollout.fused_bnn_control_law if st == "d" else
                fused_particle_rollout.fused_particle_control_law)
         Z_b, U_b, AUX_b = law(model, Z, U, k, K, alphas, encoding,

@@ -1,33 +1,39 @@
-"""K2(f): the line search of any stateless model and cost in one CUDA
-kernel, the model's step and the cost traced from their own torch code.
+"""K2(f) and K2(g): the line search of any stateless model and cost (f),
+or of a stateful model (g), in one CUDA kernel, the model's step and the
+cost traced from their own torch code.
 
 Port of ``pddp_tpu/ops/fused_rollout.py:fused_control_law`` for what the
-hand-written stages (a)-(c) do not carry: Pallas traced any model's and
-cost's jnp code into its kernel; here ``ops/_trace.py`` traces their
-torch code (``make_fx``), ``ops/_scalar.py`` prints it as the ``struct
-Traced`` of a generated ``.cu``, and ``csrc/traced_rollout.cuh``, written
-by hand, runs it: the rollout loop, the staging of the nominal rows, the
-feedback law, the clamp and the sum of the cost. ``_build.load_library``
-compiles each (step, cost, codec, dtype) with ``nvcc`` at its first use,
-into ``build/`` beside the package.
+hand-written stages (a)-(e) do not carry: Pallas traced any model's and
+cost's jnp code into its kernel, stateful models included; here
+``ops/_trace.py`` traces their torch code (``make_fx``),
+``ops/_scalar.py`` prints it as the ``struct Traced`` of a generated
+``.cu``, and ``csrc/traced_rollout.cuh``, written by hand, runs it: the
+rollout loop, the staging of the nominal rows, the feedback law, the
+clamp, the sum of the cost and, for a stateful model, its rolling state
+in registers and its aux written out. ``_build.load_library`` compiles
+each (step, cost, codec, dtype) with ``nvcc`` at its first use, into
+``build/`` beside the package.
 
 The gate (``supports``) is ``pddp_tpu``'s: every stateless model (its
-``init_state()`` and ``aux_zero()`` are ``()``), under the matrix codecs
-up to a state size of ``SMALL_N``; and, here, only where the trace
-succeeds (``ops/_trace.py`` lists what it refuses: a Python branch on a
-tensor's value or on the step index, a tensor that is not an attribute,
-an op outside the lowering's table). Under IGNORE_UNCERTAINTY the cost is
-traced and summed in the kernel; under the belief codecs the kernel
-returns trajectories and the cost is a batched post-pass.
+``init_state()`` and ``aux_zero()`` are ``()``), and with
+``allow_stateful`` every stateful one (K2(g)), under the matrix codecs up
+to a state size of ``SMALL_N``; and, here, only where the trace succeeds
+(``ops/_trace.py`` lists what it refuses: a Python branch on a tensor's
+value or on the step index, a tensor that is not an attribute, an op
+outside the lowering's table, a state or aux that is not a nest of
+floating tensors). Under IGNORE_UNCERTAINTY the cost is traced and summed
+in the kernel; under the belief codecs the kernel returns trajectories
+and the cost is a batched post-pass.
 
-The plain version is ``controllers.ilqr.control_law``, as for (a)-(c).
+The plain version is ``controllers.ilqr.control_law``, as for (a)-(e).
 On CPU tensors the wrapper runs it; on CUDA tensors it launches K2(f) or
-raises (a failed build or launch included).
+K2(g) or raises (a failed build or launch included).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -40,8 +46,9 @@ from ._trace import Unsupported
 __all__ = ["supports", "traced_control_law", "traced", "source_text",
            "launches"]
 
-#: K2(f) launches made by ``traced_control_law``.
-launches = {"rollout": 0}
+#: launches made by ``traced_control_law``: K2(f) ("rollout") and K2(g)
+#: ("stateful").
+launches = {"rollout": 0, "stateful": 0}
 
 _LIBS: dict = {}
 
@@ -68,24 +75,29 @@ def _gate_device(model):
 
 
 def traced(model, cost, encoding, dtype=None, device_type=None,
-           cost_opts=None):
-    """The ``_trace.TracedRollout`` K2(f) runs for (model, cost, encoding)
-    in ``dtype`` (default: the promoted dtype of the model's and cost's
+           cost_opts=None, allow_stateful=False):
+    """The ``_trace.TracedRollout`` K2(f) or, for a stateful model with
+    ``allow_stateful``, K2(g) runs for (model, cost, encoding) in
+    ``dtype`` (default: the promoted dtype of the model's and cost's
     tensors), the cost's keyword options ``cost_opts`` baked in; raises
     ``Unsupported`` where the gate refuses it."""
-    _trace.check_stateless(model, encoding)
+    _trace.check_gate(model, encoding, allow_stateful)
     kcost = _kernel_cost(cost, encoding)
     dtype = dtype or _gate_dtype(model, kcost)
     return _trace.trace_rollout(model, kcost, encoding, dtype,
                                 device_type or _gate_device(model),
-                                cost_opts if kcost is not None else None)
+                                cost_opts if kcost is not None else None,
+                                allow_stateful)
 
 
-def supports(model, cost, encoding, dtype=None, cost_opts=None):
-    """Whether K2(f) takes (model, cost, encoding), the cost called with
-    the keyword options ``cost_opts`` (see the module)."""
+def supports(model, cost, encoding, dtype=None, cost_opts=None,
+             allow_stateful=False):
+    """Whether K2(f), or with ``allow_stateful`` K2(g), takes (model,
+    cost, encoding), the cost called with the keyword options
+    ``cost_opts`` (see the module)."""
     try:
-        traced(model, cost, encoding, dtype, cost_opts=cost_opts)
+        traced(model, cost, encoding, dtype, cost_opts=cost_opts,
+               allow_stateful=allow_stateful)
     except Unsupported:
         return False
     return True
@@ -105,7 +117,7 @@ def _function(tr, dtype):
         fn = load_library(tr.name, dtype, source_text(tr)).\
             pddp_traced_rollout
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         _LIBS[key] = fn
     return fn
@@ -114,25 +126,28 @@ def _function(tr, dtype):
 def traced_control_law(model, Z, U, k, K, alphas,
                        encoding: StateEncoding = StateEncoding.DEFAULT,
                        cost=None, cost_opts=None, u_min=None, u_max=None,
-                       with_aux=False):
-    """Batched-alpha closed-loop rollout of a stateless model in K2(f).
+                       with_aux=False, allow_stateful=False):
+    """Batched-alpha closed-loop rollout in K2(f), or of a stateful model
+    (with ``allow_stateful``) in K2(g).
 
-    Args mirror ``controllers.ilqr.control_law``; any stateless model
-    that ``supports`` admits, the exact examples included. Inputs may
-    carry one leading batch dim B of solves (a warp per 32 candidates of
-    a solve); ``alphas`` and the bounds are shared by the batch.
+    Args mirror ``controllers.ilqr.control_law``; any model that
+    ``supports`` admits, the exact examples included. Inputs may carry
+    one leading batch dim B of solves (a warp per 32 candidates of a
+    solve); ``alphas`` and the bounds are shared by the batch.
 
     Returns:
         (Z_new (..., N+1, A, nz), U_new (..., N, A, nu))
-        [, J (..., A) when cost is given] [, () when with_aux].
+        [, J (..., A) when cost is given] [, AUX when with_aux: () for a
+        stateless model, else the aux's nest, each leaf (N, ..., A,
+        *shape), ``control_law``'s layout].
     """
     in_kernel = (cost is not None
                  and encoding == StateEncoding.IGNORE_UNCERTAINTY)
     try:
         tr = traced(model, cost, encoding, Z.dtype, Z.device.type,
-                    cost_opts)
+                    cost_opts, allow_stateful)
     except Unsupported as e:
-        raise ValueError("K2(f) does not take this model and cost: "
+        raise ValueError("K2(f)/(g) does not take this model and cost: "
                          "{}".format(e)) from None
     if Z.device.type == "cpu":
         return control_law(model, Z, U, k, K, alphas, encoding,
@@ -179,6 +194,11 @@ def traced_control_law(model, Z, U, k, K, alphas,
     U_out = torch.empty((B, N, A, nu), dtype=dtype, device=device)
     J_out = (torch.empty((B, A), dtype=dtype, device=device)
              if in_kernel else None)
+    S0 = AUX = None
+    if tr.stateful:
+        S0 = _state_rows(model, (B, A), dtype, device)
+        AUX = torch.empty((B, N, A, max(1, tr.n_aux)), dtype=dtype,
+                          device=device)
     fn = _function(tr, dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -187,11 +207,13 @@ def traced_control_law(model, Z, U, k, K, alphas,
                  None if bounds is None else bounds.data_ptr(),
                  Z_out.data_ptr(), U_out.data_ptr(),
                  None if J_out is None else J_out.data_ptr(), B, N, A,
-                 stream)
+                 None if S0 is None else S0.data_ptr(),
+                 None if AUX is None else AUX.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("K2(f) (traced_rollout) launch failed: CUDA "
-                           "error {}".format(err))
-    launches["rollout"] += 1
+        raise RuntimeError("K2({}) (traced_rollout) launch failed: CUDA "
+                           "error {}".format("g" if tr.stateful else "f",
+                                             err))
+    launches["stateful" if tr.stateful else "rollout"] += 1
 
     if unbatched:
         Z_out, U_out = Z_out[0], U_out[0]
@@ -201,4 +223,32 @@ def traced_control_law(model, Z, U, k, K, alphas,
         result += ((J_out,) if in_kernel else
                    (trajectory_cost(cost, Z_out, U_out, encoding,
                                     cost_opts),))
-    return result + ((),) if with_aux else result
+    if not with_aux:
+        return result
+    return result + (_aux_tree(tr, AUX, unbatched) if tr.stateful
+                     else (),)
+
+
+def _state_rows(model, batch, dtype, device):
+    """``model.init_state(batch_shape=batch)``'s leaves as one buffer
+    (*batch, n_state), the leaves' elements one after another."""
+    leaves, _ = _trace.flatten(model.init_state(batch_shape=batch))
+    if not leaves:
+        return torch.zeros(batch + (1,), dtype=dtype, device=device)
+    return torch.cat([t.to(dtype=dtype, device=device).reshape(batch + (-1,))
+                      for t in leaves], dim=-1).contiguous()
+
+
+def _aux_tree(tr, AUX, unbatched):
+    """K2(g)'s AUX (B, N, A, n_aux) as the aux's nest, each leaf (N, B,
+    A, *shape) (unbatched: (N, A, *shape)), as ``control_law`` stacks
+    it."""
+    B, N, A = AUX.shape[:3]
+    leaves, at = [], 0
+    for shape in tr.aux_shapes:
+        size = math.prod(shape)
+        leaf = AUX[..., at:at + size].reshape((B, N, A) + shape)
+        leaf = leaf.movedim(1, 0)
+        leaves.append(leaf[:, 0] if unbatched else leaf)
+        at += size
+    return _trace.unflatten(tr.aux_spec, leaves)

@@ -63,13 +63,15 @@ def jax_quadrotor():
 
         def apply(self, z, u, i, aux,
                   encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+            return self.dynamics(z, u, self.w[i], encoding)
+
+        def dynamics(self, z, u, gust, encoding):
             mean = decode_mean(z, encoding)
             var = decode_var(z, encoding)
             x, h, th = mean[..., 0], mean[..., 1], mean[..., 2]
             x_dot, h_dot, th_dot = mean[..., 3], mean[..., 4], mean[..., 5]
             u1, u2 = u[..., 0], u[..., 1]
             thrust = u1 + u2
-            gust = self.w[i]
             x_dd = -thrust * jnp.sin(th) / self.m + gust[..., 0]
             h_dd = thrust * jnp.cos(th) / self.m - self.g + gust[..., 1]
             th_dd = self.r * (u1 - u2) / self.I

@@ -1243,3 +1243,43 @@ def test_bnn_mlp_bf16_knob_on_card(cuda, dtype, knob, G):
     assert bf16_derived(got, want, ref, BF16_F32_FLOOR)["held"]
     assert not bf16_derived(fb.mlp(full.net, x), want, ref,
                             BF16_F32_FLOOR)["held"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("row", ["G1", "G2", "G3", "E1", "E2"])
+def test_stateful_traced_kernels_on_card(cuda, row, B):
+    """K2(g) (a user's stateful model) and K2(e) over a traced inner step
+    (tests/traced_models.py's stateful rows, N=6, P=8) against
+    ``control_law`` on the card in float64: Z, U and the aux within
+    1e-10, J 1e-8 (relative), one launch of the row's kernel."""
+    from pddp_tpu_torch.ops import fused_particle_rollout as fpr
+    from pddp_tpu_torch.ops import traced_rollout as tro
+    from tests import traced_models as tm
+    f64, N = torch.float64, 6
+    model, cost, enc, bounds = tm.make_stateful_row(row, N, cuda, f64, P=8)
+    n, nu = model.state_size, model.action_size
+    nz = infer_encoded_state_size(n, enc)
+    name = tm.example_name(tm.STATEFUL_ROWS[row][0])
+    z0 = encode(torch.tensor(tm.STARTS[name][1], dtype=f64, device=cuda),
+                V=1e-2 * torch.ones(n, dtype=f64, device=cuda), encoding=enc)
+    U, k, K = (torch.as_tensor(a, dtype=f64, device=cuda)
+               for a in tm.stateful_inputs(row, N, nz, nu))
+    Z = rollout(model, z0, U, enc)[0]
+    ins = [t.expand((B,) + t.shape).contiguous() for t in (Z, U, k, K)]
+    lo, hi = (None, None) if bounds is None else (
+        torch.tensor(b, dtype=f64, device=cuda) for b in bounds)
+    alphas = default_fit_alphas(f64, cuda)
+    counts = tro.launches if row[0] == "G" else fpr.launches
+    key = "stateful" if row[0] == "G" else "traced"
+    n_launch = counts[key]
+    got = fr.fused_control_law(model, *ins, alphas, enc, cost=cost,
+                               u_min=lo, u_max=hi, with_aux=True)
+    torch.cuda.synchronize()
+    assert counts[key] == n_launch + 1
+    want = control_law(model, *ins, alphas, enc, cost=cost, u_min=lo,
+                       u_max=hi, with_aux=True,
+                       cost_in_scan=enc == IGN)
+    for a, w, tol in zip(got, want, (1e-10, 1e-10, 1e-8, 1e-10)):
+        assert a.shape == w.shape
+        assert float((a - w).abs().max()) <= tol * float(w.abs().max())

@@ -15,6 +15,9 @@ Cholesky codec (K2(a)-(c)). Where ``pddp_tpu``'s interpret mode cannot take
 a case (the ``constrain_model`` ones) the npz holds its scan
 ``control_law``. On CPU tensors the port runs its plain version, so these
 hold the wrapper's domain, layout and post-pass cost, and launch nothing.
+The particle model over a bare subclass of the cartpole (K2(e) over a
+traced inner step) is held against the stored particle cartpole, the
+same arithmetic.
 
 Tolerances: ``pddp_tpu``'s own for the kernel against the scan
 (``tests/ops/test_fused_rollout.py``), Z, U and AUX 1e-10, J 1e-8
@@ -173,12 +176,43 @@ def test_subclasses_reach_stage_f(data, which):
                                    **TOL)
 
 
+#: a bare subclass of the cartpole, made once (the trace is keyed on the
+#: model's type).
+_OtherCartpole = type("Other", (cartpole.CartpoleDynamicsModel,), {})
+
+
+def test_particle_over_subclass_matches_pddp_tpu(data):
+    """The particle model over a bare subclass of the cartpole (K2(e) over
+    a traced inner step) against the stored line search of the particle
+    cartpole under the Cholesky codec (the same arithmetic), with its
+    parameters and noise."""
+    case = "particle_cartpole_chol"
+    ref, cost, ins, enc, (lo, hi), _ = _case(data, case)
+    inner = _OtherCartpole(*(getattr(ref.inner, n)
+                             for n in cartpole.model.PARAM_NAMES),
+                           device="cpu", dtype=F64)
+    model = convert.particle_model(inner, data[case + "_eps"])
+    assert fr.stage(model, cost, enc) is None
+    assert fr.stateful_stage(model, enc) == "e"
+    assert fr.supports_fused_rollout(model, cost, enc, allow_stateful=True)
+    before = _launches()
+    Z, U, J, AUX = fr.fused_control_law(
+        model, *ins, torch.as_tensor(data["alphas"]), enc, cost=cost,
+        u_min=lo, u_max=hi, with_aux=True)
+    assert _launches() == before  # CPU tensors: the plain version
+    for name, got in (("Z_out", Z), ("U_out", U), ("AUX_out", AUX)):
+        np.testing.assert_allclose(got.numpy(), data[case + "_" + name],
+                                   err_msg=name, **TOL)
+    np.testing.assert_allclose(J.numpy(), data[case + "_J_out"], **J_TOL)
+
+
 def _refused(data, which):
     """A model each of whose kinds the kernels still refuse."""
-    if which == "particle_over_subclass":
-        other = type("Other", (cartpole.CartpoleDynamicsModel,), {})
-        return convert.particle_model(other(device="cpu", dtype=F64),
-                                      data["particle_cartpole_chol_eps"])
+    if which == "particle_past_max_particles":
+        eps = np.random.default_rng(16).standard_normal(
+            (g.N + 1, 2 * fpr.MAX_PARTICLES, 4))
+        return convert.particle_model(
+            cartpole.CartpoleDynamicsModel(device="cpu", dtype=F64), eps)
     model = _case(data, "bnn_variance")[0]
     if which == "bnn_float16_compute":
         net = copy.copy(model.net)
@@ -192,14 +226,14 @@ def _refused(data, which):
 
 
 @pytest.mark.parametrize("which", [
-    "particle_over_subclass", "bnn_float16_compute", "bnn_particle_sharded",
-    "particle_over_bnn"])
+    "particle_past_max_particles", "bnn_float16_compute",
+    "bnn_particle_sharded", "particle_over_bnn"])
 def test_refused_cases_still_raise(data, which):
     """What no kernel carries stays refused, each by the ValueError of
-    ``fused_control_law``: a particle model over another subclass (K2(f)
-    takes stateless models only), the BNN under a float16 knob
-    (its bfloat16 knobs run in K2(d)) or with its particles sharded, a
-    particle model over anything but an example."""
+    ``fused_control_law``: a particle model of more than
+    ``MAX_PARTICLES`` particles (2048: K2(e) runs a thread a particle),
+    the BNN under a float16 knob (its bfloat16 knobs run in K2(d)) or
+    with its particles sharded, a particle model over the BNN."""
     model = _refused(data, which)
     cost = cartpole.CartpoleCost(device="cpu", dtype=F64)
     ins = _case(data, "particle_cartpole_variance")[2]

@@ -47,6 +47,17 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "pddp_tpu_torch", "csrc")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module on one CPU thread, restored after it: the plain
+    versions' small batched products (an 8 x 8 factor's, ten candidates)
+    take milliseconds each on a pool of threads and microseconds on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     with np.load(golden.PATH) as f:
@@ -65,6 +76,12 @@ def _row(row):
     return model, cost, enc, bounds, tr, leaves
 
 
+@pytest.fixture(scope="module")
+def rows():
+    """Every row's ``_row``, built and traced once for the module."""
+    return {r: _row(r) for r in ROWS}
+
+
 #: the step of the three samples of (a) and (c): not the trace's.
 STEP = 11
 
@@ -81,10 +98,10 @@ def _samples(data, row):
 
 
 @pytest.mark.parametrize("row", ROWS)
-def test_interpreter_matches_model_and_cost(data, gxx_build, row):
+def test_interpreter_matches_model_and_cost(data, rows, gxx_build, row):
     """(a) The scalar programs' interpreter against ``apply`` and the
     cost, at three inputs (one vectorised run) and a nonzero step."""
-    model, cost, enc, _, tr, leaves = _row(row)
+    model, cost, enc, _, tr, leaves = rows[row]
     Z, U = _samples(data, row)
     want = torch.stack([model.apply(z, u, STEP, (), enc)
                         for z, u in zip(Z, U)])
@@ -103,10 +120,10 @@ def test_interpreter_matches_model_and_cost(data, gxx_build, row):
 
 
 @pytest.mark.parametrize("row", ROWS)
-def test_plain_path_matches_pddp_tpu(data, row):
+def test_plain_path_matches_pddp_tpu(data, rows, row):
     """(b) ``fused_control_law`` on CPU tensors (stage (f)'s plain
     version) against ``pddp_tpu``'s fused line search (R8: its scan)."""
-    model, cost, enc, bounds, _, _ = _row(row)
+    model, cost, enc, bounds, _, _ = rows[row]
     t = {k: torch.as_tensor(data["{}_{}".format(row, k)])
          for k in ("Z", "U", "k", "K")}
     lo, hi = ((torch.tensor(b, dtype=F64) for b in bounds)
@@ -123,7 +140,7 @@ def test_plain_path_matches_pddp_tpu(data, row):
 
 
 @pytest.fixture(scope="module")
-def gxx_build(tmp_path_factory):
+def gxx_build(tmp_path_factory, rows):
     """Starts g++ on the printed structs of every row (one library: for
     row r, r_step, r_stage and r_terminal call its Traced's functions);
     the tests of (c) wait for it. None without g++."""
@@ -132,7 +149,7 @@ def gxx_build(tmp_path_factory):
         return None
     parts = ['#include "traced_rollout.cuh"\n']
     for row in ROWS:
-        tr = _row(row)[4]
+        tr = rows[row][4]
         parts.append("namespace {} {{\n{}\n}}\n".format(row, tr.source))
         parts.append(
             'extern "C" void {0}_step(const double* p, const double* w, '
@@ -173,10 +190,11 @@ def _ptr(t):
 
 
 @pytest.mark.parametrize("row", ROWS)
-def test_printed_header_built_by_gxx_matches(data, gxx_library, row):
+def test_printed_header_built_by_gxx_matches(data, rows, gxx_library,
+                                            row):
     """(c) The printed C++ (g++, no contraction) against ``apply`` and
     the cost."""
-    model, cost, enc, _, tr, _ = _row(row)
+    model, cost, enc, _, tr, _ = rows[row]
     p, w = tr.buffers(model, cost if tr.has_cost else None, F64, "cpu")
     Z, U = _samples(data, row)
     step = getattr(gxx_library, row + "_step")
@@ -321,11 +339,11 @@ def test_gate_refuses_an_op_outside_the_table():
     assert not fr.supports_fused_rollout(model, None, IGN)
 
 
-def test_wind_is_read_at_the_run_time_step():
+def test_wind_is_read_at_the_run_time_step(rows):
     """(d) The quadrotor's ``w[i]`` is read at the step the program is
     given, first and last, not at the sample step of the trace; and the
     table bounds the horizon."""
-    model, cost, enc, _, tr, leaves = _row("R1")
+    model, cost, enc, _, tr, leaves = rows["R1"]
     z = torch.tensor([[0.5, -0.3, 0.1, 0.0, 0.2, 0.0]], dtype=F64)
     u = torch.full((1, 2), tm.HOVER, dtype=F64)
     outs = []
@@ -363,11 +381,11 @@ def _leaf_index(model, name):
 
 
 @pytest.mark.parametrize("row", ["R1", "R4"])
-def test_trace_equals_apply_over_candidates(data, row):
+def test_trace_equals_apply_over_candidates(data, rows, row):
     """(e) The trace at one candidate's shapes equals ``apply`` at (A,
     nz): the model is elementwise over leading dims, as ``pddp_tpu``'s
     contract requires."""
-    model, _, enc, _, tr, leaves = _row(row)
+    model, _, enc, _, tr, leaves = rows[row]
     Z = torch.as_tensor(data[row + "_Z_out"][5])      # (A, nz)
     U = torch.as_tensor(data[row + "_U_out"][5])      # (A, nu)
     np.testing.assert_allclose(tr.step.run(leaves, Z, U, 5).numpy(),

@@ -31,6 +31,30 @@ action the two rotors' thrusts [u1, u2],
 
 semi-implicit Euler, with a wind table w (N, 2) read at the step i: the
 model reads ``self.w[i]``, a per-step table that K2(f) reads at run time.
+
+The stateful rows (``STATEFUL_ROWS``): K2(g), a user's stateful model
+traced from its torch code, and K2(e) over a traced inner model, shared
+by ``tests/test_torch_stateful_traced.py`` (CPU, against
+``tests/golden/stateful_traced.npz``, which
+``tests/golden/stateful_traced.py`` writes from ``pddp_tpu``) and
+``chip_smoke.py`` phase 22 (the card):
+
+===  =============================================  ==========  =========
+Row  Model                                          Codec       Cost
+===  =============================================  ==========  =========
+G1   the cartpole behind a first-order actuator lag IGNORE      CartpoleCost,
+                                                                bounds
+G2   the planar quadrotor in a filtered gust        IGNORE      saturating
+G3   the planar quadrotor in a filtered gust        CHOLESKY    post-pass
+E1   ``particulate_model`` of a bare subclass of    CHOLESKY    post-pass
+     the cartpole
+E2   ``particulate_model`` of the planar quadrotor  VARIANCE    post-pass
+===  =============================================  ==========  =========
+
+The lag's rolling state is the force f (1,) the cart feels, f' = f +
+(dt / tau)(u - f); the gust's is g (2,), g' = g + beta (w_i - g), added
+to the accelerations in place of w_i. Each step's aux is the state before
+it, so that ``apply(z, u, i, aux)`` reproduces ``step(...)[0]``.
 """
 
 from __future__ import annotations
@@ -123,12 +147,15 @@ class PlanarQuadrotorModel(DynamicsModel):
 
     def apply(self, z, u, i, aux,
               encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+        return self.dynamics(z, u, self.w[i], encoding)
+
+    def dynamics(self, z, u, gust, encoding):
+        """The step with the gust ``gust`` (..., 2) added to (x'', z'')."""
         mean = decode_mean(z, encoding)
         var = decode_var(z, encoding)
         x, h, th, x_dot, h_dot, th_dot = mean.unbind(-1)
         u1, u2 = u[..., 0], u[..., 1]
         thrust = u1 + u2
-        gust = self.w[i]
         x_dd = -thrust * torch.sin(th) / self.m + gust[..., 0]
         h_dd = thrust * torch.cos(th) / self.m - self.g + gust[..., 1]
         th_dd = self.r * (u1 - u2) / self.I
@@ -198,6 +225,139 @@ def row_inputs(row, N, nz, nu, seed=0):
     rng = np.random.default_rng(300 + 10 * seed + list(ROWS).index(row))
     kind = ROWS[row][0]
     base = HOVER if example_name(kind) == "quadrotor" else 0.0
+    U = base + 0.3 * rng.standard_normal((N, nu))
+    k = 0.1 * rng.standard_normal((N, nu))
+    K = 0.05 * rng.standard_normal((N, nu, nz))
+    return U, k, K
+
+
+# ---------------------------------------------------------------------------
+# The stateful rows: K2(g) and K2(e) over a traced inner model
+# ---------------------------------------------------------------------------
+
+#: the lag's actuator time constant (s) and the gust filter's gain.
+LAG_TAU = 0.1
+GUST_BETA = 0.3
+#: G1's action bounds.
+LAG_BOUNDS = (-0.5, 0.5)
+#: stateful row -> (model, codec, cost).
+STATEFUL_ROWS = {
+    "G1": ("lagged_cartpole", "IGNORE_UNCERTAINTY", "example"),
+    "G2": ("gust_quadrotor", "IGNORE_UNCERTAINTY", "saturating"),
+    "G3": ("gust_quadrotor", "UPPER_TRIANGULAR_CHOLESKY", "qr"),
+    "E1": ("particle_cartpole_subclass", "UPPER_TRIANGULAR_CHOLESKY",
+           "example"),
+    "E2": ("particle_quadrotor", "VARIANCE_ONLY", "qr"),
+}
+#: the stateful rows whose actions are clamped (to LAG_BOUNDS).
+STATEFUL_BOUNDED = ("G1",)
+
+
+class LaggedCartpoleModel(cartpole.CartpoleDynamicsModel):
+    """The cartpole behind a first-order actuator lag: the rolling state
+    is the force f (1,) the cart feels, f' = f + (dt / tau)(u - f), and f'
+    drives the cartpole; the step's aux is f. A user's stateful model:
+    K2(g) traces it."""
+
+    def __init__(self, *args, tau=LAG_TAU, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tau = torch.as_tensor(tau, dtype=self.dt.dtype,
+                                   device=self.dt.device)
+
+    def init_state(self, batch_shape=()):
+        return self.dt.new_zeros(tuple(batch_shape) + (1,))
+
+    def aux_zero(self):
+        return self.dt.new_zeros((1,))
+
+    def force(self, f, u):
+        return f + self.dt / self.tau * (u - f)
+
+    def step(self, z, u, i, state,
+             encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+        f = self.force(state, u)
+        return super().apply(z, f, i, (), encoding), f, state
+
+    def apply(self, z, u, i, aux,
+              encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+        return super().apply(z, self.force(aux, u), i, (), encoding)
+
+
+class GustQuadrotorModel(PlanarQuadrotorModel):
+    """The planar quadrotor in a filtered gust: the rolling state is the
+    gust g (2,) it feels, g' = g + beta (w_i - g), added to (x'', z'') in
+    place of w_i; the step's aux is g. A user's stateful model that reads
+    a table by the step index: K2(g) traces it."""
+
+    def __init__(self, w, beta=GUST_BETA, **kwargs):
+        super().__init__(w, **kwargs)
+        self.beta = torch.as_tensor(beta, dtype=self.w.dtype,
+                                    device=self.w.device)
+
+    def init_state(self, batch_shape=()):
+        return self.w.new_zeros(tuple(batch_shape) + (2,))
+
+    def aux_zero(self):
+        return self.w.new_zeros((2,))
+
+    def gust(self, g, i):
+        return g + self.beta * (self.w[i] - g)
+
+    def step(self, z, u, i, state,
+             encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+        g = self.gust(state, i)
+        return self.dynamics(z, u, g, encoding), g, state
+
+    def apply(self, z, u, i, aux,
+              encoding: StateEncoding = StateEncoding.DEFAULT, **kwargs):
+        return self.dynamics(z, u, self.gust(aux, i), encoding)
+
+
+def particle_eps(row, N, P, n):
+    """A particle row's standardized episode noise (N + 1, P, n): numpy
+    draws seeded by the row's place in STATEFUL_ROWS, each step's
+    particles at zero mean and unit std (ddof=1)."""
+    rng = np.random.default_rng(500 + list(STATEFUL_ROWS).index(row))
+    e = rng.standard_normal((N + 1, P, n))
+    return (e - e.mean(axis=1, keepdims=True)) / e.std(axis=1, ddof=1,
+                                                       keepdims=True)
+
+
+def make_stateful_row(row, N, device="cpu", dtype=torch.float64, P=8):
+    """(model, cost, encoding, (u_min, u_max) or None) of a stateful row
+    at horizon N (the particle rows with P particles and
+    ``particle_eps``'s noise), in the port."""
+    from pddp_tpu_torch.convert import particle_model
+    kind, codec, cost_kind = STATEFUL_ROWS[row]
+    enc = StateEncoding[codec]
+    name = example_name(kind)
+    if name == "quadrotor":
+        cls = GustQuadrotorModel if kind.startswith("gust") else \
+            PlanarQuadrotorModel
+        model = cls(wind(N), device=device, dtype=dtype)
+        Q, R, Q_term, x_goal, u_goal = quad_weights()
+        kw = dict(Q_term=Q_term, x_goal=x_goal, u_goal=u_goal, device=device,
+                  dtype=dtype)
+        cost = (SaturatingQRCost(Q, R, **kw) if cost_kind == "saturating"
+                else QRCost(Q, R, **kw))
+    else:
+        cls = (LaggedCartpoleModel if kind.startswith("lagged") else
+               user_subclass("cartpole_subclass"))
+        model = cls(dt=STARTS[name][0], device=device, dtype=dtype)
+        cost = cartpole.CartpoleCost(device=device, dtype=dtype)
+    if kind.startswith("particle"):
+        model = particle_model(model, particle_eps(row, N, P,
+                                                   model.state_size))
+    bounds = LAG_BOUNDS if row in STATEFUL_BOUNDED else None
+    return model, cost, enc, bounds
+
+
+def stateful_inputs(row, N, nz, nu):
+    """(U (N, nu), k (N, nu), K (N, nu, nz)) of a stateful row: numpy
+    draws, seeded by the row's place in STATEFUL_ROWS."""
+    rng = np.random.default_rng(600 + list(STATEFUL_ROWS).index(row))
+    base = HOVER if example_name(STATEFUL_ROWS[row][0]) == "quadrotor" \
+        else 0.0
     U = base + 0.3 * rng.standard_normal((N, nu))
     k = 0.1 * rng.standard_normal((N, nu))
     K = 0.05 * rng.standard_normal((N, nu, nz))
